@@ -17,8 +17,9 @@ _NOT_PORTED = ("NeRV_Boost", "ENeRV", "ENeRV_Boost", "HNeRV")
 
 
 def build_model(cfg: BoostConfig, seed: Optional[int] = 0,
-                device: Union[str, torch.device] = "cpu") -> HNeRVBoost:
-    """The model for ``cfg`` on ``device``.  With ``seed`` not None every
+                device: Union[str, torch.device] = "cuda") -> HNeRVBoost:
+    """The model for ``cfg`` on ``device``: the card unless the caller asks
+    for the CPU (``device="cpu"``).  With ``seed`` not None every
     parameter is drawn from ``torch.Generator().manual_seed(seed)`` on the
     CPU first, so the weights do not depend on the device or on torch's
     global RNG."""

@@ -15,6 +15,9 @@
 // with SFTi(v) = v * (scale_i + 1) + shift_i per channel.  The input affine
 // is applied only to taps inside the image: the reference pads after the
 // affine (models/blocks.py ResBlockSFT), so zero padding stays exactly 0.
+// With out_inv the launch stores int8 codes clip(rint(v * out_inv), +-127)
+// instead of bf16: the zero-convert chain of the W8A8 decode, where a bf16
+// stage hands its output to an int8 stage (planar.py:1297-1301).
 //
 // What bounds it on an H100: the 1080p stage-7 tensors are
 // 1080*1920*51*2 B = 211 MB each and the tail costs about 0.9 TFLOP of
@@ -31,27 +34,11 @@
 // Intermediates go through device memory in bf16; fusing a stage into one
 // launch, TMA and wgmma are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <algorithm>
+#include "stage_common.cuh"
 
 namespace {
 
-constexpr int TH = 4;                 // output rows per block, one per warp
-constexpr int TW = 32;                // output columns per block: 2 m16 tiles
-constexpr int BN = 64;                // max output channels per block
-constexpr int NT = BN / 8;
-constexpr int THREADS = TH * 32;
-constexpr int IN_H = TH + 2;
-constexpr int IN_W = TW + 2;
-constexpr int IN_PIX = IN_H * IN_W;
-constexpr int MAX_CIN_PAD = 128;      // four channels per lane
-constexpr int MAX_SMEM = 232448;      // H100 opt-in shared memory per block
 constexpr size_t SKIP = ~size_t(0);   // epilogue: no element here
-
-enum Act { ACT_NONE = 0, ACT_SIN = 1, ACT_GELU = 2, ACT_OUTIMG = 3 };
 
 struct Params {
   const __nv_bfloat16* x;          // [N, H, W, Cin]
@@ -62,41 +49,14 @@ struct Params {
   const float* out_scale;          // [Cout] or null, after the activation
   const float* out_shift;          // [Cout] or null
   const __nv_bfloat16* residual;   // output-shaped or null
-  __nv_bfloat16* out;              // [N, H, W, Cout] or [N, 2H, 2W, Cout/4]
+  const float* out_inv;            // [stored channels] or null: int8 out
+  void* out;                       // [N, H, W, Cout] or [N, 2H, 2W, Cout/4]
   int n, h, w, cin, cout, act, shuffle;
   int nw;                          // output channels per block (chunk)
   int cin_pad;                     // K per tap, rounded up to 16
   int stride;                      // shared-memory row pitch (elements)
   int tiles_w, tiles_h;            // TH x TW output tiles per image
 };
-
-// sin with its argument reduced to [-pi, pi] by a two-constant 2*pi
-// (6.28125 is exact in 8 bits, so k * 6.28125 is exact for |k| < 2^16),
-// then the SFU sine, whose error on [-pi, pi] is below 4e-7.  For
-// |v| < 1e4 the result is within ~1e-6 of sin(v): far inside bf16.
-__device__ __forceinline__ float sin_reduced(float v) {
-  const float k = rintf(v * 0.159154943091895336f);
-  float r = fmaf(-k, 6.28125f, v);
-  r = fmaf(-k, 1.93530717958647692e-3f, r);
-  return __sinf(r);
-}
-
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
-    case ACT_SIN:
-      return sin_reduced(v);
-    case ACT_GELU:
-      return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-    case ACT_OUTIMG:
-      return tanhf(v) * 0.5f + 0.5f;
-    default:
-      return v;
-  }
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
                                          const uint32_t* b) {
@@ -108,7 +68,9 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
 }
 
 // CK: input channels a lane stages per pixel, lane + 32k (cin_pad <= 32 CK).
-template <int CK>
+// Q: store int8 codes at out_inv instead of bf16 (a compile-time choice, so
+// that the bf16 store path carries no code of the int8 one).
+template <int CK, bool Q>
 __global__ void __launch_bounds__(THREADS)
 stage_conv3x3_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -117,12 +79,13 @@ stage_conv3x3_kernel(const Params p) {
   // banks.  The output channels are split into equal chunks of nw <= BN
   // (a multiple of 8), one per blockIdx.y; s_w holds nw rows per tap, so
   // that two blocks fit on an SM at most widths.  s_vec: bias,
-  // out_scale + 1, out_shift of this channel chunk.
+  // out_scale + 1, out_shift, out_inv of this channel chunk.
   __nv_bfloat16* s_in = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* s_w = s_in + IN_PIX * p.stride;
   float* s_vec = reinterpret_cast<float*>(s_w + 9 * p.nw * p.stride);
   const __nv_bfloat16* __restrict__ residual = p.residual;
-  __nv_bfloat16* __restrict__ out = p.out;
+  __nv_bfloat16* __restrict__ out = static_cast<__nv_bfloat16*>(p.out);
+  int8_t* __restrict__ out_q = static_cast<int8_t*>(p.out);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -144,9 +107,11 @@ stage_conv3x3_kernel(const Params p) {
   }
   for (int n = threadIdx.x; n < BN; n += THREADS) {
     const bool ok = n0 + n < p.cout;
+    const int stored = p.shuffle ? (n0 + n) >> 2 : n0 + n;
     s_vec[n] = ok ? __bfloat162float(p.bias[n0 + n]) : 0.0f;
     s_vec[BN + n] = ok && p.out_scale ? p.out_scale[n0 + n] + 1.0f : 1.0f;
     s_vec[2 * BN + n] = ok && p.out_shift ? p.out_shift[n0 + n] : 0.0f;
+    s_vec[3 * BN + n] = ok && p.out_inv ? p.out_inv[stored] : 0.0f;
   }
   // a lane stages input channels lane + 32k; its prologue affine is
   // loop-invariant
@@ -254,16 +219,9 @@ stage_conv3x3_kernel(const Params p) {
           const int ox = tx0 + mt * 16 + g + (e >> 1) * 8;
           const int n = n0 + j * 8 + tg * 2 + (e & 1);
           const bool ok = j < nt && ox < p.w && n < p.cout;
-          if (p.shuffle) {
-            // torch PixelShuffle(2): channel n = c*4 + r1*2 + r2 lands at
-            // fine pixel (2*oy + r1, 2*ox + r2), channel c
-            const int c = n >> 2, r1 = (n >> 1) & 1, r2 = n & 1;
-            off[j][e] = (((size_t)b * 2 * p.h + 2 * oy + r1) * 2 * p.w +
-                         2 * ox + r2) * (p.cout >> 2) + c;
-          } else {
-            off[j][e] = (((size_t)b * p.h + oy) * p.w + ox) * p.cout + n;
-          }
-          off[j][e] = ok ? off[j][e] : SKIP;
+          off[j][e] = ok ? out_offset(b, oy, ox, n, p.h, p.w, p.cout,
+                                      p.shuffle)
+                         : SKIP;
           res[j][e] = (ok && residual) ? __bfloat162float(residual[off[j][e]])
                                        : 0.0f;
         }
@@ -276,41 +234,27 @@ stage_conv3x3_kernel(const Params p) {
           const int n = j * 8 + tg * 2 + (e & 1);
           float v = activate(acc[mt][j][e] + s_vec[n], p.act);
           v = v * s_vec[BN + n] + s_vec[2 * BN + n] + res[j][e];
-          out[off[j][e]] = __float2bfloat16(v);
+          if constexpr (Q) {
+            out_q[off[j][e]] = quant(v, s_vec[3 * BN + n]);
+          } else {
+            out[off[j][e]] = __float2bfloat16(v);
+          }
         }
       }
     }
   }
 }
 
-// Output channels per block: Cout in equal chunks of at most BN, each a
-// multiple of 8 (73 -> 2 x 40, 204 -> 4 x 56).
-int chunk_width(int cout) {
-  const int chunks = (cout + BN - 1) / BN;
-  return ((cout + chunks - 1) / chunks + 7) / 8 * 8;
-}
-
-template <int CK>
-int launch(const Params& p, int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      stage_conv3x3_kernel<CK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  // persistent blocks: as many as fit on the card at once, each walking
-  // tiles with a stride so that its weights are loaded once
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, stage_conv3x3_kernel<CK>, THREADS, smem);
-  if (err != cudaSuccess) return err;
-  const int chunks = (p.cout + p.nw - 1) / p.nw;
+template <bool Q>
+int launch(const Params& p, int smem, cudaStream_t s) {
   const int tiles = p.tiles_w * p.tiles_h * p.n;
-  const int blocks = std::max(
-      1, std::min(tiles, (sms * std::max(per_sm, 1) + chunks - 1) / chunks));
-  stage_conv3x3_kernel<CK><<<dim3(blocks, chunks), THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+  const int chunks = (p.cout + p.nw - 1) / p.nw;
+  switch ((p.cin_pad + 31) / 32) {
+    case 1: return launch_persistent(stage_conv3x3_kernel<1, Q>, p, tiles, chunks, smem, s);
+    case 2: return launch_persistent(stage_conv3x3_kernel<2, Q>, p, tiles, chunks, smem, s);
+    case 3: return launch_persistent(stage_conv3x3_kernel<3, Q>, p, tiles, chunks, smem, s);
+    default: return launch_persistent(stage_conv3x3_kernel<4, Q>, p, tiles, chunks, smem, s);
+  }
 }
 
 }  // namespace
@@ -325,7 +269,7 @@ int bnt_stage_conv3x3_smem(int cin, int cout) {
   const int stride = cin_pad + 8;
   const int nw = chunk_width(cout);
   const int smem = (IN_PIX + 9 * nw) * stride * (int)sizeof(__nv_bfloat16) +
-                   3 * BN * (int)sizeof(float);
+                   4 * BN * (int)sizeof(float);
   return (cin_pad > MAX_CIN_PAD || smem > MAX_SMEM) ? -1 : smem;
 }
 
@@ -335,8 +279,9 @@ int bnt_stage_conv3x3_smem(int cin, int cout) {
 int bnt_stage_conv3x3(const void* x, const void* w, const void* bias,
                       const void* in_scale, const void* in_shift,
                       const void* out_scale, const void* out_shift,
-                      const void* residual, void* out, int n, int h, int w_,
-                      int cin, int cout, int act, int shuffle, void* stream) {
+                      const void* residual, const void* out_inv, void* out,
+                      int n, int h, int w_, int cin, int cout, int act,
+                      int shuffle, void* stream) {
   Params p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.wgt = static_cast<const __nv_bfloat16*>(w);
@@ -346,7 +291,8 @@ int bnt_stage_conv3x3(const void* x, const void* w, const void* bias,
   p.out_scale = static_cast<const float*>(out_scale);
   p.out_shift = static_cast<const float*>(out_shift);
   p.residual = static_cast<const __nv_bfloat16*>(residual);
-  p.out = static_cast<__nv_bfloat16*>(out);
+  p.out_inv = static_cast<const float*>(out_inv);
+  p.out = out;
   p.n = n;
   p.h = h;
   p.w = w_;
@@ -362,12 +308,7 @@ int bnt_stage_conv3x3(const void* x, const void* w, const void* bias,
   const int smem = bnt_stage_conv3x3_smem(cin, cout);
   if (smem < 0 || (shuffle && cout % 4 != 0)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((p.cin_pad + 31) / 32) {
-    case 1: return launch<1>(p, smem, s);
-    case 2: return launch<2>(p, smem, s);
-    case 3: return launch<3>(p, smem, s);
-    default: return launch<4>(p, smem, s);
-  }
+  return out_inv ? launch<true>(p, smem, s) : launch<false>(p, smem, s);
 }
 
 const char* bnt_error_string(int err) {

@@ -1,14 +1,16 @@
 """Build and load the port's CUDA kernels (``ops/csrc/*.cu``).
 
-``nvcc`` compiles every source under ``ops/csrc`` into one shared library
-with a plain C interface, for Hopper (``sm_90a``), at first use.  The
-library's name carries a hash of the sources and flags, so an edited source
-builds anew and an unchanged one is loaded from ``boosting_nerv_torch/
-build/``.  The library is bound with ``ctypes``: each pointer and the
-stream is a ``c_void_p`` and each int a ``c_int``; every entry point
-returns ``cudaGetLastError()`` after its launch, which ``check`` turns into
-an exception.  Nothing here runs on import: the CPU tests import this
-module on machines without ``nvcc``.
+``nvcc`` compiles every ``.cu`` source under ``ops/csrc`` for Hopper
+(``sm_90a``), one process per source, all started together, and links the
+objects into one shared library with a plain C interface, at first use.
+The library's name carries a hash of the sources (headers included) and
+flags, so an edited source builds anew and an unchanged one is loaded from
+``boosting_nerv_torch/build/``; ptxas's register and spill report is kept
+beside it (``<library>.log``).  The library is bound with ``ctypes``: each
+pointer and the stream is a ``c_void_p`` and each int a ``c_int``; every
+entry point returns ``cudaGetLastError()`` after its launch, which
+``check`` turns into an exception.  Nothing here runs on import: the CPU
+tests import this module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(__file__)))
 CSRC = os.path.join(_PKG, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -56,29 +59,45 @@ def library_path() -> str:
 
 
 def build(path: str) -> None:
-    """Compile every ``.cu`` source into ``path`` (atomically renamed)."""
+    """Compile every ``.cu`` source in parallel and link them into ``path``
+    (atomically renamed); ptxas's report goes to ``path + ".log"``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     cus = [s for s in _sources() if s.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, path)
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in cus]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                for s, o in zip(cus, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        lib = os.path.join(tmp, "lib.so")
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]
+        res = subprocess.run(link, capture_output=True, text=True)
+        runs = [(c, p.returncode, log) for c, p, log in zip(cmds, procs, logs)]
+        for cmd, rc, log in runs + [(link, res.returncode,
+                                     res.stdout + res.stderr)]:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                                   f"{log}")
+        with open(path + ".log", "w") as f:
+            f.write("".join(logs))
+        os.replace(lib, path)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.bnt_stage_conv3x3.restype = ci
-    lib.bnt_stage_conv3x3.argtypes = [vp] * 9 + [ci] * 7 + [vp]
-    lib.bnt_stage_conv3x3_smem.restype = ci
-    lib.bnt_stage_conv3x3_smem.argtypes = [ci, ci]
+    lib.bnt_stage_conv3x3.argtypes = [vp] * 10 + [ci] * 7 + [vp]
+    lib.bnt_stage_conv3x3_i8.restype = ci
+    lib.bnt_stage_conv3x3_i8.argtypes = [vp] * 12 + [ci] * 8 + [vp]
+    for fn in (lib.bnt_stage_conv3x3_smem, lib.bnt_stage_conv3x3_i8_smem):
+        fn.restype = ci
+        fn.argtypes = [ci, ci]
     lib.bnt_error_string.restype = ctypes.c_char_p
     lib.bnt_error_string.argtypes = [ci]
     return lib

@@ -1,35 +1,48 @@
-"""Decoder-tail stage kernels: the port of the two bf16 Pallas kernels of
-``boosting_nerv_tpu/ops/pallas/planar.py`` that serve HNeRV-Boost.
+"""Decoder-tail stage kernels: the port of the Pallas kernels of
+``boosting_nerv_tpu/ops/pallas/planar.py`` that serve HNeRV-Boost, in their
+bf16 and W8A8 forms.
 
 - ``fused_upconv_rsft`` (stride-2 stage):
   y = sin(PixelShuffle2(conv3x3(x) + b)); out = ResBlockSFT(y).
 - ``fused_conv_rsft`` (stride-1 stage): y = sin(conv3x3(x) + b);
   out = ResBlockSFT(y); with ``head`` also
   rgb = tanh(conv3x3_{c->3}(out) + b_h) * 0.5 + 0.5.
+- ``fused_upconv_rsft_i8`` / ``fused_conv_rsft_i8``: the same functions in
+  W8A8 (``StageWeightsI8``): every conv input is quantised per channel to
+  int8 codes, the weights are int8 with the activation scale folded in, and
+  the int32 sums are dequantised per output channel (``quant``).  Their
+  input is int8 codes (the zero-convert chain) or bf16, which the first
+  launch quantises.  y stays floating point and is the residual, in bf16
+  as the Pallas stride-1 kernel keeps it (planar.py:1475-1478); the Pallas
+  stride-2 kernel keeps it in float32 in VMEM (:1290), which the port's
+  stride-2 stage does not, as its bf16 form does not.
 
 ResBlockSFT(y) = y + conv3x3(SFT1(gelu(conv3x3(SFT0(y)) + b0))) + b1 with
-SFTi(v) = v * (scale_i + 1) + shift_i per channel.
+SFTi(v) = v * (scale_i + 1) + shift_i per channel.  With ``out_inv`` a
+stage stores its output as int8 codes at that multiplier (the next int8
+stage's input bound) instead of bf16.
 
 Tensors are NHWC on the fine grid: the TPU's subpixel-planar layout served
 Mosaic and is not part of this contract.  Each wrapper runs its plain
-PyTorch version for a tensor on the CPU and its CUDA kernel
-(``ops/csrc/stage_conv.cu``, three or four launches of one fused 3x3
-convolution) for a tensor on the card; on a CUDA tensor it launches or
-raises, it never falls back.  ``LAUNCHES`` counts the wrapper calls that
-launched the CUDA kernel.
+PyTorch version for a tensor on the CPU and its CUDA kernel (three or four
+launches of one fused 3x3 convolution: ``ops/csrc/stage_conv.cu`` for
+bf16, ``ops/csrc/stage_conv_i8.cu`` for W8A8) for a tensor on the card; on
+a CUDA tensor it launches or raises, it never falls back.  ``LAUNCHES``
+counts the wrapper calls that launched a CUDA kernel.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, quant
 
-LAUNCHES = {"fused_upconv_rsft": 0, "fused_conv_rsft": 0}
+LAUNCHES = {"fused_upconv_rsft": 0, "fused_conv_rsft": 0,
+            "fused_upconv_rsft_i8": 0, "fused_conv_rsft_i8": 0}
 
 _ACT = {"none": 0, "sin": 1, "gelu": 2, "outimg": 3}
 
@@ -70,18 +83,74 @@ class StageWeights:
             b(head) if head is not None else None)
 
 
+@dataclass(frozen=True)
+class StageWeightsI8:
+    """One W8A8 tail stage (the port of ``prepare_conv_rsft_i8`` /
+    ``prepare_upconv_rsft_i8``, planar.py:673-737): int8 OHWI weight codes
+    with float32 per-output-channel dequant scales and float32 biases for
+    the stage conv, conv0, conv1 and the optional head; and the float32
+    quantisation multipliers of each conv's input: ``inv_x`` (the stage
+    input), ``inv_t0``, ``inv_t1`` and ``inv_h`` (the head input)."""
+    conv_w: torch.Tensor
+    conv_scale: torch.Tensor
+    conv_b: torch.Tensor
+    w0: torch.Tensor
+    scale0: torch.Tensor
+    b0: torch.Tensor
+    w1: torch.Tensor
+    scale1: torch.Tensor
+    b1: torch.Tensor
+    inv_x: torch.Tensor
+    inv_t0: torch.Tensor
+    inv_t1: torch.Tensor
+    head_w: Optional[torch.Tensor] = None
+    head_scale: Optional[torch.Tensor] = None
+    head_b: Optional[torch.Tensor] = None
+    inv_h: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def from_oihw(conv, rsft_conv0, rsft_conv1, head=None, *,
+                  bounds: Mapping[str, torch.Tensor],
+                  dtype=torch.bfloat16) -> "StageWeightsI8":
+        """From ``nn.Conv2d``-like modules and the per-channel |x| bounds
+        of each conv input, keyed "x", "t0", "t1" (and "h" with a head).
+        The parameters are rounded to ``dtype`` first, as the serving
+        decode holds them (the JAX decode quantises its bf16 tree)."""
+        dev = conv.weight.device
+
+        def fold(m, key):
+            w = m.weight.detach().to(dtype).float().permute(0, 2, 3, 1)
+            codes, scale = quant.fold_quant_weight(w, bounds[key])
+            return (codes.contiguous(), scale.contiguous(),
+                    m.bias.detach().to(dtype).float().contiguous())
+
+        def inv(key):
+            return quant.inv_from_bound(bounds[key]).to(dev).contiguous()
+
+        hw = fold(head, "h") + (inv("h"),) if head is not None else ()
+        return StageWeightsI8(
+            *fold(conv, "x"), *fold(rsft_conv0, "t0"),
+            *fold(rsft_conv1, "t1"), inv("x"), inv("t0"), inv("t1"), *hw)
+
+
 # --------------------------------------------------------------------- #
-# plain PyTorch versions (any dtype; NHWC in and out)
+# plain PyTorch versions (NHWC in and out)
 # --------------------------------------------------------------------- #
 
 def _conv(x, w_ohwi, b):
     return F.conv2d(x, w_ohwi.permute(0, 3, 1, 2), b, padding=1)
 
 
-def _rsft(y, weights, sft):
+def _rsft(y, weights, sft, f32_out=False):
+    """ResBlockSFT in y's dtype; with ``f32_out`` the last conv and the
+    residual sum in float32, as the kernel's epilogue computes them before
+    it stores int8 codes."""
     s0, h0, s1, h1 = (v.to(y.dtype)[None, :, None, None] for v in sft)
     t = F.gelu(_conv(y * (s0 + 1) + h0, weights.w0, weights.b0))
     t = t * (s1 + 1) + h1
+    if f32_out:
+        return y.float() + _conv(t.float(), weights.w1.float(),
+                                 weights.b1.float())
     return y + _conv(t, weights.w1, weights.b1)
 
 
@@ -93,23 +162,87 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+def _store(out, out_inv, dtype):
+    """A stage's output: int8 codes at ``out_inv``, else ``dtype``."""
+    if out_inv is None:
+        return out.to(dtype)
+    return quant.quant_act(out, out_inv)
+
+
 def fused_upconv_rsft_plain(x: torch.Tensor, weights: StageWeights,
-                            sft: torch.Tensor) -> torch.Tensor:
+                            sft: torch.Tensor,
+                            out_inv: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """[N, H, W, Cin] -> [N, 2H, 2W, C]; sft: [4, C] = (s0, h0, s1, h1)."""
     y = torch.sin(F.pixel_shuffle(_conv(_nchw(x), weights.conv_w,
                                         weights.conv_b), 2))
-    return _nhwc(_rsft(y, weights, sft))
+    out = _rsft(y, weights, sft, f32_out=out_inv is not None)
+    return _store(_nhwc(out), out_inv, x.dtype)
 
 
 def fused_conv_rsft_plain(x: torch.Tensor, weights: StageWeights,
-                          sft: torch.Tensor, head: bool = False
+                          sft: torch.Tensor, head: bool = False,
+                          out_inv: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """[N, H, W, C] -> [N, H, W, C], or [N, H, W, 3] RGB with ``head``."""
     y = torch.sin(_conv(_nchw(x), weights.conv_w, weights.conv_b))
-    out = _rsft(y, weights, sft)
+    out = _rsft(y, weights, sft, f32_out=out_inv is not None)
     if head:
         out = torch.tanh(_conv(out, weights.head_w, weights.head_b)) * 0.5 + 0.5
-    return _nhwc(out)
+    return _store(_nhwc(out), out_inv, x.dtype)
+
+
+def _conv_i8(q, codes, scale, bias):
+    """int8 NHWC codes (x) int8 OHWI codes, dequantised: NHWC float32.
+    The integer sum is taken in float64, which is exact for it (|sum| <
+    9 * 128 * 127^2 < 2^53) on the CPU and on the card alike."""
+    acc = F.conv2d(_nchw(q).double(), codes.permute(0, 3, 1, 2).double(),
+                   padding=1)
+    return _nhwc(acc).float() * scale + bias
+
+
+def _codes(x, inv):
+    """A stage input as int8 codes: as given (zero-convert) or quantised."""
+    return x if x.dtype == torch.int8 else quant.quant_act(x, inv)
+
+
+def _rsft_i8(y, w: StageWeightsI8, sft):
+    """W8A8 ResBlockSFT of NHWC y: float32 y + dq(conv1(t1))."""
+    s0, h0, s1, h1 = sft.float()
+    yf = y.float()
+    t0 = quant.quant_act(yf * (s0 + 1) + h0, w.inv_t0)
+    a = F.gelu(_conv_i8(t0, w.w0, w.scale0, w.b0))
+    t1 = quant.quant_act(a * (s1 + 1) + h1, w.inv_t1)
+    return yf + _conv_i8(t1, w.w1, w.scale1, w.b1)
+
+
+def fused_upconv_rsft_i8_plain(x: torch.Tensor, w: StageWeightsI8,
+                               sft: torch.Tensor,
+                               out_inv: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """W8A8 stride-2 stage: [N, H, W, Cin] int8 codes or floats ->
+    [N, 2H, 2W, C] bf16, or int8 codes at ``out_inv``."""
+    y = torch.sin(F.pixel_shuffle(_nchw(_conv_i8(
+        _codes(x, w.inv_x), w.conv_w, w.conv_scale, w.conv_b)), 2))
+    y = _nhwc(y).to(torch.bfloat16)
+    return _store(_rsft_i8(y, w, sft), out_inv, torch.bfloat16)
+
+
+def fused_conv_rsft_i8_plain(x: torch.Tensor, w: StageWeightsI8,
+                             sft: torch.Tensor, head: bool = False,
+                             out_inv: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """W8A8 stride-1 stage: [N, H, W, C] int8 codes or floats ->
+    [N, H, W, C] bf16 (or int8 codes at ``out_inv``), or with ``head`` the
+    [N, H, W, 3] bf16 RGB frame, whose input is quantised at ``inv_h``."""
+    y = torch.sin(_conv_i8(_codes(x, w.inv_x), w.conv_w, w.conv_scale,
+                           w.conv_b)).to(torch.bfloat16)
+    out = _rsft_i8(y, w, sft)
+    if head:
+        hq = quant.quant_act(out, w.inv_h)
+        rgb = torch.tanh(_conv_i8(hq, w.head_w, w.head_scale, w.head_b))
+        return (rgb * 0.5 + 0.5).to(torch.bfloat16)
+    return _store(out, out_inv, torch.bfloat16)
 
 
 # --------------------------------------------------------------------- #
@@ -120,108 +253,242 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 def _conv3x3(lib, x, w, b, out, *, act="none", shuffle=False,
-             in_affine=None, out_affine=None, residual=None):
+             in_affine=None, out_affine=None, residual=None, out_inv=None):
     n, h, wd, cin = x.shape
-    cout = w.shape[0]
     s_in, h_in = in_affine if in_affine is not None else (None, None)
     s_out, h_out = out_affine if out_affine is not None else (None, None)
     err = lib.bnt_stage_conv3x3(
         _ptr(x), _ptr(w), _ptr(b), _ptr(s_in), _ptr(h_in), _ptr(s_out),
-        _ptr(h_out), _ptr(residual), _ptr(out), n, h, wd, cin, cout,
-        _ACT[act], int(shuffle), torch.cuda.current_stream(x.device).cuda_stream)
+        _ptr(h_out), _ptr(residual), _ptr(out_inv), _ptr(out), n, h, wd, cin,
+        w.shape[0], _ACT[act], int(shuffle), _stream(x))
     _build.check(err, "stage_conv3x3 launch")
 
 
-def _check_inputs(x, weights, sft, c_in, c, head, up):
+def _conv3x3_i8(lib, x, codes, scale, bias, out, *, act="none",
+                shuffle=False, in_inv=None, in_affine=None, out_affine=None,
+                residual=None, out_inv=None):
+    n, h, wd, cin = x.shape
+    s_in, h_in = in_affine if in_affine is not None else (None, None)
+    s_out, h_out = out_affine if out_affine is not None else (None, None)
+    err = lib.bnt_stage_conv3x3_i8(
+        _ptr(x), _ptr(codes), _ptr(scale), _ptr(bias),
+        None if x.dtype == torch.int8 else _ptr(in_inv), _ptr(s_in),
+        _ptr(h_in), _ptr(s_out), _ptr(h_out), _ptr(residual), _ptr(out_inv),
+        _ptr(out), n, h, wd, cin, codes.shape[0], _ACT[act], int(shuffle),
+        int(x.dtype == torch.int8), _stream(x))
+    _build.check(err, "stage_conv3x3_i8 launch")
+
+
+def _check_inputs(x, sft, out_inv, c_in, c, head, tensors, x_dtypes,
+                  smem_fn, convs):
+    """Shapes everywhere; on the card also device, contiguity, dtypes and
+    the shared-memory fit of every conv.  ``tensors``: (name, tensor,
+    shape, dtype on the card).  True: launch the kernel; False: the input
+    lies on the CPU, run the plain version."""
     if x.dim() != 4 or x.shape[3] != c_in:
         raise ValueError(f"x must be NHWC [N, H, W, {c_in}], got "
                          f"{tuple(x.shape)}")
-    shapes = {"w0": (c, 3, 3, c), "b0": (c,), "w1": (c, 3, 3, c),
-              "b1": (c,)}
-    if head:
-        shapes.update(head_w=(3, 3, 3, c), head_b=(3,))
-    for name, shape in shapes.items():
-        t = getattr(weights, name)
+    tensors = tensors + [("sft", sft, (4, c), torch.float32)]
+    if out_inv is not None:
+        if head:
+            raise ValueError("the head's RGB output stays bf16: pass "
+                             "out_inv or head, not both")
+        tensors.append(("out_inv", out_inv, (c,), torch.float32))
+    for name, t, shape, _ in tensors:
         if t is None or tuple(t.shape) != shape:
-            raise ValueError(f"weights.{name} must have shape {shape}, got "
+            raise ValueError(f"{name} must have shape {shape}, got "
                              f"{None if t is None else tuple(t.shape)}")
-    if tuple(sft.shape) != (4, c):
-        raise ValueError(f"sft must be [4, {c}], got {tuple(sft.shape)}")
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    tensors = [x, sft] + [getattr(weights, k) for k in shapes] + [
-        weights.conv_w, weights.conv_b]
-    for t in tensors:
+    if x.dtype not in x_dtypes:
+        raise ValueError(f"the CUDA kernel takes x in {x_dtypes}, got "
+                         f"{x.dtype}")
+    for name, t, _, dtype in tensors + [("x", x, None, x.dtype)]:
         if t.device != x.device:
             raise ValueError(f"all tensors must be on {x.device}, got "
-                             f"{t.device}")
+                             f"{name} on {t.device}")
         if not t.is_contiguous():
             raise ValueError("the CUDA kernel takes contiguous tensors")
-        if t is not sft and t.dtype != torch.bfloat16:
-            raise ValueError(f"the CUDA kernel takes bfloat16, got {t.dtype}")
-    if sft.dtype != torch.float32:
-        raise ValueError(f"sft must be float32 on the card, got {sft.dtype}")
-    lib = _build.load_library()
-    convs = [(c_in, 4 * c if up else c), (c, c)]
-    if head:
-        convs.append((c, 3))
+        if t.dtype != dtype:
+            raise ValueError(f"the CUDA kernel takes {name} as {dtype}, got "
+                             f"{t.dtype}")
+    smem = smem_fn(_build.load_library())
     for cin, cout in convs:
-        if lib.bnt_stage_conv3x3_smem(cin, cout) < 0:
+        if smem(cin, cout) < 0:
             raise ValueError(f"a {cin}->{cout} conv does not fit the "
                              "kernel's shared-memory tile")
     return True
 
 
-def _rsft_cuda(lib, y, weights, sft):
+def _stage_convs(c_in, c, up, head):
+    return [(c_in, 4 * c if up else c), (c, c)] + ([(c, 3)] if head else [])
+
+
+def _check_bf16(x, w: StageWeights, sft, out_inv, c_in, c, head, up):
+    bf = torch.bfloat16
+    tensors = [("weights.conv_w", w.conv_w, (4 * c if up else c, 3, 3, c_in),
+                bf), ("weights.conv_b", w.conv_b, (4 * c if up else c,), bf),
+               ("weights.w0", w.w0, (c, 3, 3, c), bf),
+               ("weights.b0", w.b0, (c,), bf),
+               ("weights.w1", w.w1, (c, 3, 3, c), bf),
+               ("weights.b1", w.b1, (c,), bf)]
+    if head:
+        tensors += [("weights.head_w", w.head_w, (3, 3, 3, c), bf),
+                    ("weights.head_b", w.head_b, (3,), bf)]
+    return _check_inputs(x, sft, out_inv, c_in, c, head, tensors, (bf,),
+                         lambda lib: lib.bnt_stage_conv3x3_smem,
+                         _stage_convs(c_in, c, up, head))
+
+
+def _check_i8(x, w: StageWeightsI8, sft, out_inv, c_in, c, head, up):
+    i8, f32 = torch.int8, torch.float32
+    cout = 4 * c if up else c
+    tensors = [("w.conv_w", w.conv_w, (cout, 3, 3, c_in), i8),
+               ("w.conv_scale", w.conv_scale, (cout,), f32),
+               ("w.conv_b", w.conv_b, (cout,), f32),
+               ("w.inv_x", w.inv_x, (c_in,), f32)]
+    for k in ("0", "1"):
+        tensors += [(f"w.w{k}", getattr(w, "w" + k), (c, 3, 3, c), i8),
+                    (f"w.scale{k}", getattr(w, "scale" + k), (c,), f32),
+                    (f"w.b{k}", getattr(w, "b" + k), (c,), f32),
+                    (f"w.inv_t{k}", getattr(w, "inv_t" + k), (c,), f32)]
+    if head:
+        tensors += [("w.head_w", w.head_w, (3, 3, 3, c), i8),
+                    ("w.head_scale", w.head_scale, (3,), f32),
+                    ("w.head_b", w.head_b, (3,), f32),
+                    ("w.inv_h", w.inv_h, (c,), f32)]
+    return _check_inputs(x, sft, out_inv, c_in, c, head, tensors,
+                         (torch.int8, torch.bfloat16),
+                         lambda lib: lib.bnt_stage_conv3x3_i8_smem,
+                         _stage_convs(c_in, c, up, head))
+
+
+def _channels(conv_w, up):
+    """(C_in, C) of a stage from its conv weight [Cout, 3, 3, Cin]."""
+    if conv_w.dim() != 4 or conv_w.shape[1:3] != (3, 3) or (
+            up and conv_w.shape[0] % 4):
+        raise ValueError("conv_w must be [C or 4*C, 3, 3, Cin], got "
+                         f"{tuple(conv_w.shape)}")
+    cout, c_in = conv_w.shape[0], conv_w.shape[3]
+    return c_in, cout // 4 if up else cout
+
+
+def _out(x, shape, out_inv):
+    return torch.empty(shape, dtype=torch.int8 if out_inv is not None
+                       else torch.bfloat16, device=x.device)
+
+
+def _rsft_cuda(lib, y, weights, sft, out_inv=None):
     t = torch.empty_like(y)
     _conv3x3(lib, y, weights.w0, weights.b0, t, act="gelu",
              in_affine=(sft[0], sft[1]), out_affine=(sft[2], sft[3]))
-    out = torch.empty_like(y)
-    _conv3x3(lib, t, weights.w1, weights.b1, out, residual=y)
+    out = _out(y, y.shape, out_inv)
+    _conv3x3(lib, t, weights.w1, weights.b1, out, residual=y,
+             out_inv=out_inv)
     return out
 
 
 def fused_upconv_rsft(x: torch.Tensor, weights: StageWeights,
-                      sft: torch.Tensor) -> torch.Tensor:
-    """Stride-2 stage: [N, H, W, Cin] -> [N, 2H, 2W, C].  sft: [4, C]
-    (scale0, shift0, scale1, shift1), float32 on the card."""
-    c4, c_in = weights.conv_w.shape[0], weights.conv_w.shape[3]
-    if weights.conv_w.shape[1:3] != (3, 3) or c4 % 4 or tuple(
-            weights.conv_b.shape) != (c4,):
-        raise ValueError("conv_w must be [4*C, 3, 3, Cin] with a [4*C] bias")
-    c = c4 // 4
-    if not _check_inputs(x, weights, sft, c_in, c, head=False, up=True):
-        return fused_upconv_rsft_plain(x, weights, sft)
+                      sft: torch.Tensor,
+                      out_inv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stride-2 stage: [N, H, W, Cin] -> [N, 2H, 2W, C] bf16, or int8
+    codes at ``out_inv`` ([C] float32).  sft: [4, C] (scale0, shift0,
+    scale1, shift1), float32 on the card."""
+    c_in, c = _channels(weights.conv_w, up=True)
+    if not _check_bf16(x, weights, sft, out_inv, c_in, c, False, True):
+        return fused_upconv_rsft_plain(x, weights, sft, out_inv)
     lib = _build.load_library()
     n, h, w, _ = x.shape
     y = torch.empty((n, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
     _conv3x3(lib, x, weights.conv_w, weights.conv_b, y, act="sin",
              shuffle=True)
-    out = _rsft_cuda(lib, y, weights, sft)
+    out = _rsft_cuda(lib, y, weights, sft, out_inv)
     LAUNCHES["fused_upconv_rsft"] += 1
     return out
 
 
 def fused_conv_rsft(x: torch.Tensor, weights: StageWeights,
-                    sft: torch.Tensor, head: bool = False) -> torch.Tensor:
-    """Stride-1 stage: [N, H, W, C] -> [N, H, W, C], or with ``head`` the
-    [N, H, W, 3] RGB frame in [0, 1]."""
-    c = weights.conv_w.shape[0]
-    if tuple(weights.conv_w.shape) != (c, 3, 3, c) or tuple(
-            weights.conv_b.shape) != (c,):
-        raise ValueError("conv_w must be [C, 3, 3, C] with a [C] bias")
-    if not _check_inputs(x, weights, sft, c, c, head=head, up=False):
-        return fused_conv_rsft_plain(x, weights, sft, head=head)
+                    sft: torch.Tensor, head: bool = False,
+                    out_inv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stride-1 stage: [N, H, W, C] -> [N, H, W, C] bf16 (or int8 codes at
+    ``out_inv``), or with ``head`` the [N, H, W, 3] RGB frame in [0, 1]."""
+    c_in, c = _channels(weights.conv_w, up=False)
+    if not _check_bf16(x, weights, sft, out_inv, c_in, c, head, False):
+        return fused_conv_rsft_plain(x, weights, sft, head=head,
+                                     out_inv=out_inv)
     lib = _build.load_library()
-    y = torch.empty_like(x)
+    y = torch.empty(x.shape[:3] + (c,), dtype=x.dtype, device=x.device)
     _conv3x3(lib, x, weights.conv_w, weights.conv_b, y, act="sin")
-    out = _rsft_cuda(lib, y, weights, sft)
+    out = _rsft_cuda(lib, y, weights, sft, out_inv)
     if head:
         rgb = torch.empty(x.shape[:3] + (3,), dtype=x.dtype, device=x.device)
         _conv3x3(lib, out, weights.head_w, weights.head_b, rgb, act="outimg")
         out = rgb
     LAUNCHES["fused_conv_rsft"] += 1
+    return out
+
+
+def _rsft_i8_cuda(lib, y, w: StageWeightsI8, sft, out_inv):
+    t = torch.empty(y.shape, dtype=torch.int8, device=y.device)
+    _conv3x3_i8(lib, y, w.w0, w.scale0, w.b0, t, act="gelu", in_inv=w.inv_t0,
+                in_affine=(sft[0], sft[1]), out_affine=(sft[2], sft[3]),
+                out_inv=w.inv_t1)
+    out = _out(y, y.shape, out_inv)
+    _conv3x3_i8(lib, t, w.w1, w.scale1, w.b1, out, residual=y,
+                out_inv=out_inv)
+    return out
+
+
+def fused_upconv_rsft_i8(x: torch.Tensor, w: StageWeightsI8,
+                         sft: torch.Tensor,
+                         out_inv: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """W8A8 stride-2 stage: [N, H, W, Cin] int8 codes at ``w.inv_x`` or
+    bf16 -> [N, 2H, 2W, C] bf16, or int8 codes at ``out_inv``."""
+    c_in, c = _channels(w.conv_w, up=True)
+    if not _check_i8(x, w, sft, out_inv, c_in, c, False, True):
+        return fused_upconv_rsft_i8_plain(x, w, sft, out_inv)
+    lib = _build.load_library()
+    n, h, wd, _ = x.shape
+    y = torch.empty((n, 2 * h, 2 * wd, c), dtype=torch.bfloat16,
+                    device=x.device)
+    _conv3x3_i8(lib, x, w.conv_w, w.conv_scale, w.conv_b, y, act="sin",
+                shuffle=True, in_inv=w.inv_x)
+    out = _rsft_i8_cuda(lib, y, w, sft, out_inv)
+    LAUNCHES["fused_upconv_rsft_i8"] += 1
+    return out
+
+
+def fused_conv_rsft_i8(x: torch.Tensor, w: StageWeightsI8,
+                       sft: torch.Tensor, head: bool = False,
+                       out_inv: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """W8A8 stride-1 stage: [N, H, W, C] int8 codes at ``w.inv_x`` or bf16
+    -> [N, H, W, C] bf16 (or int8 codes at ``out_inv``), or with ``head``
+    the [N, H, W, 3] bf16 RGB frame."""
+    c_in, c = _channels(w.conv_w, up=False)
+    if not _check_i8(x, w, sft, out_inv, c_in, c, head, False):
+        return fused_conv_rsft_i8_plain(x, w, sft, head=head,
+                                        out_inv=out_inv)
+    lib = _build.load_library()
+    y = torch.empty(x.shape[:3] + (c,), dtype=torch.bfloat16,
+                    device=x.device)
+    _conv3x3_i8(lib, x, w.conv_w, w.conv_scale, w.conv_b, y, act="sin",
+                in_inv=w.inv_x)
+    if head:
+        hq = _rsft_i8_cuda(lib, y, w, sft, w.inv_h)
+        out = torch.empty(x.shape[:3] + (3,), dtype=torch.bfloat16,
+                          device=x.device)
+        _conv3x3_i8(lib, hq, w.head_w, w.head_scale, w.head_b, out,
+                    act="outimg")
+    else:
+        out = _rsft_i8_cuda(lib, y, w, sft, out_inv)
+    LAUNCHES["fused_conv_rsft_i8"] += 1
     return out

@@ -1,5 +1,6 @@
 """Serving decode of HNeRV-Boost (port of
-boosting_nerv_tpu/runtime/fast_decode.py::build_serving_decode, bf16 form).
+boosting_nerv_tpu/runtime/fast_decode.py::build_serving_decode, in its bf16
+and W8A8 forms).
 
 ``build_serving_decode(cfg, model)`` returns ``decode(embed, t)``:
 embedding [1, h, w, C] + normalised index [1] -> frame [1, H, W, 3] bf16,
@@ -16,27 +17,38 @@ not part of it).
   ``ops.kernels.planar``: ``fused_upconv_rsft`` for stride 2,
   ``fused_conv_rsft`` for stride 1 (with the RGB head on the last stage).
   Their per-frame SFT scale/shift vectors come from F.linear.
+- With ``w8a8_calib`` (an iterable of (embed, t) frames) the decode first
+  calibrates per-channel activation bounds at every tail conv input
+  (``calibrate_planar_bounds``, plain bf16 decode, margin 1.05), then
+  serves the int8-eligible stages (``w8a8_stage_plan``) on the W8A8
+  wrappers ``fused_upconv_rsft_i8`` / ``fused_conv_rsft_i8``.  Every int8
+  stage but the first tail stage receives int8 codes: its producer, bf16
+  or int8, stores its output quantised at the consumer's input bound
+  (``out_inv``, the zero-convert chain).
 - On a CUDA tensor the wrappers launch the hand-written kernels or raise;
-  there is no fallback.  ``planar.LAUNCHES`` counts their launches and
-  ``decode.launches_per_frame`` says how many one frame makes.
+  there is no fallback, and a calibration that fails raises.
+  ``planar.LAUNCHES`` counts their launches and ``decode.launches_per_frame``
+  says how many one frame makes.
 
 The TPU-only machinery of the JAX decode (tile policies, chunking, the
-deviceless AOT gate) has no counterpart here.  W8A8 serving is a later
-slice.
+deviceless AOT gate, the BNT_DECODE_W8A8 and BNT_I8_CP32 switches) has no
+counterpart here.
 """
 
 from __future__ import annotations
 
 import copy
+from collections import Counter
 from dataclasses import dataclass
-from typing import Callable, List, Mapping, Tuple, Union
+from typing import (Callable, Dict, Iterable, List, Mapping, Optional, Tuple,
+                    Union)
 
 import torch
 import torch.nn as nn
 
 from ..config import BoostConfig, decoder_stage_plan
 from ..models.hnerv import HNeRVBoost
-from ..ops.kernels import planar
+from ..ops.kernels import planar, quant
 from ..ops.losses import out_img
 from ..ops.pe import position_encoding
 
@@ -73,6 +85,35 @@ def stage_out_hw(cfg: BoostConfig, plan) -> List[Tuple[int, int]]:
     return out
 
 
+def _tail(cfg: BoostConfig, planar_from_h: int):
+    """(stage plan, fine output sizes, first tail stage)."""
+    plan = decoder_stage_plan(cfg, cfg.fc_dim, hnerv_style=True)
+    out_hw = stage_out_hw(cfg, plan)
+    return plan, out_hw, _planar_tail_span(cfg, plan, out_hw, planar_from_h)
+
+
+def _round16(c: int) -> int:
+    return (c + 15) // 16 * 16
+
+
+def w8a8_stage_plan(cfg: BoostConfig, planar_from_h: int = 200
+                    ) -> Tuple[List[int], List[int]]:
+    """(stages served W8A8, stages that receive int8 codes) of the tail.
+
+    A stage goes int8 when its padded output channels round16(new_ngf)
+    are a multiple of 32 and, for a stride-2 stage, so are its padded
+    input channels (``_i8_bounds``, fast_decode.py:833-842).  That is the
+    TPU's int8 sublane tiling, kept so that both packages serve the same
+    stages in int8.  Every int8 stage but the first tail stage receives
+    its input as int8 codes (fast_decode.py:895-910: the port has no
+    chunked producer that could not emit them)."""
+    plan, _, switch_at = _tail(cfg, planar_from_h)
+    stages = [bi for bi in range(switch_at, len(plan))
+              if _round16(plan[bi].new_ngf) % 32 == 0
+              and (plan[bi].strd == 1 or _round16(plan[bi].ngf) % 32 == 0)]
+    return stages, [bi for bi in stages if bi != switch_at]
+
+
 @dataclass(frozen=True)
 class TailStage:
     """One decoder stage served by a kernel wrapper."""
@@ -80,9 +121,17 @@ class TailStage:
     strd: int                  # 2: fused_upconv_rsft, 1: fused_conv_rsft
     head: bool                 # the RGB head is fused into this stage
     in_shape: Tuple[int, int, int, int]  # NHWC input on the fc_hw grid
-    weights: planar.StageWeights
+    weights: Union[planar.StageWeights, planar.StageWeightsI8]
     sft0: nn.Module            # bf16 SFT layers: per-frame scale/shift
     sft1: nn.Module
+    out_inv: Optional[torch.Tensor] = None  # int8 output for the next stage
+
+    @property
+    def kernel(self) -> str:
+        """The name of the wrapper that serves this stage."""
+        name = "fused_upconv_rsft" if self.strd == 2 else "fused_conv_rsft"
+        i8 = isinstance(self.weights, planar.StageWeightsI8)
+        return name + "_i8" if i8 else name
 
     def sft(self, t_embed: torch.Tensor) -> torch.Tensor:
         """[4, C] float32 (scale0, shift0, scale1, shift1) of frame 0."""
@@ -106,20 +155,7 @@ def _as_model(cfg: BoostConfig, params_or_model) -> HNeRVBoost:
     return model.to(next(iter(params_or_model.values())).device)
 
 
-def build_serving_decode(cfg: BoostConfig,
-                         params_or_model: Union[HNeRVBoost,
-                                                Mapping[str, torch.Tensor]],
-                         w8a8_calib=None, *, planar_from_h: int = 200,
-                         stage_fns: Tuple[Callable, Callable] = (
-                             planar.fused_upconv_rsft,
-                             planar.fused_conv_rsft)) -> Callable:
-    """The serving decode for ``cfg`` on the device that holds the
-    parameters.  ``stage_fns`` are the stride-2 and stride-1 stage
-    functions: the kernel wrappers by default; measurements pass the plain
-    versions to time the same decode without the kernels."""
-    if w8a8_calib is not None:
-        raise NotImplementedError("W8A8 serving is not ported yet (ROADMAP "
-                                  "queue 2, item 3)")
+def _check_config(cfg: BoostConfig) -> None:
     if cfg.model != "HNeRV_Boost":
         raise NotImplementedError(f"serving decode of {cfg.model} is not "
                                   "ported yet (ROADMAP queue 1, item 7)")
@@ -128,52 +164,164 @@ def build_serving_decode(cfg: BoostConfig,
             and cfg.ch_t):
         raise ValueError("fast decode supports the HNeRV-Boost paper config "
                          "(pshuffel_3x3 / sin / res_sft / no norm)")
-    model = _as_model(cfg, params_or_model)
-    plan = decoder_stage_plan(cfg, cfg.fc_dim, hnerv_style=True)
-    out_hw = stage_out_hw(cfg, plan)
-    switch_at = _planar_tail_span(cfg, plan, out_hw, planar_from_h)
-    head_fused = plan[-1].strd == 1
 
-    def bf16(m):
-        return copy.deepcopy(m).to(DT).eval()
 
-    stem_t, stem = bf16(model.stem_t), bf16(model.stem)
-    prefix = [bf16(model.blocks[bi]) for bi in range(switch_at)]
-    head = None if head_fused else bf16(model.head)
-    tail = []
-    for bi in range(switch_at, len(plan)):
-        blk = model.blocks[bi]
-        is_head = head_fused and bi == len(plan) - 1
-        h, w = out_hw[bi]
-        tail.append(TailStage(
-            bi, plan[bi].strd, is_head,
-            (1, h // plan[bi].strd, w // plan[bi].strd, plan[bi].ngf),
-            planar.StageWeights.from_oihw(
-                blk.conv.conv, blk.rsft.conv0, blk.rsft.conv1,
-                model.head if is_head else None, dtype=DT),
-            bf16(blk.rsft.sft0), bf16(blk.rsft.sft1)))
-    upconv_fn, conv_fn = stage_fns
+def _bf16(m: nn.Module) -> nn.Module:
+    return copy.deepcopy(m).to(DT).eval()
+
+
+def _prefix(model: HNeRVBoost, switch_at: int):
+    """(time_embed(t), prefix(embed, t_embed) -> NCHW bf16 input of the
+    first tail stage), both in bf16 on the model's device."""
+    stem_t, stem = _bf16(model.stem_t), _bf16(model.stem)
+    blocks = [_bf16(model.blocks[bi]) for bi in range(switch_at)]
     device = model.head.weight.device
 
     def time_embed(t: torch.Tensor) -> torch.Tensor:
         return stem_t(position_encoding(t.to(device), model.pe).to(DT))
 
+    def prefix(embed: torch.Tensor, t_embed: torch.Tensor) -> torch.Tensor:
+        if embed.shape[0] != 1 or t_embed.shape[0] != 1:
+            raise ValueError("the serving decode runs batch 1: embed "
+                             "[1, h, w, C] and t [1]")
+        x = stem(embed.to(device, DT).permute(0, 3, 1, 2), t_embed)
+        for blk in blocks:
+            x = blk(x, t_embed)
+        return x
+
+    return time_embed, prefix
+
+
+def build_planar_bounds_fn(cfg: BoostConfig, params_or_model,
+                           planar_from_h: int = 200) -> Callable:
+    """The W8A8 calibration pass (port of fast_decode.py:346-447):
+    ``calib(embed, t)`` decodes one frame with the plain bf16 modules and
+    returns the per-channel |x| maxima (float32) at every conv input of
+    every tail stage, keyed "{bi}.x" (the stage input), "{bi}.t0" =
+    SFT0(y), "{bi}.t1" = SFT1(gelu(conv0)) and, on a last stage of stride
+    1 (the fused head), "{bi}.h" (the head input)."""
+    _check_config(cfg)
+    model = _as_model(cfg, params_or_model)
+    plan, _, switch_at = _tail(cfg, planar_from_h)
+    time_embed, prefix = _prefix(model, switch_at)
+    blocks = {bi: _bf16(model.blocks[bi])
+              for bi in range(switch_at, len(plan))}
+    head_at = len(plan) - 1 if plan[-1].strd == 1 else None
+
+    def chmax(v: torch.Tensor) -> torch.Tensor:
+        return v.float().abs().amax(dim=(0, 2, 3))
+
+    @torch.no_grad()
+    def calib(embed: torch.Tensor, t: torch.Tensor
+              ) -> Dict[str, torch.Tensor]:
+        t_embed = time_embed(t)
+        x = prefix(embed, t_embed)
+        bounds = {}
+        for bi, blk in blocks.items():
+            rs = blk.rsft
+            bounds[f"{bi}.x"] = chmax(x)
+            y = blk.act(blk.conv(x))
+            t0 = rs.sft0(y, t_embed)
+            bounds[f"{bi}.t0"] = chmax(t0)
+            t1 = rs.sft1(rs.act(rs.conv0(t0)), t_embed)
+            bounds[f"{bi}.t1"] = chmax(t1)
+            x = y + rs.conv1(t1)
+            if bi == head_at:
+                bounds[f"{bi}.h"] = chmax(x)
+        return bounds
+
+    return calib
+
+
+def calibrate_planar_bounds(cfg: BoostConfig, params_or_model,
+                            frames: Iterable, planar_from_h: int = 200,
+                            margin: float = 1.0) -> Dict[str, torch.Tensor]:
+    """Run the calibration pass over ``frames`` ((embed, t) pairs) and
+    return the per-key maxima times ``margin`` (port of
+    fast_decode.py:450-467).  Raises ValueError for an empty or malformed
+    ``frames``."""
+    calib = build_planar_bounds_fn(cfg, params_or_model, planar_from_h)
+    try:
+        items = list(frames)
+    except TypeError as e:
+        raise ValueError(f"w8a8_calib must be an iterable of (embed, t) "
+                         f"pairs: {e}") from None
+    acc = None
+    for item in items:
+        if not (isinstance(item, (tuple, list)) and len(item) == 2):
+            raise ValueError("w8a8_calib must hold (embed, t) pairs, got "
+                             f"{type(item).__name__}")
+        b = calib(torch.as_tensor(item[0]), torch.as_tensor(item[1]))
+        acc = b if acc is None else {k: torch.maximum(acc[k], b[k])
+                                     for k in acc}
+    if acc is None:
+        raise ValueError("w8a8_calib holds no frame to calibrate on")
+    return {k: v * margin for k, v in acc.items()}
+
+
+def build_serving_decode(cfg: BoostConfig,
+                         params_or_model: Union[HNeRVBoost,
+                                                Mapping[str, torch.Tensor]],
+                         w8a8_calib: Optional[Iterable] = None, *,
+                         planar_from_h: int = 200,
+                         plain: bool = False) -> Callable:
+    """The serving decode for ``cfg`` on the device that holds the
+    parameters: bf16, or W8A8 on the int8-eligible tail stages when
+    ``w8a8_calib`` gives calibration frames ((embed, t) pairs).  With
+    ``plain`` every tail stage runs its wrapper's plain version: for
+    measurements and checks of the kernels, not for serving.
+
+    ``decode.w8a8_stages`` / ``decode.w8a8_zc`` list the stages served in
+    W8A8 and those that receive int8 codes; ``decode.launches_per_frame``
+    the wrapper calls one frame makes."""
+    _check_config(cfg)
+    model = _as_model(cfg, params_or_model)
+    plan, out_hw, switch_at = _tail(cfg, planar_from_h)
+    head_fused = plan[-1].strd == 1
+    i8_stages, zc = [], []
+    if w8a8_calib is not None:
+        bounds = calibrate_planar_bounds(cfg, model, w8a8_calib,
+                                         planar_from_h, margin=1.05)
+        i8_stages, zc = w8a8_stage_plan(cfg, planar_from_h)
+    device = model.head.weight.device
+    time_embed, prefix = _prefix(model, switch_at)
+    head = None if head_fused else _bf16(model.head)
+
+    tail = []
+    for bi in range(switch_at, len(plan)):
+        blk = model.blocks[bi]
+        is_head = head_fused and bi == len(plan) - 1
+        convs = (blk.conv.conv, blk.rsft.conv0, blk.rsft.conv1,
+                 model.head if is_head else None)
+        if bi in i8_stages:
+            keys = ("x", "t0", "t1") + (("h",) if is_head else ())
+            weights = planar.StageWeightsI8.from_oihw(
+                *convs, bounds={k: bounds[f"{bi}.{k}"] for k in keys},
+                dtype=DT)
+        else:
+            weights = planar.StageWeights.from_oihw(*convs, dtype=DT)
+        out_inv = (quant.out_quant_vec(bounds[f"{bi + 1}.x"]).to(device)
+                   if bi + 1 in zc else None)
+        h, w = out_hw[bi]
+        tail.append(TailStage(
+            bi, plan[bi].strd, is_head,
+            (1, h // plan[bi].strd, w // plan[bi].strd, plan[bi].ngf),
+            weights, _bf16(blk.rsft.sft0), _bf16(blk.rsft.sft1), out_inv))
+    fns = {name: getattr(planar, name + ("_plain" if plain else ""))
+           for name in planar.LAUNCHES}
+
     @torch.no_grad()
     def decode(embed: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        if embed.shape[0] != 1 or t.shape != (1,):
+        if t.shape != (1,):
             raise ValueError("the serving decode runs batch 1: embed "
                              "[1, h, w, C] and t [1]")
         t_embed = time_embed(t)
-        x = stem(embed.to(device, DT).permute(0, 3, 1, 2), t_embed)
-        for blk in prefix:
-            x = blk(x, t_embed)
-        x = x.permute(0, 2, 3, 1).contiguous()
+        x = prefix(embed, t_embed).permute(0, 2, 3, 1).contiguous()
         for st in tail:
-            sft = st.sft(t_embed)
-            if st.strd == 2:
-                x = upconv_fn(x, st.weights, sft)
-            else:
-                x = conv_fn(x, st.weights, sft, head=st.head)
+            kw = {"head": True} if st.head else {}
+            if st.out_inv is not None:
+                kw["out_inv"] = st.out_inv
+            x = fns[st.kernel](x, st.weights, st.sft(t_embed), **kw)
         if head is not None:  # stride-2 final stage: head in plain torch
             x = out_img(head(x.permute(0, 3, 1, 2)), cfg.out_bias)
             x = x.permute(0, 2, 3, 1)
@@ -181,7 +329,7 @@ def build_serving_decode(cfg: BoostConfig,
 
     decode.time_embed = time_embed
     decode.tail = tail
-    decode.launches_per_frame = {
-        "fused_upconv_rsft": sum(st.strd == 2 for st in tail),
-        "fused_conv_rsft": sum(st.strd == 1 for st in tail)}
+    decode.w8a8_stages = i8_stages
+    decode.w8a8_zc = zc
+    decode.launches_per_frame = dict(Counter(st.kernel for st in tail))
     return decode

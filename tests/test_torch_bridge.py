@@ -64,7 +64,7 @@ def _n_leaves(tree):
 def test_every_flax_leaf_maps_to_a_torch_parameter(flax_params):
     cfg, params = flax_params
     state = torch_state_from_flax(params, cfg)
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     model.load_state_dict(state, strict=True)  # no missing, no unexpected
     assert len(state) == _n_leaves(params) == len(model.state_dict())
 
@@ -124,7 +124,7 @@ def test_bridged_sft_vectors_match_jax(flax_params):
     from boosting_nerv_tpu.runtime.fast_decode import _sft_vectors
 
     cfg, params = flax_params
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     model.load_state_dict(torch_state_from_flax(params, cfg))
     cond = rng.normal(size=(1, cfg.ch_t)).astype(np.float32)
     want = _sft_vectors(

@@ -63,7 +63,7 @@ def pair():
     fmodel = build_flax_model(jax_config.BoostConfig(**TINY))
     params = _flax_params(fmodel, seed=1)
     img = rng.uniform(size=(1, 16, 16, 3)).astype(np.float32)
-    tmodel = build_model(cfg)
+    tmodel = build_model(cfg, device="cpu")
     tmodel.load_state_dict(torch_state_from_flax(params, cfg))
     return cfg, fmodel, params, tmodel, img
 
@@ -134,9 +134,9 @@ def test_unported_families_raise(family):
 
 
 def test_seeded_init_is_deterministic_and_torch_default():
-    a = build_model(_cfg(), seed=3).state_dict()
-    b = build_model(_cfg(), seed=3).state_dict()
-    c = build_model(_cfg(), seed=4).state_dict()
+    a = build_model(_cfg(), seed=3, device="cpu").state_dict()
+    b = build_model(_cfg(), seed=3, device="cpu").state_dict()
+    c = build_model(_cfg(), seed=4, device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["head.weight"], c["head.weight"])
     w = a["blocks.2.rsft.conv0.weight"]           # fan_in 9 * C
@@ -148,8 +148,15 @@ def test_seeded_init_is_deterministic_and_torch_default():
 
 
 def test_decoder_only_params_drops_the_encoder():
-    state = build_model(_cfg()).state_dict()
+    state = build_model(_cfg(), device="cpu").state_dict()
     dec = decoder_only_params(state)
     assert dec and not any(k.startswith("encoder.") for k in dec)
     assert len(dec) + sum(k.startswith("encoder.") for k in state) == len(
         state)
+
+
+def test_build_model_defaults_to_the_card():
+    import inspect
+
+    assert inspect.signature(build_model).parameters["device"].default == \
+        "cuda"

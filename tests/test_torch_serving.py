@@ -123,7 +123,7 @@ def test_stride2_final_stage_serves_the_head_in_plain_torch():
 
 def test_model_and_decoder_only_state_serve_alike(decoded):
     cfg, state, embed, t, _, _ = decoded
-    model = build_model(cfg, seed=None)
+    model = build_model(cfg, seed=None, device="cpu")
     model.load_state_dict(state)
     a = port_fd.build_serving_decode(cfg, model, planar_from_h=1)
     b = port_fd.build_serving_decode(cfg, decoder_only_params(state),
@@ -157,7 +157,8 @@ def test_tail_span_matches_jax(cfg_fn, planar_from_h):
 
 def test_bench_config_tail_is_the_six_kernel_stages():
     cfg = _bench()
-    dec = port_fd.build_serving_decode(cfg, build_model(cfg, seed=None))
+    dec = port_fd.build_serving_decode(
+        cfg, build_model(cfg, seed=None, device="cpu"))
     assert [(s.index, s.strd, s.head, s.in_shape) for s in dec.tail] == [
         (2, 2, False, (1, 135, 240, 88)), (3, 1, False, (1, 270, 480, 73)),
         (4, 2, False, (1, 270, 480, 73)), (5, 1, False, (1, 540, 960, 61)),
@@ -168,8 +169,19 @@ def test_bench_config_tail_is_the_six_kernel_stages():
 
 def test_build_serving_decode_contract(decoded):
     cfg, state, embed, t, _, _ = decoded
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        port_fd.build_serving_decode(cfg, state, w8a8_calib=[(embed, t)])
+    frame = (torch.from_numpy(embed), torch.from_numpy(t))
+    with pytest.raises(ValueError, match="no frame"):
+        port_fd.build_serving_decode(cfg, state, w8a8_calib=[],
+                                     planar_from_h=1)
+    with pytest.raises(ValueError, match="pairs"):
+        port_fd.build_serving_decode(cfg, state, w8a8_calib=[frame[0]],
+                                     planar_from_h=1)
+    # fc_dim 12: no tail stage is int8-eligible, the decode stays bf16
+    dec8 = port_fd.build_serving_decode(cfg, state, w8a8_calib=[frame],
+                                        planar_from_h=1)
+    assert dec8.w8a8_stages == dec8.w8a8_zc == []
+    assert dec8.launches_per_frame == {"fused_upconv_rsft": 1,
+                                       "fused_conv_rsft": 1}
     with pytest.raises(ValueError, match="no planar-eligible tail"):
         port_fd.build_serving_decode(cfg, state, planar_from_h=10 ** 6)
     with pytest.raises(ValueError, match="paper config"):
