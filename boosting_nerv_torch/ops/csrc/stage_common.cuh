@@ -2,8 +2,9 @@
 // activations, the int8 code store, the PixelShuffle-2 store addressing and
 // the persistent launch.  stage_conv.cu is the bf16 kernel (mma.sync
 // m16n8k16, fp32 accumulation), stage_conv_i8.cu the W8A8 one (mma.sync
-// m16n8k32 s8, int32 accumulation); both are one fused 3x3 convolution
-// over 4x32-pixel output tiles, one output row per warp.
+// m16n8k32 s8, int32 accumulation); both are one fused convolution over
+// 4x32-pixel output tiles, one output row per warp (the bf16 kernel with
+// KS x KS taps, the int8 one 3x3, whose halo tile IN_H x IN_W is below).
 
 #pragma once
 

@@ -91,13 +91,14 @@ def build(path: str) -> None:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.bnt_stage_conv3x3.restype = ci
-    lib.bnt_stage_conv3x3.argtypes = [vp] * 10 + [ci] * 7 + [vp]
+    lib.bnt_stage_conv.restype = ci
+    lib.bnt_stage_conv.argtypes = [vp] * 10 + [ci] * 8 + [vp]
+    lib.bnt_stage_conv_smem.restype = ci
+    lib.bnt_stage_conv_smem.argtypes = [ci, ci, ci]
     lib.bnt_stage_conv3x3_i8.restype = ci
     lib.bnt_stage_conv3x3_i8.argtypes = [vp] * 12 + [ci] * 8 + [vp]
-    for fn in (lib.bnt_stage_conv3x3_smem, lib.bnt_stage_conv3x3_i8_smem):
-        fn.restype = ci
-        fn.argtypes = [ci, ci]
+    lib.bnt_stage_conv3x3_i8_smem.restype = ci
+    lib.bnt_stage_conv3x3_i8_smem.argtypes = [ci, ci]
     lib.bnt_error_string.restype = ctypes.c_char_p
     lib.bnt_error_string.argtypes = [ci]
     return lib

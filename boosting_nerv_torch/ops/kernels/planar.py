@@ -28,7 +28,8 @@ PyTorch version for a tensor on the CPU and its CUDA kernel (three or four
 launches of one fused 3x3 convolution: ``ops/csrc/stage_conv.cu`` for
 bf16, ``ops/csrc/stage_conv_i8.cu`` for W8A8) for a tensor on the card; on
 a CUDA tensor it launches or raises, it never falls back.  ``LAUNCHES``
-counts the wrapper calls that launched a CUDA kernel.
+(shared with ``tile_conv``) counts the wrapper calls that launched a CUDA
+kernel.
 """
 
 from __future__ import annotations
@@ -39,17 +40,12 @@ from typing import Mapping, Optional
 import torch
 import torch.nn.functional as F
 
-from . import _build, quant
+from . import LAUNCHES, _build, quant
 
-LAUNCHES = {"fused_upconv_rsft": 0, "fused_conv_rsft": 0,
-            "fused_upconv_rsft_i8": 0, "fused_conv_rsft_i8": 0}
+WRAPPERS = ("fused_upconv_rsft", "fused_conv_rsft", "fused_upconv_rsft_i8",
+            "fused_conv_rsft_i8")
 
 _ACT = {"none": 0, "sin": 1, "gelu": 2, "outimg": 3}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 @dataclass(frozen=True)
@@ -65,6 +61,11 @@ class StageWeights:
     b1: torch.Tensor
     head_w: Optional[torch.Tensor] = None
     head_b: Optional[torch.Tensor] = None
+
+    @property
+    def rsft(self):
+        """(w0, b0, w1, b1) of the stage's ResBlockSFT."""
+        return self.w0, self.b0, self.w1, self.b1
 
     @staticmethod
     def from_oihw(conv, rsft_conv0, rsft_conv1, head=None,
@@ -137,28 +138,30 @@ class StageWeightsI8:
 # plain PyTorch versions (NHWC in and out)
 # --------------------------------------------------------------------- #
 
-def _conv(x, w_ohwi, b):
-    return F.conv2d(x, w_ohwi.permute(0, 3, 1, 2), b, padding=1)
+def conv_plain(x, w_ohwi, b):
+    """Same-padded k x k conv of NCHW x with an OHWI weight."""
+    return F.conv2d(x, w_ohwi.permute(0, 3, 1, 2), b,
+                    padding=w_ohwi.shape[1] // 2)
 
 
-def _rsft(y, weights, sft, f32_out=False):
-    """ResBlockSFT in y's dtype; with ``f32_out`` the last conv and the
-    residual sum in float32, as the kernel's epilogue computes them before
-    it stores int8 codes."""
+def rsft_plain(y, rsft_w, sft, f32_out=False):
+    """ResBlockSFT of NCHW y in y's dtype; rsft_w = (w0, b0, w1, b1) OHWI;
+    with ``f32_out`` the last conv and the residual sum in float32, as the
+    kernel's epilogue computes them before it stores int8 codes."""
+    w0, b0, w1, b1 = rsft_w
     s0, h0, s1, h1 = (v.to(y.dtype)[None, :, None, None] for v in sft)
-    t = F.gelu(_conv(y * (s0 + 1) + h0, weights.w0, weights.b0))
+    t = F.gelu(conv_plain(y * (s0 + 1) + h0, w0, b0))
     t = t * (s1 + 1) + h1
     if f32_out:
-        return y.float() + _conv(t.float(), weights.w1.float(),
-                                 weights.b1.float())
-    return y + _conv(t, weights.w1, weights.b1)
+        return y.float() + conv_plain(t.float(), w1.float(), b1.float())
+    return y + conv_plain(t, w1, b1)
 
 
-def _nchw(x):
+def nchw(x):
     return x.permute(0, 3, 1, 2)
 
 
-def _nhwc(x):
+def nhwc(x):
     return x.permute(0, 2, 3, 1).contiguous()
 
 
@@ -174,10 +177,10 @@ def fused_upconv_rsft_plain(x: torch.Tensor, weights: StageWeights,
                             out_inv: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """[N, H, W, Cin] -> [N, 2H, 2W, C]; sft: [4, C] = (s0, h0, s1, h1)."""
-    y = torch.sin(F.pixel_shuffle(_conv(_nchw(x), weights.conv_w,
-                                        weights.conv_b), 2))
-    out = _rsft(y, weights, sft, f32_out=out_inv is not None)
-    return _store(_nhwc(out), out_inv, x.dtype)
+    y = torch.sin(F.pixel_shuffle(conv_plain(nchw(x), weights.conv_w,
+                                             weights.conv_b), 2))
+    out = rsft_plain(y, weights.rsft, sft, f32_out=out_inv is not None)
+    return _store(nhwc(out), out_inv, x.dtype)
 
 
 def fused_conv_rsft_plain(x: torch.Tensor, weights: StageWeights,
@@ -185,20 +188,21 @@ def fused_conv_rsft_plain(x: torch.Tensor, weights: StageWeights,
                           out_inv: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """[N, H, W, C] -> [N, H, W, C], or [N, H, W, 3] RGB with ``head``."""
-    y = torch.sin(_conv(_nchw(x), weights.conv_w, weights.conv_b))
-    out = _rsft(y, weights, sft, f32_out=out_inv is not None)
+    y = torch.sin(conv_plain(nchw(x), weights.conv_w, weights.conv_b))
+    out = rsft_plain(y, weights.rsft, sft, f32_out=out_inv is not None)
     if head:
-        out = torch.tanh(_conv(out, weights.head_w, weights.head_b)) * 0.5 + 0.5
-    return _store(_nhwc(out), out_inv, x.dtype)
+        out = torch.tanh(conv_plain(out, weights.head_w,
+                                    weights.head_b)) * 0.5 + 0.5
+    return _store(nhwc(out), out_inv, x.dtype)
 
 
 def _conv_i8(q, codes, scale, bias):
     """int8 NHWC codes (x) int8 OHWI codes, dequantised: NHWC float32.
     The integer sum is taken in float64, which is exact for it (|sum| <
     9 * 128 * 127^2 < 2^53) on the CPU and on the card alike."""
-    acc = F.conv2d(_nchw(q).double(), codes.permute(0, 3, 1, 2).double(),
+    acc = F.conv2d(nchw(q).double(), codes.permute(0, 3, 1, 2).double(),
                    padding=1)
-    return _nhwc(acc).float() * scale + bias
+    return nhwc(acc).float() * scale + bias
 
 
 def _codes(x, inv):
@@ -222,9 +226,9 @@ def fused_upconv_rsft_i8_plain(x: torch.Tensor, w: StageWeightsI8,
                                ) -> torch.Tensor:
     """W8A8 stride-2 stage: [N, H, W, Cin] int8 codes or floats ->
     [N, 2H, 2W, C] bf16, or int8 codes at ``out_inv``."""
-    y = torch.sin(F.pixel_shuffle(_nchw(_conv_i8(
+    y = torch.sin(F.pixel_shuffle(nchw(_conv_i8(
         _codes(x, w.inv_x), w.conv_w, w.conv_scale, w.conv_b)), 2))
-    y = _nhwc(y).to(torch.bfloat16)
+    y = nhwc(y).to(torch.bfloat16)
     return _store(_rsft_i8(y, w, sft), out_inv, torch.bfloat16)
 
 
@@ -257,16 +261,18 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _conv3x3(lib, x, w, b, out, *, act="none", shuffle=False,
-             in_affine=None, out_affine=None, residual=None, out_inv=None):
+def launch_conv(lib, x, w, b, out, *, act="none", shuffle=False,
+                in_affine=None, out_affine=None, residual=None, out_inv=None):
+    """One launch of the bf16 kernel (``stage_conv.cu``): a same-padded
+    k x k conv of NHWC x with the OHWI weight w [Cout, k, k, Cin]."""
     n, h, wd, cin = x.shape
     s_in, h_in = in_affine if in_affine is not None else (None, None)
     s_out, h_out = out_affine if out_affine is not None else (None, None)
-    err = lib.bnt_stage_conv3x3(
+    err = lib.bnt_stage_conv(
         _ptr(x), _ptr(w), _ptr(b), _ptr(s_in), _ptr(h_in), _ptr(s_out),
         _ptr(h_out), _ptr(residual), _ptr(out_inv), _ptr(out), n, h, wd, cin,
-        w.shape[0], _ACT[act], int(shuffle), _stream(x))
-    _build.check(err, "stage_conv3x3 launch")
+        w.shape[0], _ACT[act], int(shuffle), w.shape[1], _stream(x))
+    _build.check(err, "stage_conv launch")
 
 
 def _conv3x3_i8(lib, x, codes, scale, bias, out, *, act="none",
@@ -286,19 +292,26 @@ def _conv3x3_i8(lib, x, codes, scale, bias, out, *, act="none",
 
 def _check_inputs(x, sft, out_inv, c_in, c, head, tensors, x_dtypes,
                   smem_fn, convs):
-    """Shapes everywhere; on the card also device, contiguity, dtypes and
-    the shared-memory fit of every conv.  ``tensors``: (name, tensor,
-    shape, dtype on the card).  True: launch the kernel; False: the input
-    lies on the CPU, run the plain version."""
-    if x.dim() != 4 or x.shape[3] != c_in:
-        raise ValueError(f"x must be NHWC [N, H, W, {c_in}], got "
-                         f"{tuple(x.shape)}")
+    """A stage's inputs: ``check_tensors`` with the SFT vectors and the
+    int8-output multiplier."""
     tensors = tensors + [("sft", sft, (4, c), torch.float32)]
     if out_inv is not None:
         if head:
             raise ValueError("the head's RGB output stays bf16: pass "
                              "out_inv or head, not both")
         tensors.append(("out_inv", out_inv, (c,), torch.float32))
+    return check_tensors(x, c_in, tensors, x_dtypes, smem_fn, convs)
+
+
+def check_tensors(x, c_in, tensors, x_dtypes, smem_fn, convs):
+    """Shapes everywhere; on the card also device, contiguity, dtypes and
+    the shared-memory fit of every conv.  ``tensors``: (name, tensor,
+    shape, dtype on the card); ``convs``: the arguments of ``smem_fn(lib)``
+    for each conv of the call.  True: launch the kernel; False: the input
+    lies on the CPU, run the plain version."""
+    if x.dim() != 4 or x.shape[3] != c_in:
+        raise ValueError(f"x must be NHWC [N, H, W, {c_in}], got "
+                         f"{tuple(x.shape)}")
     for name, t, shape, _ in tensors:
         if t is None or tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got "
@@ -320,15 +333,17 @@ def _check_inputs(x, sft, out_inv, c_in, c, head, tensors, x_dtypes,
             raise ValueError(f"the CUDA kernel takes {name} as {dtype}, got "
                              f"{t.dtype}")
     smem = smem_fn(_build.load_library())
-    for cin, cout in convs:
-        if smem(cin, cout) < 0:
-            raise ValueError(f"a {cin}->{cout} conv does not fit the "
-                             "kernel's shared-memory tile")
+    for conv in convs:
+        if smem(*conv) < 0:
+            raise ValueError(f"a {conv[0]}->{conv[1]} conv does not fit the "
+                             "kernel's shared-memory tile (Cin <= 128)")
     return True
 
 
-def _stage_convs(c_in, c, up, head):
-    return [(c_in, 4 * c if up else c), (c, c)] + ([(c, 3)] if head else [])
+def _stage_convs(c_in, c, up, head, *ks):
+    """(Cin, Cout, *ks) of each conv of a stage."""
+    return [(c_in, 4 * c if up else c, *ks), (c, c, *ks)] + (
+        [(c, 3, *ks)] if head else [])
 
 
 def _check_bf16(x, w: StageWeights, sft, out_inv, c_in, c, head, up):
@@ -343,8 +358,8 @@ def _check_bf16(x, w: StageWeights, sft, out_inv, c_in, c, head, up):
         tensors += [("weights.head_w", w.head_w, (3, 3, 3, c), bf),
                     ("weights.head_b", w.head_b, (3,), bf)]
     return _check_inputs(x, sft, out_inv, c_in, c, head, tensors, (bf,),
-                         lambda lib: lib.bnt_stage_conv3x3_smem,
-                         _stage_convs(c_in, c, up, head))
+                         lambda lib: lib.bnt_stage_conv_smem,
+                         _stage_convs(c_in, c, up, head, 3))
 
 
 def _check_i8(x, w: StageWeightsI8, sft, out_inv, c_in, c, head, up):
@@ -385,13 +400,15 @@ def _out(x, shape, out_inv):
                        else torch.bfloat16, device=x.device)
 
 
-def _rsft_cuda(lib, y, weights, sft, out_inv=None):
+def rsft_cuda(lib, y, rsft_w, sft, out_inv=None):
+    """ResBlockSFT of NHWC y in two launches: t = SFT1(gelu(conv0(SFT0(y))
+    + b0)), then y + conv1(t) + b1; rsft_w = (w0, b0, w1, b1) OHWI."""
+    w0, b0, w1, b1 = rsft_w
     t = torch.empty_like(y)
-    _conv3x3(lib, y, weights.w0, weights.b0, t, act="gelu",
-             in_affine=(sft[0], sft[1]), out_affine=(sft[2], sft[3]))
+    launch_conv(lib, y, w0, b0, t, act="gelu", in_affine=(sft[0], sft[1]),
+                out_affine=(sft[2], sft[3]))
     out = _out(y, y.shape, out_inv)
-    _conv3x3(lib, t, weights.w1, weights.b1, out, residual=y,
-             out_inv=out_inv)
+    launch_conv(lib, t, w1, b1, out, residual=y, out_inv=out_inv)
     return out
 
 
@@ -407,9 +424,9 @@ def fused_upconv_rsft(x: torch.Tensor, weights: StageWeights,
     lib = _build.load_library()
     n, h, w, _ = x.shape
     y = torch.empty((n, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
-    _conv3x3(lib, x, weights.conv_w, weights.conv_b, y, act="sin",
-             shuffle=True)
-    out = _rsft_cuda(lib, y, weights, sft, out_inv)
+    launch_conv(lib, x, weights.conv_w, weights.conv_b, y, act="sin",
+                shuffle=True)
+    out = rsft_cuda(lib, y, weights.rsft, sft, out_inv)
     LAUNCHES["fused_upconv_rsft"] += 1
     return out
 
@@ -425,11 +442,12 @@ def fused_conv_rsft(x: torch.Tensor, weights: StageWeights,
                                      out_inv=out_inv)
     lib = _build.load_library()
     y = torch.empty(x.shape[:3] + (c,), dtype=x.dtype, device=x.device)
-    _conv3x3(lib, x, weights.conv_w, weights.conv_b, y, act="sin")
-    out = _rsft_cuda(lib, y, weights, sft, out_inv)
+    launch_conv(lib, x, weights.conv_w, weights.conv_b, y, act="sin")
+    out = rsft_cuda(lib, y, weights.rsft, sft, out_inv)
     if head:
         rgb = torch.empty(x.shape[:3] + (3,), dtype=x.dtype, device=x.device)
-        _conv3x3(lib, out, weights.head_w, weights.head_b, rgb, act="outimg")
+        launch_conv(lib, out, weights.head_w, weights.head_b, rgb,
+                    act="outimg")
         out = rgb
     LAUNCHES["fused_conv_rsft"] += 1
     return out

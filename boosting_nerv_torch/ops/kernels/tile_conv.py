@@ -1,0 +1,156 @@
+"""Fine-grid convolutions of the decoder tail: the port of the four Pallas
+kernels of ``boosting_nerv_tpu/ops/pallas/tile_conv.py``, which serve the
+v2 and v3 decodes and the hybrid tail of the v5 one.
+
+- ``conv_tile(x, w, b, *, k)`` (tile_conv.py:144): k x k same-padded conv
+  + bias, k in {1, 3, 5}.
+- ``conv_tile_v3(x, w, b, *, k, act)`` (tile_conv.py:473): the same for
+  k in {1, 3}, followed by ``act``: "none", "sin", "outimg"
+  (tanh(v) * 0.5 + 0.5) or "gelu" (exact erf).
+- ``resblock_sft_tile(x, w0, b0, w1, b1, sft)`` (tile_conv.py:951) and
+  ``resblock_sft_tile_v3`` (tile_conv.py:788): the fused ResBlockSFT
+  x + conv3x3(SFT1(gelu(conv3x3(SFT0(x)) + b0))) + b1 with
+  SFTi(v) = v * (scale_i + 1) + shift_i; sft is [4, C] float32 (scale0,
+  shift0, scale1, shift1).  The TPU's v2 and v3 kernels differ only in
+  tactics, so both wrappers compute one function.
+
+Tensors are NHWC bf16 on the fine grid; weights are OHWI ([Cout, k, k,
+Cin]) bf16, biases [Cout] bf16.  The JAX kernels' channels-major layout,
+padded to 128 lanes with garbage beyond ``w_real``, and their ``mode`` /
+``th`` / ``head_th`` choices are Mosaic tactics with no counterpart here:
+every mode computes the function above.  Their degree-9 polynomial sin and
+Abramowitz-Stegun erf become the kernel's reduced SFU sine and ``erff``.
+
+Each wrapper runs its plain PyTorch version (``*_plain``) for a tensor on
+the CPU, and for a tensor on the card the bf16 kernel of
+``ops/csrc/stage_conv.cu`` with KS = k taps: one launch per conv, two per
+ResBlockSFT (``planar.rsft_cuda``).  On a CUDA tensor it launches or
+raises ValueError (for example for more than 128 input channels, which no
+channel chunk of the kernel's shared-memory tile takes); it never falls
+back.  ``LAUNCHES`` counts the wrapper calls that launched.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import LAUNCHES, _build
+from .planar import (check_tensors, conv_plain, launch_conv, nchw, nhwc,
+                     rsft_cuda, rsft_plain)
+
+_ACTS = {"none": lambda v: v, "sin": torch.sin,
+         "outimg": lambda v: torch.tanh(v) * 0.5 + 0.5, "gelu": F.gelu}
+
+
+# --------------------------------------------------------------------- #
+# plain PyTorch versions (NHWC in and out, in x's dtype)
+# --------------------------------------------------------------------- #
+
+def conv_tile_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+                    k: int) -> torch.Tensor:
+    """[N, H, W, Cin] -> [N, H, W, Cout]: k x k conv + bias."""
+    return conv_tile_v3_plain(x, w, b, k=k, act="none")
+
+
+def conv_tile_v3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+                       k: int, act: str = "none") -> torch.Tensor:
+    """[N, H, W, Cin] -> [N, H, W, Cout]: act(k x k conv + bias)."""
+    return nhwc(_ACTS[act](conv_plain(nchw(x), w, b)))
+
+
+def resblock_sft_tile_plain(x: torch.Tensor, w0: torch.Tensor,
+                            b0: torch.Tensor, w1: torch.Tensor,
+                            b1: torch.Tensor, sft: torch.Tensor
+                            ) -> torch.Tensor:
+    """[N, H, W, C] -> [N, H, W, C]: ResBlockSFT(x)."""
+    return nhwc(rsft_plain(nchw(x), (w0, b0, w1, b1), sft))
+
+
+resblock_sft_tile_v3_plain = resblock_sft_tile_plain
+
+
+# --------------------------------------------------------------------- #
+# CUDA wrappers
+# --------------------------------------------------------------------- #
+
+def _check_conv(x, w, b, k, ks, act="none"):
+    """True: launch; False: x lies on the CPU.  Raises for a k outside
+    ``ks``, an unknown act, a weight that is not [Cout, k, k, Cin] or,
+    on the card, a shape or type the kernel does not take."""
+    if k not in ks:
+        raise ValueError(f"k must be one of {ks}, got {k}")
+    if act not in _ACTS:
+        raise ValueError(f"act must be one of {tuple(_ACTS)}, got {act!r}")
+    if w.dim() != 4 or tuple(w.shape[1:3]) != (k, k):
+        raise ValueError(f"w must be OHWI [Cout, {k}, {k}, Cin], got "
+                         f"{tuple(w.shape)}")
+    cout, c_in = w.shape[0], w.shape[3]
+    bf = torch.bfloat16
+    return check_tensors(x, c_in, [("w", w, (cout, k, k, c_in), bf),
+                                   ("b", b, (cout,), bf)], (bf,),
+                         lambda lib: lib.bnt_stage_conv_smem,
+                         [(c_in, cout, k)])
+
+
+def _conv_cuda(x, w, b, act):
+    out = torch.empty(x.shape[:3] + (w.shape[0],), dtype=x.dtype,
+                      device=x.device)
+    launch_conv(_build.load_library(), x, w, b, out, act=act)
+    return out
+
+
+def conv_tile(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+              k: int) -> torch.Tensor:
+    """k x k same-padded conv + bias of NHWC x, k in {1, 3, 5}:
+    [N, H, W, Cin] -> [N, H, W, Cout]."""
+    if not _check_conv(x, w, b, k, (1, 3, 5)):
+        return conv_tile_plain(x, w, b, k=k)
+    out = _conv_cuda(x, w, b, "none")
+    LAUNCHES["conv_tile"] += 1
+    return out
+
+
+def conv_tile_v3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+                 k: int, act: str = "none") -> torch.Tensor:
+    """act(k x k same-padded conv + bias) of NHWC x, k in {1, 3}, act in
+    none / sin / outimg / gelu: [N, H, W, Cin] -> [N, H, W, Cout]."""
+    if not _check_conv(x, w, b, k, (1, 3), act):
+        return conv_tile_v3_plain(x, w, b, k=k, act=act)
+    out = _conv_cuda(x, w, b, act)
+    LAUNCHES["conv_tile_v3"] += 1
+    return out
+
+
+def _check_rsft(x, w0, b0, w1, b1, sft):
+    c = x.shape[-1]
+    bf = torch.bfloat16
+    tensors = [("w0", w0, (c, 3, 3, c), bf), ("b0", b0, (c,), bf),
+               ("w1", w1, (c, 3, 3, c), bf), ("b1", b1, (c,), bf),
+               ("sft", sft, (4, c), torch.float32)]
+    return check_tensors(x, c, tensors, (bf,),
+                         lambda lib: lib.bnt_stage_conv_smem, [(c, c, 3)])
+
+
+def _rsft(name, x, w0, b0, w1, b1, sft):
+    if not _check_rsft(x, w0, b0, w1, b1, sft):
+        return resblock_sft_tile_plain(x, w0, b0, w1, b1, sft)
+    out = rsft_cuda(_build.load_library(), x, (w0, b0, w1, b1), sft)
+    LAUNCHES[name] += 1
+    return out
+
+
+def resblock_sft_tile(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+                      w1: torch.Tensor, b1: torch.Tensor, sft: torch.Tensor
+                      ) -> torch.Tensor:
+    """ResBlockSFT of NHWC x: [N, H, W, C] -> [N, H, W, C]; w0/w1 OHWI
+    [C, 3, 3, C]; sft [4, C] float32 (the v2 formulation's port)."""
+    return _rsft("resblock_sft_tile", x, w0, b0, w1, b1, sft)
+
+
+def resblock_sft_tile_v3(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+                         w1: torch.Tensor, b1: torch.Tensor, sft: torch.Tensor
+                         ) -> torch.Tensor:
+    """The same function as ``resblock_sft_tile`` (the v3 formulation's
+    port), counted under its own name."""
+    return _rsft("resblock_sft_tile_v3", x, w0, b0, w1, b1, sft)

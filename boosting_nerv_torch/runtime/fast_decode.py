@@ -1,38 +1,55 @@
-"""Serving decode of HNeRV-Boost (port of
-boosting_nerv_tpu/runtime/fast_decode.py::build_serving_decode, in its bf16
-and W8A8 forms).
+"""Serving decodes of HNeRV-Boost (port of
+boosting_nerv_tpu/runtime/fast_decode.py: ``build_serving_decode``,
+``build_fast_decode_v5`` in its bf16, W8A8 and hybrid forms,
+``build_fast_decode_v3`` and ``build_fast_decode_v2``).
 
-``build_serving_decode(cfg, model)`` returns ``decode(embed, t)``:
-embedding [1, h, w, C] + normalised index [1] -> frame [1, H, W, 3] bf16,
-batch 1, as the JAX serving path (the decode-fps convention: the encoder is
-not part of it).
+Every builder returns ``decode(embed, t)``: embedding [1, h, w, C] +
+normalised index [1] -> frame [1, H, W, 3] bf16, batch 1, as the JAX
+serving path (the decode-fps convention: the encoder is not part of it).
 
 - The prefix runs in plain PyTorch (F.linear / F.conv2d through the model's
   own modules, in bf16), as the JAX package leaves it to XLA: the PE, the
   stem_t sin MLP, the 1x1 stem + sin + ResBlockSFT, and the decoder stages
-  before the tail.
-- The tail is every stage from the first stride-2 3x3 stage whose fine
-  output height reaches ``planar_from_h`` (``_planar_tail_span``, the JAX
-  selection rule).  Each tail stage is one call of a kernel wrapper of
-  ``ops.kernels.planar``: ``fused_upconv_rsft`` for stride 2,
-  ``fused_conv_rsft`` for stride 1 (with the RGB head on the last stage).
-  Their per-frame SFT scale/shift vectors come from F.linear.
-- With ``w8a8_calib`` (an iterable of (embed, t) frames) the decode first
-  calibrates per-channel activation bounds at every tail conv input
-  (``calibrate_planar_bounds``, plain bf16 decode, margin 1.05), then
-  serves the int8-eligible stages (``w8a8_stage_plan``) on the W8A8
-  wrappers ``fused_upconv_rsft_i8`` / ``fused_conv_rsft_i8``.  Every int8
-  stage but the first tail stage receives int8 codes: its producer, bf16
-  or int8, stores its output quantised at the consumer's input bound
-  (``out_inv``, the zero-convert chain).
+  before the kernel tail.  The per-stage SFT scale/shift vectors come from
+  F.linear.
+- v5 (``build_fast_decode_v5``): the tail is every stage from the first
+  stride-2 3x3 stage whose fine output height reaches ``planar_from_h``
+  (``_planar_tail_span``, the JAX selection rule).  Each tail stage is one
+  call of a stage wrapper of ``ops.kernels.planar``: ``fused_upconv_rsft``
+  for stride 2, ``fused_conv_rsft`` for stride 1 (with the RGB head on the
+  last stage).  With ``fine_from_h`` (the hybrid) the stages whose fine
+  output height reaches it run on the fine-grid tile wrappers instead, as
+  in v3, head included.
+- W8A8 (v5 with ``w8a8_calib``, an iterable of (embed, t) frames): the
+  decode first calibrates per-channel activation bounds at every conv
+  input of the planar stages (``calibrate_planar_bounds``, plain bf16
+  decode, margin 1.05), then serves the int8-eligible stages
+  (``w8a8_stage_plan``) on ``fused_upconv_rsft_i8`` / ``fused_conv_rsft_i8``.
+  Every int8 stage but the first tail stage receives int8 codes: its
+  producer, bf16 or int8, stores its output quantised at the consumer's
+  input bound (``out_inv``, the zero-convert chain).
+- v3 (``build_fast_decode_v3``): from the first stage whose fine output
+  height reaches ``tile_from_h``, that stage's upconv, PixelShuffle and sin
+  run in plain torch (the JAX decode leaves them to XLA), then its
+  ResBlockSFT and every later stage run on ``ops.kernels.tile_conv``:
+  ``conv_tile_v3`` (act sin), F.pixel_shuffle for stride > 1,
+  ``resblock_sft_tile_v3``; the head is ``conv_tile_v3`` with act outimg.
+- v2 (``build_fast_decode_v2``): the same with ``conv_tile`` (no
+  activation), then PixelShuffle and sin in torch, and
+  ``resblock_sft_tile``; the head is ``conv_tile``, then tanh * 0.5 + 0.5.
+- ``build_serving_decode`` returns the v5 decode, or for a config with no
+  planar tail the v3 decode at ``tile_from_h=45``, as the JAX one does
+  (fast_decode.py:591-598).  W8A8 on such a config raises ValueError: the
+  JAX one prints a message and serves bf16, the port serves what was asked
+  or raises.
 - On a CUDA tensor the wrappers launch the hand-written kernels or raise;
   there is no fallback, and a calibration that fails raises.
-  ``planar.LAUNCHES`` counts their launches and ``decode.launches_per_frame``
-  says how many one frame makes.
+  ``ops.kernels.LAUNCHES`` counts their launches and
+  ``decode.launches_per_frame`` says how many one frame makes.
 
 The TPU-only machinery of the JAX decode (tile policies, chunking, the
-deviceless AOT gate, the BNT_DECODE_W8A8 and BNT_I8_CP32 switches) has no
-counterpart here.
+deviceless AOT gate, the kernel modes, the BNT_DECODE_W8A8 and BNT_I8_CP32
+switches) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -45,21 +62,25 @@ from typing import (Callable, Dict, Iterable, List, Mapping, Optional, Tuple,
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..config import BoostConfig, decoder_stage_plan
 from ..models.hnerv import HNeRVBoost
-from ..ops.kernels import planar, quant
+from ..ops.kernels import planar, quant, tile_conv
+from ..ops.kernels.planar import nchw, nhwc
 from ..ops.losses import out_img
 from ..ops.pe import position_encoding
 
 DT = torch.bfloat16
+NO_FINE = 10 ** 9   # fine_from_h that no stage reaches: no hybrid tail
 
 
-def _planar_tail_span(cfg, plan, out_hw, planar_from_h) -> int:
-    """First decoder stage of the kernel tail: the JAX rule
-    (fast_decode.py::_planar_tail_span without its hybrid ``fine_from_h``
-    split, which serving never sets), so that both packages put the same
-    stages on their kernels."""
+def _planar_tail_span(cfg, plan, out_hw, planar_from_h,
+                      fine_from_h=NO_FINE) -> Tuple[int, int]:
+    """(switch_at, fine_at): the first stage of the planar kernel tail and
+    the first stage of the hybrid fine-grid tail (``len(plan)`` for none),
+    by the JAX rule (fast_decode.py:321-343), so that both packages put the
+    same stages on the same kernels."""
     switch_at = len(plan)
     first = 1 if cfg.model == "ENeRV_Boost" else 0
     for start in range(first, len(plan)):
@@ -73,7 +94,9 @@ def _planar_tail_span(cfg, plan, out_hw, planar_from_h) -> int:
             break
     if switch_at == len(plan):
         raise ValueError("no planar-eligible tail for this config")
-    return switch_at
+    fine_at = next((bi for bi in range(switch_at, len(plan))
+                    if out_hw[bi][0] >= fine_from_h), len(plan))
+    return switch_at, fine_at
 
 
 def stage_out_hw(cfg: BoostConfig, plan) -> List[Tuple[int, int]]:
@@ -85,20 +108,29 @@ def stage_out_hw(cfg: BoostConfig, plan) -> List[Tuple[int, int]]:
     return out
 
 
-def _tail(cfg: BoostConfig, planar_from_h: int):
-    """(stage plan, fine output sizes, first tail stage)."""
+def _plan(cfg: BoostConfig):
     plan = decoder_stage_plan(cfg, cfg.fc_dim, hnerv_style=True)
-    out_hw = stage_out_hw(cfg, plan)
-    return plan, out_hw, _planar_tail_span(cfg, plan, out_hw, planar_from_h)
+    return plan, stage_out_hw(cfg, plan)
+
+
+def _tail(cfg: BoostConfig, planar_from_h: int, fine_from_h: int = NO_FINE):
+    """(stage plan, fine output sizes, first planar stage, first fine
+    stage)."""
+    plan, out_hw = _plan(cfg)
+    return (plan, out_hw,
+            *_planar_tail_span(cfg, plan, out_hw, planar_from_h, fine_from_h))
 
 
 def _round16(c: int) -> int:
     return (c + 15) // 16 * 16
 
 
-def w8a8_stage_plan(cfg: BoostConfig, planar_from_h: int = 200
+def w8a8_stage_plan(cfg: BoostConfig, planar_from_h: int = 200,
+                    fine_from_h: int = NO_FINE
                     ) -> Tuple[List[int], List[int]]:
-    """(stages served W8A8, stages that receive int8 codes) of the tail.
+    """(stages served W8A8, stages that receive int8 codes) of the planar
+    tail [switch_at, fine_at); the fine-grid stages stay bf16, so no stage
+    hands codes to one of them.
 
     A stage goes int8 when its padded output channels round16(new_ngf)
     are a multiple of 32 and, for a stride-2 stage, so are its padded
@@ -107,16 +139,23 @@ def w8a8_stage_plan(cfg: BoostConfig, planar_from_h: int = 200
     stages in int8.  Every int8 stage but the first tail stage receives
     its input as int8 codes (fast_decode.py:895-910: the port has no
     chunked producer that could not emit them)."""
-    plan, _, switch_at = _tail(cfg, planar_from_h)
-    stages = [bi for bi in range(switch_at, len(plan))
+    plan, _, switch_at, fine_at = _tail(cfg, planar_from_h, fine_from_h)
+    stages = [bi for bi in range(switch_at, fine_at)
               if _round16(plan[bi].new_ngf) % 32 == 0
               and (plan[bi].strd == 1 or _round16(plan[bi].ngf) % 32 == 0)]
     return stages, [bi for bi in stages if bi != switch_at]
 
 
+def _sft_vectors(sft0: nn.Module, sft1: nn.Module,
+                 t_embed: torch.Tensor) -> torch.Tensor:
+    """[4, C] float32 (scale0, shift0, scale1, shift1) of frame 0."""
+    (s0, h0), (s1, h1) = sft0.vectors(t_embed), sft1.vectors(t_embed)
+    return torch.stack([s0[0], h0[0], s1[0], h1[0]]).float()
+
+
 @dataclass(frozen=True)
 class TailStage:
-    """One decoder stage served by a kernel wrapper."""
+    """One decoder stage served by a planar stage wrapper."""
     index: int                 # decoder stage number
     strd: int                  # 2: fused_upconv_rsft, 1: fused_conv_rsft
     head: bool                 # the RGB head is fused into this stage
@@ -134,10 +173,98 @@ class TailStage:
         return name + "_i8" if i8 else name
 
     def sft(self, t_embed: torch.Tensor) -> torch.Tensor:
-        """[4, C] float32 (scale0, shift0, scale1, shift1) of frame 0."""
-        (s0, h0), (s1, h1) = self.sft0.vectors(t_embed), \
-            self.sft1.vectors(t_embed)
-        return torch.stack([s0[0], h0[0], s1[0], h1[0]]).float()
+        return _sft_vectors(self.sft0, self.sft1, t_embed)
+
+
+@dataclass(frozen=True)
+class FineStage:
+    """One decoder stage on the fine-grid tile wrappers."""
+    index: int                 # decoder stage number
+    strd: int
+    out_hw: Tuple[int, int]    # fine output (H, W)
+    conv_w: torch.Tensor       # OHWI [C * strd^2, k, k, Cin] bf16
+    conv_b: torch.Tensor
+    rsft: Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+    sft0: nn.Module
+    sft1: nn.Module
+    upconv: Optional[nn.Module] = None  # the switch stage: upconv in torch
+
+    def sft(self, t_embed: torch.Tensor) -> torch.Tensor:
+        return _sft_vectors(self.sft0, self.sft1, t_embed)
+
+
+def _ohwi(m: nn.Module) -> torch.Tensor:
+    return m.weight.detach().permute(0, 2, 3, 1).to(DT).contiguous()
+
+
+def _bias(m: nn.Module) -> torch.Tensor:
+    return m.bias.detach().to(DT).contiguous()
+
+
+def _shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """torch PixelShuffle(r) of NHWC x."""
+    return x if r == 1 else nhwc(F.pixel_shuffle(nchw(x), r))
+
+
+@dataclass(frozen=True)
+class FineTail:
+    """The fine-grid tail: ``stages`` on the v3 (or v2) tile wrappers, then
+    the head conv + OutImg; with ``plain`` on their plain versions."""
+    stages: Tuple[FineStage, ...]
+    head_w: torch.Tensor
+    head_b: torch.Tensor
+    v3: bool
+    plain: bool = False
+
+    @property
+    def wrappers(self) -> Tuple[str, str]:
+        """(conv wrapper, ResBlockSFT wrapper)."""
+        return (("conv_tile_v3", "resblock_sft_tile_v3") if self.v3
+                else ("conv_tile", "resblock_sft_tile"))
+
+    def launches_per_frame(self) -> Dict[str, int]:
+        conv, rsft = self.wrappers
+        n_conv = sum(st.upconv is None for st in self.stages) + 1
+        return {conv: n_conv, rsft: len(self.stages)}
+
+    def __call__(self, x: torch.Tensor, t_embed: torch.Tensor
+                 ) -> torch.Tensor:
+        """NHWC bf16 input of the first stage -> [1, H, W, 3] bf16 frame."""
+        suffix = "_plain" if self.plain else ""
+        conv, rsft = (getattr(tile_conv, n + suffix) for n in self.wrappers)
+        for st in self.stages:
+            if st.upconv is not None:
+                x = nhwc(torch.sin(st.upconv(nchw(x))))
+            elif self.v3:
+                x = _shuffle(conv(x, st.conv_w, st.conv_b,
+                                  k=st.conv_w.shape[1], act="sin"), st.strd)
+            else:
+                x = torch.sin(_shuffle(conv(x, st.conv_w, st.conv_b,
+                                            k=st.conv_w.shape[1]), st.strd))
+            x = rsft(x, *st.rsft, st.sft(t_embed))
+        k = self.head_w.shape[1]
+        if self.v3:
+            return conv(x, self.head_w, self.head_b, k=k, act="outimg")
+        y = conv(x, self.head_w, self.head_b, k=k)
+        return (torch.tanh(y.float()) * 0.5 + 0.5).to(DT)
+
+
+def _fine_tail(model: HNeRVBoost, first: int, out_hw, *, switch: bool,
+               v3: bool, plain: bool) -> FineTail:
+    """Stages ``first``.. of ``model`` on the tile wrappers; with
+    ``switch`` the first one's upconv runs in torch."""
+    stages = []
+    for bi in range(first, len(model.blocks)):
+        blk = model.blocks[bi]
+        stages.append(FineStage(
+            bi, blk.conv.strd, out_hw[bi], _ohwi(blk.conv.conv),
+            _bias(blk.conv.conv),
+            (_ohwi(blk.rsft.conv0), _bias(blk.rsft.conv0),
+             _ohwi(blk.rsft.conv1), _bias(blk.rsft.conv1)),
+            _bf16(blk.rsft.sft0), _bf16(blk.rsft.sft1),
+            _bf16(blk.conv) if switch and bi == first else None))
+    return FineTail(tuple(stages), _ohwi(model.head), _bias(model.head), v3,
+                    plain)
 
 
 def _as_model(cfg: BoostConfig, params_or_model) -> HNeRVBoost:
@@ -171,8 +298,9 @@ def _bf16(m: nn.Module) -> nn.Module:
 
 
 def _prefix(model: HNeRVBoost, switch_at: int):
-    """(time_embed(t), prefix(embed, t_embed) -> NCHW bf16 input of the
-    first tail stage), both in bf16 on the model's device."""
+    """(time_embed(t), prefix(embed, t_embed) -> NCHW bf16 output of stage
+    ``switch_at - 1`` (the stem for 0)), both in bf16 on the model's
+    device."""
     stem_t, stem = _bf16(model.stem_t), _bf16(model.stem)
     blocks = [_bf16(model.blocks[bi]) for bi in range(switch_at)]
     device = model.head.weight.device
@@ -192,20 +320,27 @@ def _prefix(model: HNeRVBoost, switch_at: int):
     return time_embed, prefix
 
 
+def _check_batch(t: torch.Tensor) -> None:
+    if t.shape != (1,):
+        raise ValueError("the serving decode runs batch 1: embed "
+                         "[1, h, w, C] and t [1]")
+
+
 def build_planar_bounds_fn(cfg: BoostConfig, params_or_model,
-                           planar_from_h: int = 200) -> Callable:
+                           planar_from_h: int = 200,
+                           fine_from_h: int = NO_FINE) -> Callable:
     """The W8A8 calibration pass (port of fast_decode.py:346-447):
     ``calib(embed, t)`` decodes one frame with the plain bf16 modules and
     returns the per-channel |x| maxima (float32) at every conv input of
-    every tail stage, keyed "{bi}.x" (the stage input), "{bi}.t0" =
-    SFT0(y), "{bi}.t1" = SFT1(gelu(conv0)) and, on a last stage of stride
-    1 (the fused head), "{bi}.h" (the head input)."""
+    every planar tail stage [switch_at, fine_at), keyed "{bi}.x" (the
+    stage input), "{bi}.t0" = SFT0(y), "{bi}.t1" = SFT1(gelu(conv0)) and,
+    on a last stage of stride 1 (the fused head), "{bi}.h" (the head
+    input)."""
     _check_config(cfg)
     model = _as_model(cfg, params_or_model)
-    plan, _, switch_at = _tail(cfg, planar_from_h)
+    plan, _, switch_at, fine_at = _tail(cfg, planar_from_h, fine_from_h)
     time_embed, prefix = _prefix(model, switch_at)
-    blocks = {bi: _bf16(model.blocks[bi])
-              for bi in range(switch_at, len(plan))}
+    blocks = {bi: _bf16(model.blocks[bi]) for bi in range(switch_at, fine_at)}
     head_at = len(plan) - 1 if plan[-1].strd == 1 else None
 
     def chmax(v: torch.Tensor) -> torch.Tensor:
@@ -235,12 +370,14 @@ def build_planar_bounds_fn(cfg: BoostConfig, params_or_model,
 
 def calibrate_planar_bounds(cfg: BoostConfig, params_or_model,
                             frames: Iterable, planar_from_h: int = 200,
+                            fine_from_h: int = NO_FINE,
                             margin: float = 1.0) -> Dict[str, torch.Tensor]:
     """Run the calibration pass over ``frames`` ((embed, t) pairs) and
     return the per-key maxima times ``margin`` (port of
     fast_decode.py:450-467).  Raises ValueError for an empty or malformed
     ``frames``."""
-    calib = build_planar_bounds_fn(cfg, params_or_model, planar_from_h)
+    calib = build_planar_bounds_fn(cfg, params_or_model, planar_from_h,
+                                   fine_from_h)
     try:
         items = list(frames)
     except TypeError as e:
@@ -259,36 +396,44 @@ def calibrate_planar_bounds(cfg: BoostConfig, params_or_model,
     return {k: v * margin for k, v in acc.items()}
 
 
-def build_serving_decode(cfg: BoostConfig,
+def build_fast_decode_v5(cfg: BoostConfig,
                          params_or_model: Union[HNeRVBoost,
                                                 Mapping[str, torch.Tensor]],
                          w8a8_calib: Optional[Iterable] = None, *,
                          planar_from_h: int = 200,
+                         fine_from_h: int = NO_FINE,
                          plain: bool = False) -> Callable:
-    """The serving decode for ``cfg`` on the device that holds the
-    parameters: bf16, or W8A8 on the int8-eligible tail stages when
-    ``w8a8_calib`` gives calibration frames ((embed, t) pairs).  With
-    ``plain`` every tail stage runs its wrapper's plain version: for
-    measurements and checks of the kernels, not for serving.
+    """The planar-tail decode for ``cfg`` on the device that holds the
+    parameters: bf16, or W8A8 on the int8-eligible planar stages when
+    ``w8a8_calib`` gives calibration frames ((embed, t) pairs); the stages
+    whose fine output height reaches ``fine_from_h`` and the head on the v3
+    tile wrappers (the hybrid).  With ``plain`` every wrapper runs its
+    plain version: for measurements and checks of the kernels, not for
+    serving.  Raises ValueError for a config with no planar tail.
 
-    ``decode.w8a8_stages`` / ``decode.w8a8_zc`` list the stages served in
-    W8A8 and those that receive int8 codes; ``decode.launches_per_frame``
-    the wrapper calls one frame makes."""
+    ``decode.tail`` / ``decode.fine`` hold the planar stages and the fine
+    tail (None without one); ``decode.w8a8_stages`` / ``decode.w8a8_zc``
+    list the stages served in W8A8 and those that receive int8 codes;
+    ``decode.launches_per_frame`` the wrapper calls one frame makes."""
     _check_config(cfg)
     model = _as_model(cfg, params_or_model)
-    plan, out_hw, switch_at = _tail(cfg, planar_from_h)
-    head_fused = plan[-1].strd == 1
+    plan, out_hw, switch_at, fine_at = _tail(cfg, planar_from_h,
+                                             fine_from_h)
+    head_fused = fine_at == len(plan) and plan[-1].strd == 1
     i8_stages, zc = [], []
     if w8a8_calib is not None:
         bounds = calibrate_planar_bounds(cfg, model, w8a8_calib,
-                                         planar_from_h, margin=1.05)
-        i8_stages, zc = w8a8_stage_plan(cfg, planar_from_h)
+                                         planar_from_h, fine_from_h,
+                                         margin=1.05)
+        i8_stages, zc = w8a8_stage_plan(cfg, planar_from_h, fine_from_h)
     device = model.head.weight.device
     time_embed, prefix = _prefix(model, switch_at)
-    head = None if head_fused else _bf16(model.head)
+    fine = (_fine_tail(model, fine_at, out_hw, switch=False, v3=True,
+                       plain=plain) if fine_at < len(plan) else None)
+    head = None if head_fused or fine else _bf16(model.head)
 
     tail = []
-    for bi in range(switch_at, len(plan)):
+    for bi in range(switch_at, fine_at):
         blk = model.blocks[bi]
         is_head = head_fused and bi == len(plan) - 1
         convs = (blk.conv.conv, blk.rsft.conv0, blk.rsft.conv1,
@@ -308,28 +453,109 @@ def build_serving_decode(cfg: BoostConfig,
             (1, h // plan[bi].strd, w // plan[bi].strd, plan[bi].ngf),
             weights, _bf16(blk.rsft.sft0), _bf16(blk.rsft.sft1), out_inv))
     fns = {name: getattr(planar, name + ("_plain" if plain else ""))
-           for name in planar.LAUNCHES}
+           for name in planar.WRAPPERS}
 
     @torch.no_grad()
     def decode(embed: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        if t.shape != (1,):
-            raise ValueError("the serving decode runs batch 1: embed "
-                             "[1, h, w, C] and t [1]")
+        _check_batch(t)
         t_embed = time_embed(t)
-        x = prefix(embed, t_embed).permute(0, 2, 3, 1).contiguous()
+        x = nhwc(prefix(embed, t_embed))
         for st in tail:
             kw = {"head": True} if st.head else {}
             if st.out_inv is not None:
                 kw["out_inv"] = st.out_inv
             x = fns[st.kernel](x, st.weights, st.sft(t_embed), **kw)
+        if fine is not None:
+            return fine(x, t_embed)
         if head is not None:  # stride-2 final stage: head in plain torch
-            x = out_img(head(x.permute(0, 3, 1, 2)), cfg.out_bias)
-            x = x.permute(0, 2, 3, 1)
+            x = out_img(head(nchw(x)), cfg.out_bias).permute(0, 2, 3, 1)
         return x
 
     decode.time_embed = time_embed
     decode.tail = tail
+    decode.fine = fine
     decode.w8a8_stages = i8_stages
     decode.w8a8_zc = zc
-    decode.launches_per_frame = dict(Counter(st.kernel for st in tail))
+    decode.launches_per_frame = {
+        **Counter(st.kernel for st in tail),
+        **(fine.launches_per_frame() if fine else {})}
     return decode
+
+
+def _build_fine_decode(cfg: BoostConfig, params_or_model, tile_from_h: int,
+                       v3: bool, plain: bool) -> Callable:
+    _check_config(cfg)
+    model = _as_model(cfg, params_or_model)
+    plan, out_hw = _plan(cfg)
+    switch = next((bi for bi in range(len(plan))
+                   if out_hw[bi][0] >= tile_from_h), len(plan))
+    time_embed, prefix = _prefix(model, switch)
+    fine = (_fine_tail(model, switch, out_hw, switch=True, v3=v3,
+                       plain=plain) if switch < len(plan) else None)
+    head = None if fine else _bf16(model.head)
+
+    @torch.no_grad()
+    def decode(embed: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        _check_batch(t)
+        t_embed = time_embed(t)
+        x = prefix(embed, t_embed)
+        if fine is None:  # no stage reaches tile_from_h: all in torch
+            return out_img(head(x), cfg.out_bias).permute(0, 2, 3, 1)
+        return fine(nhwc(x), t_embed)
+
+    decode.time_embed = time_embed
+    decode.fine = fine
+    decode.launches_per_frame = fine.launches_per_frame() if fine else {}
+    return decode
+
+
+def build_fast_decode_v3(cfg: BoostConfig,
+                         params_or_model: Union[HNeRVBoost,
+                                                Mapping[str, torch.Tensor]],
+                         tile_from_h: int = 200, *,
+                         plain: bool = False) -> Callable:
+    """The v3 fine-grid decode (port of fast_decode.py:217-318): stages
+    from the first whose fine output height reaches ``tile_from_h`` on
+    ``conv_tile_v3`` / ``resblock_sft_tile_v3``, the head on
+    ``conv_tile_v3`` with act outimg; the switch stage's upconv,
+    PixelShuffle and sin in torch.  ``decode.fine`` holds the tail (None
+    when no stage reaches ``tile_from_h``: the whole decode runs in
+    torch); ``plain`` and ``decode.launches_per_frame`` as in v5."""
+    return _build_fine_decode(cfg, params_or_model, tile_from_h, True, plain)
+
+
+def build_fast_decode_v2(cfg: BoostConfig,
+                         params_or_model: Union[HNeRVBoost,
+                                                Mapping[str, torch.Tensor]],
+                         tile_from_h: int = 200, *,
+                         plain: bool = False) -> Callable:
+    """The v2 fine-grid decode (port of fast_decode.py:114-214): as v3
+    with ``conv_tile`` (no activation) followed by PixelShuffle and sin in
+    torch, ``resblock_sft_tile``, and a ``conv_tile`` head followed by
+    tanh * 0.5 + 0.5."""
+    return _build_fine_decode(cfg, params_or_model, tile_from_h, False, plain)
+
+
+def build_serving_decode(cfg: BoostConfig,
+                         params_or_model: Union[HNeRVBoost,
+                                                Mapping[str, torch.Tensor]],
+                         w8a8_calib: Optional[Iterable] = None, *,
+                         planar_from_h: int = 200,
+                         plain: bool = False) -> Callable:
+    """The serving decode for ``cfg`` (port of fast_decode.py:470-602):
+    ``build_fast_decode_v5``, bf16 or W8A8 (``w8a8_calib``); for a config
+    with no planar tail ``build_fast_decode_v3(tile_from_h=45)``, in bf16
+    only: W8A8 there raises ValueError."""
+    _check_config(cfg)
+    plan, out_hw = _plan(cfg)
+    try:
+        _planar_tail_span(cfg, plan, out_hw, planar_from_h)
+    except ValueError:
+        if w8a8_calib is not None:
+            raise ValueError("W8A8 serving needs a planar tail (a stride-2 "
+                             "3x3 stage): this config serves bf16 on the v3 "
+                             "decode; pass w8a8_calib=None") from None
+        return build_fast_decode_v3(cfg, params_or_model, tile_from_h=45,
+                                    plain=plain)
+    return build_fast_decode_v5(cfg, params_or_model, w8a8_calib,
+                                planar_from_h=planar_from_h, plain=plain)

@@ -10,14 +10,22 @@ Phases, one line of output each (or one line per shape):
 2. builds the hand-written kernels from ``boosting_nerv_torch/ops/csrc``;
 3. builds HNeRV-Boost at the UVG-1080p serving config of bench.py with
    seeded random weights, encodes one synthetic 1080x1920 frame, and builds
-   the bf16 serving decode and the W8A8 one (calibrated on that frame at
-   t in {0.01, 0.25, 0.5, 0.75, 1.0}, margin 1.05, as bench.py does);
+   the decodes: the bf16 serving decode (v5) and the W8A8 one (calibrated
+   on that frame at t in {0.01, 0.25, 0.5, 0.75, 1.0}, margin 1.05, as
+   bench.py does), the v3 and v2 fine-grid decodes (``tile_from_h=45``) and
+   the hybrid (v5 with ``fine_from_h=1000``), each also on its wrappers'
+   plain versions but the hybrid;
 4. holds each kernel wrapper against its plain PyTorch version on the card
-   at every tail stage shape of both decodes (bf16: stages 2-7; W8A8:
-   stage 4's bf16 launch with int8-code output, stages 5-7 in int8) and at
-   one small ragged shape each: max abs error within 2e-2 * max(|plain|,
-   1), int8 codes compared after dequantising with 1/inv; prints the share
-   of codes that differ; times both with CUDA events;
+   at every tail shape of the decodes that serve it (stage wrappers: bf16
+   stages 2-7; W8A8: stage 4's bf16 launch with int8-code output, stages
+   5-7 in int8; tile wrappers: the v3 decode's stages 0-7 and head, the v2
+   decode's the same with act none) and at one small ragged shape each
+   (width 50; k = 1 for conv_tile_v3, k = 5 for conv_tile): max abs error
+   within 2e-2 * max(|plain|, 1), int8 codes compared after dequantising
+   with 1/inv; prints the share of codes that differ; times both with CUDA
+   events, and F.conv2d for conv_tile; then checks that a conv with more
+   than 128 input channels, which the kernel does not take, raises
+   ValueError on the card;
 5. the bf16 slice: serves 8 frame indices through ``build_serving_decode``;
    checks the frames (shape, finite, [0, 1], max abs error <= 1e-2 against
    the fp32 plain decode with TF32 off) and the launch counts; times the
@@ -27,7 +35,17 @@ Phases, one line of output each (or one line per shape):
    max abs error <= 2e-2 against the same decode on the plain stage
    versions, PSNR >= 35 dB against the bf16 kernel decode at t = 0.37, as
    bench.py gates it) and the launch counts; times it against the bf16
-   decode in turns (bf16, W8A8, W8A8, bf16).
+   decode in turns (bf16, W8A8, W8A8, bf16);
+7. the v3, v2 and hybrid slices: each serves the 8 indices with the frame
+   checks of phase 5 and its launch counts (v3: conv_tile_v3 8 and
+   resblock_sft_tile_v3 8 a frame; v2: conv_tile 8, resblock_sft_tile 8;
+   hybrid: fused_upconv_rsft 2, fused_conv_rsft 2, conv_tile_v3 3,
+   resblock_sft_tile_v3 2), and is timed in turns against the bf16 v5
+   decode (v5, X, X, v5) and, v3 and v2, against its plain version;
+8. the serving fallback: a small config with no planar tail (no stride-2
+   stage) on the card; ``build_serving_decode`` must return the v3 decode,
+   whose launches name only tile wrappers, and its frame must match its
+   plain version and the fp32 decode.
 
 The launch counts are set to 0 just before each slice's frames and read
 just after.  The line before the last is a JSON object with one entry per
@@ -53,17 +71,28 @@ W8A8_TOL = 2e-2     # max abs of the W8A8 decode vs its plain stage versions
 PSNR_GATE = 35.0    # W8A8 vs bf16 at the held index, bench.py:206-213
 T_HOLD = 0.37
 CALIB_TS = (0.01, 0.25, 0.5, 0.75, 1.0)
+TILE_FROM_H = 45    # the serving fallback's switch (fast_decode.py:597)
+FINE_FROM_H = 1000  # hybrid: stages 6-7 and the head on the v3 wrappers
 PLANAR = "boosting_nerv_tpu/ops/pallas/planar.py"
+TILE = "boosting_nerv_tpu/ops/pallas/tile_conv.py"
+STAGE_CU = "boosting_nerv_torch/ops/csrc/stage_conv.cu"
 KERNELS = {  # wrapper: (source, replaces)
-    "fused_upconv_rsft": ("boosting_nerv_torch/ops/csrc/stage_conv.cu",
-                          f"{PLANAR}:1308"),
-    "fused_conv_rsft": ("boosting_nerv_torch/ops/csrc/stage_conv.cu",
-                        f"{PLANAR}:1541"),
+    "fused_upconv_rsft": (STAGE_CU, f"{PLANAR}:1308"),
+    "fused_conv_rsft": (STAGE_CU, f"{PLANAR}:1541"),
     "fused_upconv_rsft_i8": ("boosting_nerv_torch/ops/csrc/stage_conv_i8.cu",
                              f"{PLANAR}:1308 (W8A8 prep {PLANAR}:707)"),
     "fused_conv_rsft_i8": ("boosting_nerv_torch/ops/csrc/stage_conv_i8.cu",
                            f"{PLANAR}:1541 (W8A8 prep {PLANAR}:673)"),
+    "conv_tile": (STAGE_CU, f"{TILE}:144"),
+    "conv_tile_v3": (STAGE_CU, f"{TILE}:473"),
+    "resblock_sft_tile": (STAGE_CU, f"{TILE}:951"),
+    "resblock_sft_tile_v3": (STAGE_CU, f"{TILE}:788"),
 }
+LIBRARY = {"conv_tile"}  # one PyTorch call computes it: F.conv2d
+V3_LAUNCHES = {"conv_tile_v3": 8, "resblock_sft_tile_v3": 8}
+V2_LAUNCHES = {"conv_tile": 8, "resblock_sft_tile": 8}
+HYBRID_LAUNCHES = {"fused_upconv_rsft": 2, "fused_conv_rsft": 2,
+                   "conv_tile_v3": 3, "resblock_sft_tile_v3": 2}
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and
 # tensor-core operations/s of the kernels' operand types
 HBM_BYTES_S = 3.35e12
@@ -87,6 +116,20 @@ def bench_config():
     return resolve_sizes(cfg, final_size=1920 * 1080, full_data_length=120)
 
 
+def no_planar_config():
+    """A small HNeRV-Boost with no stride-2 stage, hence no planar tail
+    (tests/test_torch_tile.py): stage heights 16, 48, 48 on a 48x48
+    frame."""
+    from boosting_nerv_torch.config import BoostConfig
+
+    return BoostConfig(
+        model="HNeRV_Boost", embed="pe_1.25_20", fc_dim=12, fc_hw="4_4",
+        dec_strds=[4, 3], dec_blks=[1, 2], ks="0_1_5",
+        conv_type=["convnext", "pshuffel_3x3"], act="sin", norm="none",
+        sft_block="res_sft", ch_t=8, reduce=1.2, lower_width=4,
+        enc_strds=[4, 3], enc_dim="8_4")
+
+
 def card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -107,20 +150,34 @@ def cuda_ms(fn, iters: int = 5, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
 def bound(name, args, kw, out):
     """(least ms the card could take for one call, "bytes" or
     "operations"): each input and weight read once and the output written
     once at the HBM rate, against the convolutions' multiply-adds at the
     tensor-core peak of the operand type."""
-    x, w = args[0], args[1]
+    x = args[0]
     _, h, wd, c_in = x.shape
-    cout, c = w.conv_w.shape[0], w.w0.shape[0]
-    hf, wf = (2 * h, 2 * wd) if name.startswith("fused_upconv") else (h, wd)
-    ops = 2 * 9 * (h * wd * c_in * cout + 2 * hf * wf * c * c
-                   + (hf * wf * c * 3 if kw.get("head") else 0))
-    nbytes = sum(t.numel() * t.element_size() for t in
-                 (x, out, args[2], *vars(w).values(), kw.get("out_inv"))
-                 if t is not None)
+    if name in ("conv_tile", "conv_tile_v3"):
+        w = args[1]
+        ops = 2 * w.shape[1] * w.shape[2] * h * wd * c_in * w.shape[0]
+        nbytes = _nbytes(x, out, *args[1:])
+    elif name.startswith("resblock_sft_tile"):
+        ops = 2 * 9 * h * wd * c_in * c_in * 2
+        nbytes = _nbytes(x, out, *args[1:])
+    else:
+        w = args[1]
+        cout, c = w.conv_w.shape[0], w.w0.shape[0]
+        hf, wf = (2 * h, 2 * wd) if name.startswith("fused_upconv") else (
+            h, wd)
+        ops = 2 * 9 * (h * wd * c_in * cout + 2 * hf * wf * c * c
+                       + (hf * wf * c * 3 if kw.get("head") else 0))
+        nbytes = _nbytes(x, out, args[2], *vars(w).values(),
+                         kw.get("out_inv"))
     t_ops = ops / PEAK_OPS_S["int8" if name.endswith("_i8") else "bf16"]
     t_bytes = nbytes / HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -135,6 +192,14 @@ def rnd(gen, *shape, scale=1.0, dtype=torch.bfloat16):
 def rnd_codes(gen, *shape):
     return torch.randint(-127, 128, shape, generator=gen, device="cuda",
                          dtype=torch.int8)
+
+
+def wrapper(name, plain=False):
+    """A kernel wrapper of ops.kernels.planar or .tile_conv by name."""
+    from boosting_nerv_torch.ops.kernels import planar, tile_conv
+
+    module = planar if name in planar.WRAPPERS else tile_conv
+    return getattr(module, name + ("_plain" if plain else ""))
 
 
 def ragged_i8(gen, c_in, c, up, head):
@@ -156,11 +221,13 @@ def ragged_i8(gen, c_in, c, up, head):
 
 
 def stage_cases(decode, decode_i8, gen):
-    """(label, wrapper, args, kwargs) for every tail stage of the bf16
-    serving decode and for stage 4 (bf16, int8-code output) and the int8
-    stages of the W8A8 one, each with its own weights and the SFT vectors of
-    t = 0.5, plus one small ragged stage of each wrapper with random
-    weights."""
+    """(label, wrapper, args, kwargs, per_frame) for every tail stage of
+    the bf16 serving decode and for stage 4 (bf16, int8-code output) and the
+    int8 stages of the W8A8 one, each with its own weights and the SFT
+    vectors of t = 0.5, plus one small ragged stage of each wrapper with
+    random weights.  per_frame: the case is one call of a frame of the
+    decode that serves the wrapper (the bf16 wrappers the bf16 decode, the
+    int8 ones the W8A8 decode)."""
     from boosting_nerv_torch.ops.kernels import planar
 
     t_embed = decode.time_embed(torch.tensor([0.5], device="cuda"))
@@ -176,7 +243,8 @@ def stage_cases(decode, decode_i8, gen):
         if st.out_inv is not None:
             kw["out_inv"] = st.out_inv
         cases.append((f"stage {st.index}{tag}", st.kernel,
-                      (x, st.weights, st.sft(t_embed)), kw))
+                      (x, st.weights, st.sft(t_embed)), kw,
+                      st.kernel.endswith("_i8") or not tag))
 
     c_in, c, h, w = 6, 5, 9, 50   # width 50: not a multiple of the tile
     sft = (torch.rand((4, c), generator=gen, device="cuda") - 0.5) * 0.6
@@ -195,13 +263,67 @@ def stage_cases(decode, decode_i8, gen):
     up8_args = (rnd(gen, 1, h, w, c_in), up8, sft)
     cases += [
         ("ragged", "fused_upconv_rsft", up_args,
-         {"out_inv": out_inv(planar.fused_upconv_rsft_plain, up_args)}),
+         {"out_inv": out_inv(planar.fused_upconv_rsft_plain, up_args)},
+         False),
         ("ragged", "fused_conv_rsft", (rnd(gen, 1, 2 * h, 2 * w, c), st1,
-                                       sft), {"head": True}),
+                                       sft), {"head": True}, False),
         ("ragged", "fused_upconv_rsft_i8", up8_args,
-         {"out_inv": out_inv(planar.fused_upconv_rsft_i8_plain, up8_args)}),
+         {"out_inv": out_inv(planar.fused_upconv_rsft_i8_plain, up8_args)},
+         False),
         ("ragged", "fused_conv_rsft_i8",
-         (rnd_codes(gen, 1, 2 * h, 2 * w, c), st8, sft), {"head": True}),
+         (rnd_codes(gen, 1, 2 * h, 2 * w, c), st8, sft), {"head": True},
+         False),
+    ]
+    return cases
+
+
+def tile_cases(decode_v3, decode_v2, gen):
+    """(label, wrapper, args, kwargs, per_frame) for every call of a frame
+    of the v3 and v2 decodes (each with its own weights and the SFT vectors
+    of t = 0.5) and one small ragged call of each tile wrapper with random
+    weights (width 50; k = 1 for conv_tile_v3, k = 5 for conv_tile)."""
+    cases = []
+    for tag, dec in (("v3", decode_v3), ("v2", decode_v2)):
+        t_embed = dec.time_embed(torch.tensor([0.5], device="cuda"))
+        tail = dec.fine
+        conv, rsft = tail.wrappers
+        act = {"act": "sin"} if tail.v3 else {}
+        for st in tail.stages:
+            h, w = st.out_hw
+            if st.upconv is None:
+                cin, k = st.conv_w.shape[3], st.conv_w.shape[1]
+                x = rnd(gen, 1, h // st.strd, w // st.strd, cin)
+                cases.append((f"{tag} stage {st.index}", conv,
+                              (x, st.conv_w, st.conv_b), {"k": k, **act},
+                              True))
+            x = rnd(gen, 1, h, w, st.rsft[0].shape[0])
+            cases.append((f"{tag} stage {st.index}", rsft,
+                          (x, *st.rsft, st.sft(t_embed)), {}, True))
+        h, w = tail.stages[-1].out_hw
+        x = rnd(gen, 1, h, w, tail.head_w.shape[3])
+        cases.append((f"{tag} head", conv, (x, tail.head_w, tail.head_b),
+                      {"k": 3, **({"act": "outimg"} if tail.v3 else {})},
+                      True))
+
+    c_in, c, h, w = 6, 5, 9, 50
+    sft = (torch.rand((4, c), generator=gen, device="cuda") - 0.5) * 0.6
+
+    def conv_args(k, cout):
+        return (rnd(gen, 1, h, w, c_in), rnd(gen, cout, k, k, c_in,
+                                               scale=(k * k * c_in) ** -0.5),
+                rnd(gen, cout, scale=0.1))
+
+    def rsft_args():
+        return (rnd(gen, 1, h, w, c), rnd(gen, c, 3, 3, c, scale=0.2),
+                rnd(gen, c, scale=0.1), rnd(gen, c, 3, 3, c, scale=0.2),
+                rnd(gen, c, scale=0.1), sft)
+
+    cases += [
+        ("ragged k5", "conv_tile", conv_args(5, 7), {"k": 5}, False),
+        ("ragged k1", "conv_tile_v3", conv_args(1, 7),
+         {"k": 1, "act": "gelu"}, False),
+        ("ragged", "resblock_sft_tile", rsft_args(), {}, False),
+        ("ragged", "resblock_sft_tile_v3", rsft_args(), {}, False),
     ]
     return cases
 
@@ -215,18 +337,24 @@ def out_inv(plain, args):
     return quant.inv_from_bound(bound).cuda()
 
 
-def check_kernels(decode, decode_i8, gen, device_line):
-    """Phase 4: kernel vs plain at every tail shape; per-kernel summaries
-    (errors over all shapes; times and bounds summed over one frame's
-    stages of the decode that serves them)."""
-    from boosting_nerv_torch.ops.kernels import planar
+def library_ms(args, kw):
+    """F.conv2d (bf16, channels_last) of a conv_tile call."""
+    x, w, b = args
+    xc, wc = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2)
+    return cuda_ms(lambda: torch.nn.functional.conv2d(
+        xc, wc, b, padding=kw["k"] // 2))
 
+
+def check_kernels(cases, device_line):
+    """Phase 4: kernel vs plain at every case; per-kernel summaries
+    (errors over all shapes; times and bounds summed over one frame's calls
+    of the decode that serves the kernel)."""
     summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                    "bound_ms": 0.0, "bound_by": "operations",
-                   "library_ms": None} for k in KERNELS}
-    for label, name, args, kw in stage_cases(decode, decode_i8, gen):
-        kernel = getattr(planar, name)
-        plain = getattr(planar, name + "_plain")
+                   "library_ms": 0.0 if k in LIBRARY else None}
+               for k in KERNELS}
+    for label, name, args, kw, per_frame in cases:
+        kernel, plain = wrapper(name), wrapper(name, plain=True)
         got = kernel(*args, **kw)
         want = plain(*args, **kw)
         torch.cuda.synchronize()
@@ -242,44 +370,69 @@ def check_kernels(decode, decode_i8, gen, device_line):
         tol = STAGE_TOL * max(wnt.abs().max().item(), 1.0)
         ms = cuda_ms(lambda: kernel(*args, **kw))
         plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=2, warmup=1)
+        lib_ms = library_ms(args, kw) if name in LIBRARY else None
         b_ms, b_by = bound(name, args, kw, got)
         x = args[0]
+        lib = "" if lib_ms is None else f" library_ms {lib_ms:.4f}"
         print(f"kernel {name} {label} in {tuple(x.shape)} {x.dtype} out "
               f"{tuple(got.shape)} {got.dtype}: max_abs_err {err:.6g} (tol "
-              f"{tol:.4g}){codes} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"{tol:.4g}){codes} ms {ms:.4f} plain_ms {plain_ms:.4f}{lib} "
               f"bound_ms {b_ms:.4f} ({b_by}) [{device_line}]", flush=True)
         if not (err <= tol):
             raise SmokeFailure(f"{name} {label}: error {err} > {tol}")
         s = summary[name]
         s["max_abs_err"] = max(s["max_abs_err"], err)
-        # per-frame sums: the bf16 kernels over the bf16 decode's stages,
-        # the int8 ones over the W8A8 decode's
-        if label.startswith("stage") and (name.endswith("_i8")
-                                          or "w8a8" not in label):
+        if per_frame:
             s["ms"] += ms
             s["plain_ms"] += plain_ms
             s["bound_ms"] += b_ms
+            if lib_ms is not None:
+                s["library_ms"] += lib_ms
             if b_by == "bytes":
                 s["bound_by"] = "bytes"
     return summary
 
 
-def serve(decode, embed, ts):
+def check_refusal(gen, device_line):
+    """A conv with more than 128 input channels fits no shared-memory tile
+    of the kernel: every tile wrapper raises ValueError on the card."""
+    c = 200
+    calls = {
+        "conv_tile": lambda: wrapper("conv_tile")(
+            rnd(gen, 1, 9, 50, c), rnd(gen, 8, 5, 5, c), rnd(gen, 8), k=5),
+        "conv_tile_v3": lambda: wrapper("conv_tile_v3")(
+            rnd(gen, 1, 9, 50, c), rnd(gen, 8, 3, 3, c), rnd(gen, 8), k=3),
+        "resblock_sft_tile_v3": lambda: wrapper("resblock_sft_tile_v3")(
+            rnd(gen, 1, 9, 50, c), rnd(gen, c, 3, 3, c), rnd(gen, c),
+            rnd(gen, c, 3, 3, c), rnd(gen, c),
+            torch.zeros((4, c), device="cuda")),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            print(f"kernel {name} refuses Cin {c} on the card: {e} "
+                  f"[{device_line}]", flush=True)
+            continue
+        raise SmokeFailure(f"{name} took Cin {c} without raising")
+
+
+def serve(decode, embed, ts, shape=(1, 1080, 1920, 3)):
     """One slice's frames, with the launch counts set to 0 just before and
     read just after."""
-    from boosting_nerv_torch.ops.kernels import planar
+    from boosting_nerv_torch.ops import kernels
 
-    planar.reset_launch_counts()
+    kernels.reset_launch_counts()
     outs = [decode(embed, t) for t in ts]
     torch.cuda.synchronize()
-    launches = dict(planar.LAUNCHES)
+    launches = dict(kernels.LAUNCHES)
     want = {k: decode.launches_per_frame.get(k, 0) * len(ts)
             for k in launches}
     if launches != want or not any(want.values()):
         raise SmokeFailure(f"launches {launches} for {len(ts)} frames, "
                            f"expected {want}")
     for out in outs:
-        if tuple(out.shape) != (1, 1080, 1920, 3):
+        if tuple(out.shape) != shape:
             raise SmokeFailure(f"frame shape {tuple(out.shape)}")
         o = out.float()
         if not bool(torch.isfinite(o).all()):
@@ -305,27 +458,32 @@ def turns(first, second, embed, ts):
         ((b1 + b2) / 2 / n, (b1 / n, b2 / n))
 
 
-def run_slice(model, decode, plain_decode, embed, ts, device_line):
-    """Phase 5: the bf16 slice; returns its launch counts."""
+def check_frames(label, decode, refs, embed, ts, expected=None):
+    """Serve the frames, check them against the fp32 references and the
+    launch counts; returns the launch counts."""
+    if expected is not None and decode.launches_per_frame != expected:
+        raise SmokeFailure(f"{label}: launches per frame "
+                           f"{decode.launches_per_frame}, expected "
+                           f"{expected}")
     outs, launches = serve(decode, embed, ts)
-    print(f"slice bf16 launches over {N_FRAMES} frames: {launches} "
+    print(f"slice {label} launches over {len(ts)} frames: {launches} "
           f"(per frame {decode.launches_per_frame})", flush=True)
-    err = 0.0
-    for t, out in zip(ts, outs):
-        with torch.no_grad():
-            ref = model.decode(embed, t)
-        err = max(err, (out.float() - ref).abs().max().item())
-    print(f"slice bf16 {N_FRAMES} frames (1, 1080, 1920, 3) finite in "
+    err = max((out.float() - ref).abs().max().item()
+              for out, ref in zip(outs, refs))
+    print(f"slice {label} {len(ts)} frames (1, 1080, 1920, 3) finite in "
           f"[0, 1]: max_abs_err vs fp32 plain decode {err:.6g} (tol "
           f"{SLICE_TOL})", flush=True)
     if not (err <= SLICE_TOL):
-        raise SmokeFailure(f"slice error {err} > {SLICE_TOL}")
-    (p_ms, p_t), (k_ms, k_t) = turns(plain_decode, decode, embed, ts)
-    print(f"decode ms/frame (UVG-1080p, bf16, encoder excluded): kernels "
-          f"{k_ms:.3f} ({k_t[0]:.3f}, {k_t[1]:.3f}), plain stages "
-          f"{p_ms:.3f} ({p_t[0]:.3f}, {p_t[1]:.3f}) [{device_line}]",
-          flush=True)
+        raise SmokeFailure(f"{label} slice error {err} > {SLICE_TOL}")
     return launches
+
+
+def print_turns(label, a, b, embed, ts, device_line):
+    (a_ms, a_t), (b_ms, b_t) = turns(a[1], b[1], embed, ts)
+    print(f"decode ms/frame (UVG-1080p, {label}, encoder excluded): "
+          f"{b[0]} {b_ms:.3f} ({b_t[0]:.3f}, {b_t[1]:.3f}), {a[0]} "
+          f"{a_ms:.3f} ({a_t[0]:.3f}, {a_t[1]:.3f}) [{device_line}]",
+          flush=True)
 
 
 def run_w8a8_slice(decode, decode_i8, plain_i8, embed, ts, device_line):
@@ -352,10 +510,42 @@ def run_w8a8_slice(decode, decode_i8, plain_i8, embed, ts, device_line):
         raise SmokeFailure(f"W8A8 slice error {err} > {W8A8_TOL}")
     if not (psnr >= PSNR_GATE):
         raise SmokeFailure(f"W8A8 PSNR {psnr} dB < {PSNR_GATE}")
-    (b_ms, b_t), (q_ms, q_t) = turns(decode, decode_i8, embed, ts)
-    print(f"decode ms/frame (UVG-1080p, encoder excluded): w8a8 {q_ms:.3f} "
-          f"({q_t[0]:.3f}, {q_t[1]:.3f}), bf16 {b_ms:.3f} ({b_t[0]:.3f}, "
-          f"{b_t[1]:.3f}) [{device_line}]", flush=True)
+    print_turns("w8a8 vs bf16", ("bf16", decode), ("w8a8", decode_i8),
+                embed, ts, device_line)
+    return launches
+
+
+def run_fallback(device_line):
+    """Phase 8: the serving fallback on the card; returns its launch
+    counts."""
+    from boosting_nerv_torch.models import build_model
+    from boosting_nerv_torch.runtime.fast_decode import build_serving_decode
+
+    cfg = no_planar_config()
+    model = build_model(cfg, seed=0).eval()
+    frame = np.random.default_rng(1).uniform(
+        size=(1, 48, 48, 3)).astype(np.float32)
+    t = torch.tensor([0.4], device="cuda")
+    with torch.no_grad():
+        embed = model.encode(torch.from_numpy(frame).cuda())
+        ref = model.decode(embed, t)
+    decode = build_serving_decode(cfg, model)
+    plain = build_serving_decode(cfg, model, plain=True)
+    tile = {"conv_tile_v3", "resblock_sft_tile_v3"}
+    if not (decode.launches_per_frame and set(decode.launches_per_frame)
+            <= tile):
+        raise SmokeFailure(f"fallback launches per frame "
+                           f"{decode.launches_per_frame}: expected only "
+                           f"{sorted(tile)}")
+    (out,), launches = serve(decode, embed, [t], shape=(1, 48, 48, 3))
+    err_plain = (out.float() - plain(embed, t).float()).abs().max().item()
+    err_ref = (out.float() - ref).abs().max().item()
+    print(f"serving fallback (no planar tail, {cfg.dec_strds} strides, "
+          f"48x48): v3 decode, launches {launches}; max_abs_err vs plain "
+          f"version {err_plain:.6g} (tol {STAGE_TOL}), vs fp32 decode "
+          f"{err_ref:.6g} (tol {SLICE_TOL}) [{device_line}]", flush=True)
+    if not (err_plain <= STAGE_TOL and err_ref <= SLICE_TOL):
+        raise SmokeFailure(f"fallback errors {err_plain}, {err_ref}")
     return launches
 
 
@@ -366,7 +556,9 @@ def main() -> int:
         return 2
     from boosting_nerv_torch.models import build_model
     from boosting_nerv_torch.ops.kernels import _build
-    from boosting_nerv_torch.runtime.fast_decode import build_serving_decode
+    from boosting_nerv_torch.runtime.fast_decode import (
+        build_fast_decode_v2, build_fast_decode_v3, build_fast_decode_v5,
+        build_serving_decode)
 
     device_line = card()
     print(f"card: {device_line}", flush=True)
@@ -393,22 +585,49 @@ def main() -> int:
     plain_decode = build_serving_decode(cfg, model, plain=True)
     decode_i8 = build_serving_decode(cfg, model, w8a8_calib=calib)
     plain_i8 = build_serving_decode(cfg, model, w8a8_calib=calib, plain=True)
-    print(f"decodes built (W8A8 calibrated twice): "
+    v3 = build_fast_decode_v3(cfg, model, tile_from_h=TILE_FROM_H)
+    plain_v3 = build_fast_decode_v3(cfg, model, tile_from_h=TILE_FROM_H,
+                                    plain=True)
+    v2 = build_fast_decode_v2(cfg, model, tile_from_h=TILE_FROM_H)
+    plain_v2 = build_fast_decode_v2(cfg, model, tile_from_h=TILE_FROM_H,
+                                    plain=True)
+    hybrid = build_fast_decode_v5(cfg, model, fine_from_h=FINE_FROM_H)
+    print(f"decodes built (9, W8A8 calibrated twice): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with torch.no_grad():
+        refs = [model.decode(embed, t) for t in ts]
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    summary = check_kernels(decode, decode_i8, gen, device_line)
-    launches = run_slice(model, decode, plain_decode, embed, ts, device_line)
-    launches_i8 = run_w8a8_slice(decode, decode_i8, plain_i8, embed, ts,
-                                 device_line)
+    summary = check_kernels(stage_cases(decode, decode_i8, gen)
+                            + tile_cases(v3, v2, gen), device_line)
+    check_refusal(gen, device_line)
+    runs = [check_frames("bf16", decode, refs, embed, ts)]
+    print_turns("bf16", ("plain stages", plain_decode), ("kernels", decode),
+                embed, ts, device_line)
+    runs.append(run_w8a8_slice(decode, decode_i8, plain_i8, embed, ts,
+                               device_line))
+    for label, dec, plain, want in (("v3", v3, plain_v3, V3_LAUNCHES),
+                                    ("v2", v2, plain_v2, V2_LAUNCHES),
+                                    ("hybrid", hybrid, None,
+                                     HYBRID_LAUNCHES)):
+        runs.append(check_frames(label, dec, refs, embed, ts, want))
+        print_turns(f"{label} vs v5 bf16", ("v5 bf16", decode), (label, dec),
+                    embed, ts, device_line)
+        if plain is not None:
+            print_turns(f"{label}", (f"{label} plain", plain),
+                        (f"{label} kernels", dec), embed, ts, device_line)
+    runs.append(run_fallback(device_line))
 
     leaked = [m for m in ("jax", "flax", "boosting_nerv_tpu")
               if m in sys.modules]
     if leaked:
         raise SmokeFailure(f"imported {leaked}")
+    unused = [k for k in KERNELS if not sum(r[k] for r in runs)]
+    if unused:
+        raise SmokeFailure(f"kernels the main paths never launched: {unused}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name] + launches_i8[name], **summary[name]}
+         "launches": sum(r[name] for r in runs), **summary[name]}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

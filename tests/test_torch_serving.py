@@ -148,11 +148,14 @@ def test_tail_span_matches_jax(cfg_fn, planar_from_h):
         except ValueError as e:
             return str(e)
 
-    # serving never sets the hybrid split: fine_from_h beyond any height
-    assert span(lambda: port_fd._planar_tail_span(
-        cfg, plan, out_hw, planar_from_h)) == span(
-        lambda: jax_fd._planar_tail_span(jcfg, jplan, out_hw, planar_from_h,
-                                         10 ** 9)[0])
+    # serving never sets the hybrid split (fine_from_h beyond any height);
+    # the hybrid's split is held at every stage height and beyond them
+    for fine_from_h in sorted({h for h, _ in out_hw} | {10 ** 9}):
+        kw = {} if fine_from_h == 10 ** 9 else {"fine_from_h": fine_from_h}
+        assert span(lambda: port_fd._planar_tail_span(
+            cfg, plan, out_hw, planar_from_h, **kw)) == span(
+            lambda: jax_fd._planar_tail_span(jcfg, jplan, out_hw,
+                                             planar_from_h, fine_from_h))
 
 
 def test_bench_config_tail_is_the_six_kernel_stages():
@@ -182,8 +185,16 @@ def test_build_serving_decode_contract(decoded):
     assert dec8.w8a8_stages == dec8.w8a8_zc == []
     assert dec8.launches_per_frame == {"fused_upconv_rsft": 1,
                                        "fused_conv_rsft": 1}
-    with pytest.raises(ValueError, match="no planar-eligible tail"):
-        port_fd.build_serving_decode(cfg, state, planar_from_h=10 ** 6)
+    # no planar tail: the v3 decode serves, as in JAX (fast_decode.py:596);
+    # tile_from_h 45 is above every stage of this 16x16 config, so it runs
+    # in torch alone and agrees with the planar decode
+    fallback = port_fd.build_serving_decode(cfg, state, planar_from_h=10 ** 6)
+    assert fallback.fine is None and fallback.launches_per_frame == {}
+    assert np.abs(fallback(*frame).float().numpy()
+                  - dec8(*frame).float().numpy()).max() < 0.02
+    with pytest.raises(ValueError, match="W8A8 serving needs a planar tail"):
+        port_fd.build_serving_decode(cfg, state, w8a8_calib=[frame],
+                                     planar_from_h=10 ** 6)
     with pytest.raises(ValueError, match="paper config"):
         port_fd.build_serving_decode(cfg.replace(act="gelu"), state)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
