@@ -25,7 +25,12 @@
 // (ops/kernels/tile_conv.py): conv_tile (k x k conv + bias, k in {1, 3, 5}),
 // conv_tile_v3 (k in {1, 3}, + none/sin/outimg/gelu) and the two fused
 // ResBlockSFTs (the rsft 0 / rsft 1 pair above).  KS = 3 is the stage
-// kernels' instance and keeps their code.
+// kernels' instance and keeps their code.  Its KS = 3 instances also
+// replace the v1 decode's channels-major kernels (ops/pallas/conv_chw.py's
+// conv3x3_act_chw and head_conv_chw, fused_sft.py's resblock_sft_chw, whose
+// input_sin is the template parameter S: stage_conv_sin.cu) and the
+// standalone planar conv_planar and rsft_planar (ops/kernels/conv_chw.py,
+// fused_sft.py, planar.py).
 //
 // What bounds it on an H100: the 1080p stage-7 tensors are
 // 1080*1920*51*2 B = 211 MB each and the tail costs about 0.9 TFLOP of
@@ -82,13 +87,15 @@ int bnt_stage_conv_smem(int cin, int cout, int ks) {
 
 // One fused ks x ks convolution on the given stream.  Pointers may be null
 // where the comment on Params allows it; out_inv (int8-code output) only
-// with ks = 3.  Returns cudaGetLastError() after the launch (0 on success).
+// with ks = 3; sin_mode (bnt::Sin: 1 the staged input, 2 the residual)
+// only with ks = 3 and a bf16 store.  Returns cudaGetLastError() after the
+// launch (0 on success).
 int bnt_stage_conv(const void* x, const void* w, const void* bias,
                    const void* in_scale, const void* in_shift,
                    const void* out_scale, const void* out_shift,
                    const void* residual, const void* out_inv, void* out,
                    int n, int h, int w_, int cin, int cout, int act,
-                   int shuffle, int ks, void* stream) {
+                   int shuffle, int ks, int sin_mode, void* stream) {
   Params p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.wgt = static_cast<const __nv_bfloat16*>(w);
@@ -112,10 +119,14 @@ int bnt_stage_conv(const void* x, const void* w, const void* bias,
   p.tiles_w = (w_ + TW - 1) / TW;
   p.tiles_h = (h + TH - 1) / TH;
   const int smem = bnt_stage_conv_smem(cin, cout, ks);
-  if (smem < 0 || (shuffle && cout % 4 != 0) || (out_inv && ks != 3))
+  if (smem < 0 || (shuffle && cout % 4 != 0) || (out_inv && ks != 3) ||
+      sin_mode < bnt::SIN_NONE || sin_mode > bnt::SIN_RESIDUAL ||
+      (sin_mode != bnt::SIN_NONE && (ks != 3 || out_inv)))
     return cudaErrorInvalidValue;
   p.nw = tap_chunk_width(ks, p.cin_pad, cout);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sin_mode != bnt::SIN_NONE)
+    return bnt::launch_sin(sin_mode, p, smem, s);
   switch (ks) {
     case 3: return out_inv ? launch<3, true>(p, smem, s)
                            : launch<3, false>(p, smem, s);

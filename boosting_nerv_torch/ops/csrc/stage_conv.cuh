@@ -1,8 +1,9 @@
-// The bf16 stage-conv kernel, stage_conv_kernel<KS, CK, Q>: one fused
+// The bf16 stage-conv kernel, stage_conv_kernel<KS, CK, Q, S>: one fused
 // KS x KS convolution (see stage_conv.cu for what it computes, what bounds
 // it and its C entry points).  Its KS = 3 instances are compiled in
-// stage_conv.cu and its KS = 1 and KS = 5 ones in stage_conv_taps.cu, so
-// that nvcc builds the two halves in parallel; launch_taps is the bridge.
+// stage_conv.cu, its KS = 1 and KS = 5 ones in stage_conv_taps.cu and its
+// sin instances (KS = 3) in stage_conv_sin.cu, so that nvcc builds the
+// three in parallel; launch_taps and launch_sin are the bridges.
 
 #pragma once
 
@@ -28,8 +29,17 @@ struct Params {
   int tiles_w, tiles_h;            // TH x TW output tiles per image
 };
 
+// Where a launch takes the sine of a tensor it reads (a compile-time
+// choice): nowhere, of the staged input before the prologue affine
+// (SIN_INPUT), or of the residual (SIN_RESIDUAL).
+enum Sin { SIN_NONE = 0, SIN_INPUT = 1, SIN_RESIDUAL = 2 };
+
 // Launches a KS = 1 or KS = 5 instance (stage_conv_taps.cu).
 int launch_taps(int ks, const Params& p, int smem, cudaStream_t s);
+
+// Launches a KS = 3 instance with SIN_INPUT or SIN_RESIDUAL
+// (stage_conv_sin.cu).
+int launch_sin(int sin_mode, const Params& p, int smem, cudaStream_t s);
 
 }  // namespace bnt
 
@@ -60,8 +70,11 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
 // KS: taps per side.  CK: input channels a lane stages per pixel, lane +
 // 32k (cin_pad <= 32 CK).  Q: store int8 codes at out_inv instead of bf16
 // (a compile-time choice, so that the bf16 store path carries no code of
-// the int8 one).
-template <int KS, int CK, bool Q>
+// the int8 one).  S (bnt::Sin): the staged input is sin(x) * in_mul +
+// in_add on in-image taps, or the residual is sin(residual); the ResBlockSFT
+// whose block input is sin(x) is one launch of each (the v1 decode's
+// switch stage).  S = SIN_NONE leaves the code as it was.
+template <int KS, int CK, bool Q, int S>
 __global__ void __launch_bounds__(THREADS)
 stage_conv_kernel(const Params p) {
   using T = Tile<KS>;
@@ -143,9 +156,16 @@ stage_conv_kernel(const Params p) {
 #pragma unroll
         for (int k = 0; k < CK; ++k) {
           const int c = lane + 32 * k;
-          v[u][k] = (inside && c < p.cin)
-                        ? __bfloat162float(src[c]) * in_mul[k] + in_add[k]
-                        : 0.0f;
+          if constexpr (S == bnt::SIN_INPUT) {
+            v[u][k] = (inside && c < p.cin)
+                          ? sin_reduced(__bfloat162float(src[c])) * in_mul[k] +
+                                in_add[k]
+                          : 0.0f;
+          } else {
+            v[u][k] = (inside && c < p.cin)
+                          ? __bfloat162float(src[c]) * in_mul[k] + in_add[k]
+                          : 0.0f;
+          }
         }
       }
 #pragma unroll
@@ -217,6 +237,9 @@ stage_conv_kernel(const Params p) {
                          : SKIP;
           res[j][e] = (ok && residual) ? __bfloat162float(residual[off[j][e]])
                                        : 0.0f;
+          if constexpr (S == bnt::SIN_RESIDUAL) {
+            res[j][e] = sin_reduced(res[j][e]);
+          }
         }
       }
 #pragma unroll
@@ -238,15 +261,15 @@ stage_conv_kernel(const Params p) {
   }
 }
 
-template <int KS, bool Q>
+template <int KS, bool Q, int S = bnt::SIN_NONE>
 int launch(const Params& p, int smem, cudaStream_t s) {
   const int tiles = p.tiles_w * p.tiles_h * p.n;
   const int chunks = (p.cout + p.nw - 1) / p.nw;
   switch ((p.cin_pad + 31) / 32) {
-    case 1: return launch_persistent(stage_conv_kernel<KS, 1, Q>, p, tiles, chunks, smem, s);
-    case 2: return launch_persistent(stage_conv_kernel<KS, 2, Q>, p, tiles, chunks, smem, s);
-    case 3: return launch_persistent(stage_conv_kernel<KS, 3, Q>, p, tiles, chunks, smem, s);
-    default: return launch_persistent(stage_conv_kernel<KS, 4, Q>, p, tiles, chunks, smem, s);
+    case 1: return launch_persistent(stage_conv_kernel<KS, 1, Q, S>, p, tiles, chunks, smem, s);
+    case 2: return launch_persistent(stage_conv_kernel<KS, 2, Q, S>, p, tiles, chunks, smem, s);
+    case 3: return launch_persistent(stage_conv_kernel<KS, 3, Q, S>, p, tiles, chunks, smem, s);
+    default: return launch_persistent(stage_conv_kernel<KS, 4, Q, S>, p, tiles, chunks, smem, s);
   }
 }
 

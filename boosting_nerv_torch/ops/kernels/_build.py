@@ -6,11 +6,12 @@ objects into one shared library with a plain C interface, at first use.
 The library's name carries a hash of the sources (headers included) and
 flags, so an edited source builds anew and an unchanged one is loaded from
 ``boosting_nerv_torch/build/``; ptxas's register and spill report is kept
-beside it (``<library>.log``).  The library is bound with ``ctypes``: each
-pointer and the stream is a ``c_void_p`` and each int a ``c_int``; every
-entry point returns ``cudaGetLastError()`` after its launch, which
-``check`` turns into an exception.  Nothing here runs on import: the CPU
-tests import this module on machines without ``nvcc``.
+beside it (``<library>.log``, one ``# <source>`` section per source).  The
+library is bound with ``ctypes``: each pointer and the stream is a
+``c_void_p`` and each int a ``c_int``; every entry point returns
+``cudaGetLastError()`` after its launch, which ``check`` turns into an
+exception.  Nothing here runs on import: the CPU tests import this module
+on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -83,7 +84,8 @@ def build(path: str) -> None:
                 raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
                                    f"{log}")
         with open(path + ".log", "w") as f:
-            f.write("".join(logs))
+            f.write("".join(f"# {os.path.basename(s)}\n{log}"
+                            for s, log in zip(cus, logs)))
         os.replace(lib, path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -92,7 +94,7 @@ def build(path: str) -> None:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.bnt_stage_conv.restype = ci
-    lib.bnt_stage_conv.argtypes = [vp] * 10 + [ci] * 8 + [vp]
+    lib.bnt_stage_conv.argtypes = [vp] * 10 + [ci] * 9 + [vp]
     lib.bnt_stage_conv_smem.restype = ci
     lib.bnt_stage_conv_smem.argtypes = [ci, ci, ci]
     lib.bnt_stage_conv3x3_i8.restype = ci

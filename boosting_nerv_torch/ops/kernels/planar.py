@@ -22,14 +22,38 @@ SFTi(v) = v * (scale_i + 1) + shift_i per channel.  With ``out_inv`` a
 stage stores its output as int8 codes at that multiplier (the next int8
 stage's input bound) instead of bf16.
 
-Tensors are NHWC on the fine grid: the TPU's subpixel-planar layout served
-Mosaic and is not part of this contract.  Each wrapper runs its plain
-PyTorch version for a tensor on the CPU and its CUDA kernel (three or four
-launches of one fused 3x3 convolution: ``ops/csrc/stage_conv.cu`` for
-bf16, ``ops/csrc/stage_conv_i8.cu`` for W8A8) for a tensor on the card; on
-a CUDA tensor it launches or raises, it never falls back.  ``LAUNCHES``
-(shared with ``tile_conv``) counts the wrapper calls that launched a CUDA
-kernel.
+The stage wrappers' tensors are NHWC on the fine grid: the TPU's
+subpixel-planar layout served Mosaic and is not part of their contract.
+Each wrapper runs its plain PyTorch version for a tensor on the CPU and its
+CUDA kernel (three or four launches of one fused 3x3 convolution:
+``ops/csrc/stage_conv.cu`` for bf16, ``ops/csrc/stage_conv_i8.cu`` for
+W8A8) for a tensor on the card; on a CUDA tensor it launches or raises, it
+never falls back.  ``LAUNCHES`` (shared with ``tile_conv``, ``conv_chw``
+and ``fused_sft``) counts the wrapper calls that launched a CUDA kernel.
+
+The standalone planar entry points of the same Pallas module keep the
+planar layout, because it is their own input and output contract:
+fine (C, 2H, 2W) <-> planar (4 * Cp, H, Wd) with Cp = round16(C) and
+planar[(2 * r1 + r2) * Cp + c, y, x] = fine[c, 2y + r1, 2x + r2]
+(``to_planar`` / ``from_planar``, planar.py:76-91; ``upconv_kernel_to_planar``
+:94 reorders a JAX-ordered upconv kernel to it).
+
+- ``conv_planar(xp, w, b, *, c_in, c_out, wc_real, act)`` (planar.py:398):
+  act(conv3x3(x) + b) of the fine tensor held in xp, none / sin / outimg /
+  gelu, with the HWIO kernel [3, 3, C, Co].
+- ``rsft_planar(xp, w0, b0, w1, b1, sft, *, c, hc_real, wc_real)``
+  (planar.py:484): the ResBlockSFT of the fine tensor held in the first
+  ``hc_real`` rows and ``wc_real`` columns of xp, HWIO kernels.
+
+Each crops the real region to fine NHWC in torch (the Pallas kernels' own
+XLA converters do the same at the tail's ends), runs the KS = 3 kernel (one
+launch) or the two-launch ResBlockSFT on it, and writes the planar result.
+Pad channels hold what the Pallas kernel leaves there: act(0) for
+``conv_planar`` (0 for none / sin / gelu, 0.5 for outimg), xp's for
+``rsft_planar``.  Pad columns and rows, which no caller reads, hold act(0)
+and xp's values (the Pallas kernel leaves its convolution's edge values
+there).  The Pallas ``th`` and ``interpret`` arguments are tactics and are
+dropped.
 """
 
 from __future__ import annotations
@@ -43,9 +67,12 @@ import torch.nn.functional as F
 from . import LAUNCHES, _build, quant
 
 WRAPPERS = ("fused_upconv_rsft", "fused_conv_rsft", "fused_upconv_rsft_i8",
-            "fused_conv_rsft_i8")
+            "fused_conv_rsft_i8")   # the stage wrappers
 
 _ACT = {"none": 0, "sin": 1, "gelu": 2, "outimg": 3}
+_SIN = {"none": 0, "input": 1, "residual": 2}   # bnt::Sin
+ACTS = {"none": lambda v: v, "sin": torch.sin,
+        "outimg": lambda v: torch.tanh(v) * 0.5 + 0.5, "gelu": F.gelu}
 
 
 @dataclass(frozen=True)
@@ -157,6 +184,22 @@ def rsft_plain(y, rsft_w, sft, f32_out=False):
     return y + conv_plain(t, w1, b1)
 
 
+def conv_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   act: str = "none") -> torch.Tensor:
+    """NHWC [N, H, W, Cin] -> [N, H, W, Cout]: act(k x k conv + bias) with
+    an OHWI weight, in x's dtype."""
+    return nhwc(ACTS[act](conv_plain(nchw(x), w, b)))
+
+
+def rsft_nhwc_plain(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+                    w1: torch.Tensor, b1: torch.Tensor, sft: torch.Tensor,
+                    input_sin: bool = False) -> torch.Tensor:
+    """NHWC [N, H, W, C] -> [N, H, W, C]: the ResBlockSFT of y = sin(x)
+    with ``input_sin``, else of y = x (residual y), in x's dtype."""
+    y = torch.sin(x) if input_sin else x
+    return nhwc(rsft_plain(nchw(y), (w0, b0, w1, b1), sft))
+
+
 def nchw(x):
     return x.permute(0, 3, 1, 2)
 
@@ -262,16 +305,20 @@ def _stream(x):
 
 
 def launch_conv(lib, x, w, b, out, *, act="none", shuffle=False,
-                in_affine=None, out_affine=None, residual=None, out_inv=None):
+                in_affine=None, out_affine=None, residual=None, out_inv=None,
+                sin="none"):
     """One launch of the bf16 kernel (``stage_conv.cu``): a same-padded
-    k x k conv of NHWC x with the OHWI weight w [Cout, k, k, Cin]."""
+    k x k conv of NHWC x with the OHWI weight w [Cout, k, k, Cin].  ``sin``
+    "input" stages sin(x) before the input affine, "residual" adds
+    sin(residual) (k = 3 and a bf16 output only: ``stage_conv_sin.cu``)."""
     n, h, wd, cin = x.shape
     s_in, h_in = in_affine if in_affine is not None else (None, None)
     s_out, h_out = out_affine if out_affine is not None else (None, None)
     err = lib.bnt_stage_conv(
         _ptr(x), _ptr(w), _ptr(b), _ptr(s_in), _ptr(h_in), _ptr(s_out),
         _ptr(h_out), _ptr(residual), _ptr(out_inv), _ptr(out), n, h, wd, cin,
-        w.shape[0], _ACT[act], int(shuffle), w.shape[1], _stream(x))
+        w.shape[0], _ACT[act], int(shuffle), w.shape[1], _SIN[sin],
+        _stream(x))
     _build.check(err, "stage_conv launch")
 
 
@@ -340,6 +387,53 @@ def check_tensors(x, c_in, tensors, x_dtypes, smem_fn, convs):
     return True
 
 
+def _check_conv(x, w, b, k, ks, act):
+    """``check_tensors`` for one k x k conv + act of NHWC x with the OHWI
+    weight w and bias b (bf16 on the card).  Raises for a k outside ``ks``,
+    an unknown act or a weight that is not [Cout, k, k, Cin]."""
+    if k not in ks:
+        raise ValueError(f"k must be one of {ks}, got {k}")
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {tuple(ACTS)}, got {act!r}")
+    if w.dim() != 4 or tuple(w.shape[1:3]) != (k, k):
+        raise ValueError(f"w must be OHWI [Cout, {k}, {k}, Cin], got "
+                         f"{tuple(w.shape)}")
+    cout, c_in = w.shape[0], w.shape[3]
+    bf = torch.bfloat16
+    return check_tensors(x, c_in, [("w", w, (cout, k, k, c_in), bf),
+                                   ("b", b, (cout,), bf)], (bf,),
+                         lambda lib: lib.bnt_stage_conv_smem,
+                         [(c_in, cout, k)])
+
+
+def run_conv(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+             *, k: int, ks, act: str = "none") -> torch.Tensor:
+    """The conv wrappers' body: act(k x k conv + bias) of NHWC x with the
+    OHWI weight w, k in ``ks``; for a tensor on the card one launch of the
+    bf16 kernel, counted in ``LAUNCHES[name]``, for one on the CPU the
+    plain version.  Raises ValueError for a k, act or weight it does not
+    take and, on the card, for a shape or type the kernel does not take."""
+    if not _check_conv(x, w, b, k, ks, act):
+        return conv_act_plain(x, w, b, act)
+    out = torch.empty(x.shape[:3] + (w.shape[0],), dtype=x.dtype,
+                      device=x.device)
+    launch_conv(_build.load_library(), x, w, b, out, act=act)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _check_rsft(x, w0, b0, w1, b1, sft):
+    """``check_tensors`` for a ResBlockSFT of NHWC x: w0/w1 OHWI
+    [C, 3, 3, C] and b0/b1 [C] bf16, sft [4, C] float32 on the card."""
+    c = x.shape[-1]
+    bf = torch.bfloat16
+    tensors = [("w0", w0, (c, 3, 3, c), bf), ("b0", b0, (c,), bf),
+               ("w1", w1, (c, 3, 3, c), bf), ("b1", b1, (c,), bf),
+               ("sft", sft, (4, c), torch.float32)]
+    return check_tensors(x, c, tensors, (bf,),
+                         lambda lib: lib.bnt_stage_conv_smem, [(c, c, 3)])
+
+
 def _stage_convs(c_in, c, up, head, *ks):
     """(Cin, Cout, *ks) of each conv of a stage."""
     return [(c_in, 4 * c if up else c, *ks), (c, c, *ks)] + (
@@ -400,15 +494,35 @@ def _out(x, shape, out_inv):
                        else torch.bfloat16, device=x.device)
 
 
-def rsft_cuda(lib, y, rsft_w, sft, out_inv=None):
+def rsft_cuda(lib, y, rsft_w, sft, out_inv=None, input_sin=False):
     """ResBlockSFT of NHWC y in two launches: t = SFT1(gelu(conv0(SFT0(y))
-    + b0)), then y + conv1(t) + b1; rsft_w = (w0, b0, w1, b1) OHWI."""
+    + b0)), then y + conv1(t) + b1; rsft_w = (w0, b0, w1, b1) OHWI.  With
+    ``input_sin`` the block input is sin(y): conv0 stages it and conv1 adds
+    it as its residual (bf16 output only)."""
     w0, b0, w1, b1 = rsft_w
     t = torch.empty_like(y)
     launch_conv(lib, y, w0, b0, t, act="gelu", in_affine=(sft[0], sft[1]),
-                out_affine=(sft[2], sft[3]))
+                out_affine=(sft[2], sft[3]),
+                sin="input" if input_sin else "none")
     out = _out(y, y.shape, out_inv)
-    launch_conv(lib, t, w1, b1, out, residual=y, out_inv=out_inv)
+    launch_conv(lib, t, w1, b1, out, residual=y, out_inv=out_inv,
+                sin="residual" if input_sin else "none")
+    return out
+
+
+def run_rsft(name: str, x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+             w1: torch.Tensor, b1: torch.Tensor, sft: torch.Tensor, *,
+             input_sin: bool = False) -> torch.Tensor:
+    """The ResBlockSFT wrappers' body (``rsft_nhwc_plain``'s function): for
+    a tensor on the card the two launches of ``rsft_cuda``, counted once in
+    ``LAUNCHES[name]``, for one on the CPU the plain version.  Raises
+    ValueError for weights, biases or SFT vectors of the wrong shape and,
+    on the card, for a shape or type the kernel does not take."""
+    if not _check_rsft(x, w0, b0, w1, b1, sft):
+        return rsft_nhwc_plain(x, w0, b0, w1, b1, sft, input_sin)
+    out = rsft_cuda(_build.load_library(), x, (w0, b0, w1, b1), sft,
+                    input_sin=input_sin)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -510,3 +624,140 @@ def fused_conv_rsft_i8(x: torch.Tensor, w: StageWeightsI8,
         out = _rsft_i8_cuda(lib, y, w, sft, out_inv)
     LAUNCHES["fused_conv_rsft_i8"] += 1
     return out
+
+
+# --------------------------------------------------------------------- #
+# standalone planar entry points (planar layout in and out)
+# --------------------------------------------------------------------- #
+
+def _round16(c: int) -> int:
+    return (c + 15) // 16 * 16
+
+
+def to_planar(x: torch.Tensor, cp: Optional[int] = None) -> torch.Tensor:
+    """fine (C, 2H, 2W) -> planar (4 * Cp, H, W), pad channels zero."""
+    c, h2, w2 = x.shape
+    cp = _round16(c) if cp is None else cp
+    x = x.reshape(c, h2 // 2, 2, w2 // 2, 2).permute(2, 4, 0, 1, 3)
+    x = F.pad(x, (0, 0, 0, 0, 0, cp - c))
+    return x.reshape(4 * cp, h2 // 2, w2 // 2)
+
+
+def from_planar(xp: torch.Tensor, c: int) -> torch.Tensor:
+    """planar (4 * Cp, H, W) -> fine (C, 2H, 2W)."""
+    g, h, w = xp.shape
+    x = xp.reshape(2, 2, g // 4, h, w)[:, :, :c]
+    return x.permute(2, 3, 0, 4, 1).reshape(c, 2 * h, 2 * w)
+
+
+def upconv_kernel_to_planar(kernel: torch.Tensor,
+                            cp: Optional[int] = None) -> torch.Tensor:
+    """HWIO (kh, kw, Cin, 4 * C) upconv kernel whose output channels are in
+    the JAX PixelShuffle packing (r1, r2, c) -> (kh, kw, Cin, 4 * Cp) in the
+    planar row order (plane-major, each plane zero-padded to Cp)."""
+    kh, kw, cin, co4 = kernel.shape
+    c = co4 // 4
+    cp = _round16(c) if cp is None else cp
+    k = F.pad(kernel.reshape(kh, kw, cin, 4, c), (0, cp - c))
+    return k.reshape(kh, kw, cin, 4 * cp)
+
+
+def _check_planar(xp, c, wc_real, hc_real=None):
+    """xp (4 * round16(c), Hc, Wd) with Wd a power of two >= 128 and a real
+    region hc_real (default Hc) x wc_real inside it (the Pallas asserts)."""
+    if xp.dim() != 3:
+        raise ValueError(f"xp must be planar (4 * Cp, Hc, Wd), got "
+                         f"{tuple(xp.shape)}")
+    g, hc, wd = xp.shape
+    if wd < 128 or wd & (wd - 1):
+        raise ValueError(f"the planar width Wd must be a power of two >= "
+                         f"128, got {wd}")
+    if g != 4 * _round16(c):
+        raise ValueError(f"xp must have 4 * round16({c}) = "
+                         f"{4 * _round16(c)} rows, got {g}")
+    hc_real = hc if hc_real is None else hc_real
+    if not (0 < hc_real <= hc and 0 < wc_real <= wd):
+        raise ValueError(f"the real region {hc_real} x {wc_real} must lie "
+                         f"inside the planar {hc} x {wd}")
+    return hc_real
+
+
+def _fine(xp, c, hc_real, wc_real):
+    """The real region of planar xp as fine NHWC [1, 2 hc, 2 wc, C]."""
+    return nhwc(from_planar(xp[:, :hc_real, :wc_real], c)[None])
+
+
+def _put_planar(out, y):
+    """Write fine NHWC y [1, 2 hc, 2 wc, C] into the real channels, rows and
+    columns of planar ``out``."""
+    _, h2, w2, c = y.shape
+    g, hc, wd = out.shape
+    planes = out.view(2, 2, g // 4, hc, wd)[:, :, :c, :h2 // 2, :w2 // 2]
+    planes.copy_(y[0].view(h2 // 2, 2, w2 // 2, 2, c).permute(1, 3, 4, 0, 2))
+    return out
+
+
+def _hwio_to_ohwi(w, c_in, c_out):
+    if tuple(w.shape) != (3, 3, c_in, c_out):
+        raise ValueError(f"the kernel must be HWIO (3, 3, {c_in}, {c_out}), "
+                         f"got {tuple(w.shape)}")
+    return w.permute(3, 0, 1, 2).contiguous()
+
+
+def _conv_planar(xp, w, b, c_in, c_out, wc_real, act, plain):
+    hc = _check_planar(xp, c_in, wc_real)
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {tuple(ACTS)}, got {act!r}")
+    x = _fine(xp, c_in, hc, wc_real)
+    w = _hwio_to_ohwi(w, c_in, c_out)
+    y = (conv_act_plain(x, w, b, act) if plain else
+         run_conv("conv_planar", x, w, b, k=3, ks=(3,), act=act))
+    fill = float(ACTS[act](torch.zeros(())))
+    out = torch.full((4 * _round16(c_out), hc, xp.shape[2]), fill,
+                     dtype=y.dtype, device=y.device)
+    return _put_planar(out, y)
+
+
+def conv_planar_plain(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+                      c_in: int, c_out: int, wc_real: int,
+                      act: str = "none") -> torch.Tensor:
+    """``conv_planar`` in plain PyTorch."""
+    return _conv_planar(xp, w, b, c_in, c_out, wc_real, act, plain=True)
+
+
+def conv_planar(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+                c_in: int, c_out: int, wc_real: int,
+                act: str = "none") -> torch.Tensor:
+    """3x3 same conv + bias + act of the fine tensor held in planar xp
+    (4 * round16(c_in), Hc, Wd), real columns < wc_real: HWIO w
+    [3, 3, c_in, c_out], b [c_out] (bf16 on the card) -> planar
+    (4 * round16(c_out), Hc, Wd) in xp's dtype."""
+    return _conv_planar(xp, w, b, c_in, c_out, wc_real, act, plain=False)
+
+
+def _rsft_planar(xp, w0, b0, w1, b1, sft, c, hc_real, wc_real, plain):
+    _check_planar(xp, c, wc_real, hc_real)
+    x = _fine(xp, c, hc_real, wc_real)
+    w0, w1 = _hwio_to_ohwi(w0, c, c), _hwio_to_ohwi(w1, c, c)
+    y = (rsft_nhwc_plain(x, w0, b0, w1, b1, sft) if plain else
+         run_rsft("rsft_planar", x, w0, b0, w1, b1, sft))
+    return _put_planar(xp.clone(memory_format=torch.contiguous_format), y)
+
+
+def rsft_planar_plain(xp: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+                      w1: torch.Tensor, b1: torch.Tensor, sft: torch.Tensor,
+                      *, c: int, hc_real: int, wc_real: int) -> torch.Tensor:
+    """``rsft_planar`` in plain PyTorch."""
+    return _rsft_planar(xp, w0, b0, w1, b1, sft, c, hc_real, wc_real,
+                        plain=True)
+
+
+def rsft_planar(xp: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+                w1: torch.Tensor, b1: torch.Tensor, sft: torch.Tensor, *,
+                c: int, hc_real: int, wc_real: int) -> torch.Tensor:
+    """ResBlockSFT of the fine tensor held in the first hc_real rows and
+    wc_real columns of planar xp (4 * round16(c), Hc, Wd): HWIO w0/w1
+    [3, 3, c, c], b0/b1 [c] (bf16 on the card), sft [4, c] float32
+    (scale0, shift0, scale1, shift1) -> planar, xp's shape and dtype."""
+    return _rsft_planar(xp, w0, b0, w1, b1, sft, c, hc_real, wc_real,
+                        plain=False)

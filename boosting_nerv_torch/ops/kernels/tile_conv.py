@@ -33,14 +33,8 @@ back.  ``LAUNCHES`` counts the wrapper calls that launched.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from . import LAUNCHES, _build
-from .planar import (check_tensors, conv_plain, launch_conv, nchw, nhwc,
-                     rsft_cuda, rsft_plain)
-
-_ACTS = {"none": lambda v: v, "sin": torch.sin,
-         "outimg": lambda v: torch.tanh(v) * 0.5 + 0.5, "gelu": F.gelu}
+from .planar import conv_act_plain, rsft_nhwc_plain, run_conv, run_rsft
 
 
 # --------------------------------------------------------------------- #
@@ -56,7 +50,7 @@ def conv_tile_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
 def conv_tile_v3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                        k: int, act: str = "none") -> torch.Tensor:
     """[N, H, W, Cin] -> [N, H, W, Cout]: act(k x k conv + bias)."""
-    return nhwc(_ACTS[act](conv_plain(nchw(x), w, b)))
+    return conv_act_plain(x, w, b, act)
 
 
 def resblock_sft_tile_plain(x: torch.Tensor, w0: torch.Tensor,
@@ -64,7 +58,7 @@ def resblock_sft_tile_plain(x: torch.Tensor, w0: torch.Tensor,
                             b1: torch.Tensor, sft: torch.Tensor
                             ) -> torch.Tensor:
     """[N, H, W, C] -> [N, H, W, C]: ResBlockSFT(x)."""
-    return nhwc(rsft_plain(nchw(x), (w0, b0, w1, b1), sft))
+    return rsft_nhwc_plain(x, w0, b0, w1, b1, sft)
 
 
 resblock_sft_tile_v3_plain = resblock_sft_tile_plain
@@ -74,70 +68,18 @@ resblock_sft_tile_v3_plain = resblock_sft_tile_plain
 # CUDA wrappers
 # --------------------------------------------------------------------- #
 
-def _check_conv(x, w, b, k, ks, act="none"):
-    """True: launch; False: x lies on the CPU.  Raises for a k outside
-    ``ks``, an unknown act, a weight that is not [Cout, k, k, Cin] or,
-    on the card, a shape or type the kernel does not take."""
-    if k not in ks:
-        raise ValueError(f"k must be one of {ks}, got {k}")
-    if act not in _ACTS:
-        raise ValueError(f"act must be one of {tuple(_ACTS)}, got {act!r}")
-    if w.dim() != 4 or tuple(w.shape[1:3]) != (k, k):
-        raise ValueError(f"w must be OHWI [Cout, {k}, {k}, Cin], got "
-                         f"{tuple(w.shape)}")
-    cout, c_in = w.shape[0], w.shape[3]
-    bf = torch.bfloat16
-    return check_tensors(x, c_in, [("w", w, (cout, k, k, c_in), bf),
-                                   ("b", b, (cout,), bf)], (bf,),
-                         lambda lib: lib.bnt_stage_conv_smem,
-                         [(c_in, cout, k)])
-
-
-def _conv_cuda(x, w, b, act):
-    out = torch.empty(x.shape[:3] + (w.shape[0],), dtype=x.dtype,
-                      device=x.device)
-    launch_conv(_build.load_library(), x, w, b, out, act=act)
-    return out
-
-
 def conv_tile(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
               k: int) -> torch.Tensor:
     """k x k same-padded conv + bias of NHWC x, k in {1, 3, 5}:
     [N, H, W, Cin] -> [N, H, W, Cout]."""
-    if not _check_conv(x, w, b, k, (1, 3, 5)):
-        return conv_tile_plain(x, w, b, k=k)
-    out = _conv_cuda(x, w, b, "none")
-    LAUNCHES["conv_tile"] += 1
-    return out
+    return run_conv("conv_tile", x, w, b, k=k, ks=(1, 3, 5))
 
 
 def conv_tile_v3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                  k: int, act: str = "none") -> torch.Tensor:
     """act(k x k same-padded conv + bias) of NHWC x, k in {1, 3}, act in
     none / sin / outimg / gelu: [N, H, W, Cin] -> [N, H, W, Cout]."""
-    if not _check_conv(x, w, b, k, (1, 3), act):
-        return conv_tile_v3_plain(x, w, b, k=k, act=act)
-    out = _conv_cuda(x, w, b, act)
-    LAUNCHES["conv_tile_v3"] += 1
-    return out
-
-
-def _check_rsft(x, w0, b0, w1, b1, sft):
-    c = x.shape[-1]
-    bf = torch.bfloat16
-    tensors = [("w0", w0, (c, 3, 3, c), bf), ("b0", b0, (c,), bf),
-               ("w1", w1, (c, 3, 3, c), bf), ("b1", b1, (c,), bf),
-               ("sft", sft, (4, c), torch.float32)]
-    return check_tensors(x, c, tensors, (bf,),
-                         lambda lib: lib.bnt_stage_conv_smem, [(c, c, 3)])
-
-
-def _rsft(name, x, w0, b0, w1, b1, sft):
-    if not _check_rsft(x, w0, b0, w1, b1, sft):
-        return resblock_sft_tile_plain(x, w0, b0, w1, b1, sft)
-    out = rsft_cuda(_build.load_library(), x, (w0, b0, w1, b1), sft)
-    LAUNCHES[name] += 1
-    return out
+    return run_conv("conv_tile_v3", x, w, b, k=k, ks=(1, 3), act=act)
 
 
 def resblock_sft_tile(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
@@ -145,7 +87,7 @@ def resblock_sft_tile(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
                       ) -> torch.Tensor:
     """ResBlockSFT of NHWC x: [N, H, W, C] -> [N, H, W, C]; w0/w1 OHWI
     [C, 3, 3, C]; sft [4, C] float32 (the v2 formulation's port)."""
-    return _rsft("resblock_sft_tile", x, w0, b0, w1, b1, sft)
+    return run_rsft("resblock_sft_tile", x, w0, b0, w1, b1, sft)
 
 
 def resblock_sft_tile_v3(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
@@ -153,4 +95,4 @@ def resblock_sft_tile_v3(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
                          ) -> torch.Tensor:
     """The same function as ``resblock_sft_tile`` (the v3 formulation's
     port), counted under its own name."""
-    return _rsft("resblock_sft_tile_v3", x, w0, b0, w1, b1, sft)
+    return run_rsft("resblock_sft_tile_v3", x, w0, b0, w1, b1, sft)

@@ -1,7 +1,8 @@
 """Serving decodes of HNeRV-Boost (port of
 boosting_nerv_tpu/runtime/fast_decode.py: ``build_serving_decode``,
 ``build_fast_decode_v5`` in its bf16, W8A8 and hybrid forms,
-``build_fast_decode_v3`` and ``build_fast_decode_v2``).
+``build_fast_decode_v3``, ``build_fast_decode_v2`` and the v1
+``build_fast_decode``).
 
 Every builder returns ``decode(embed, t)``: embedding [1, h, w, C] +
 normalised index [1] -> frame [1, H, W, 3] bf16, batch 1, as the JAX
@@ -37,6 +38,13 @@ serving path (the decode-fps convention: the encoder is not part of it).
 - v2 (``build_fast_decode_v2``): the same with ``conv_tile`` (no
   activation), then PixelShuffle and sin in torch, and
   ``resblock_sft_tile``; the head is ``conv_tile``, then tanh * 0.5 + 0.5.
+- v1 (``build_fast_decode``): from the first stage whose fine output
+  height reaches ``pallas_from_h`` and from which every fine width is a
+  multiple of 128 (``v1_switch``, the JAX rule), that stage's upconv and
+  PixelShuffle run in torch and its ResBlockSFT on ``resblock_sft_chw``
+  with the sin fused in; every later stage on ``conv3x3_act_chw`` (then
+  F.pixel_shuffle for stride > 1) and ``resblock_sft_chw``; the head on
+  ``head_conv_chw`` (``ops.kernels.conv_chw`` / ``fused_sft``).
 - ``build_serving_decode`` returns the v5 decode, or for a config with no
   planar tail the v3 decode at ``tile_from_h=45``, as the JAX one does
   (fast_decode.py:591-598).  W8A8 on such a config raises ValueError: the
@@ -66,7 +74,7 @@ import torch.nn.functional as F
 
 from ..config import BoostConfig, decoder_stage_plan
 from ..models.hnerv import HNeRVBoost
-from ..ops.kernels import planar, quant, tile_conv
+from ..ops.kernels import conv_chw, fused_sft, planar, quant, tile_conv
 from ..ops.kernels.planar import nchw, nhwc
 from ..ops.losses import out_img
 from ..ops.pe import position_encoding
@@ -249,10 +257,11 @@ class FineTail:
         return (torch.tanh(y.float()) * 0.5 + 0.5).to(DT)
 
 
-def _fine_tail(model: HNeRVBoost, first: int, out_hw, *, switch: bool,
-               v3: bool, plain: bool) -> FineTail:
-    """Stages ``first``.. of ``model`` on the tile wrappers; with
-    ``switch`` the first one's upconv runs in torch."""
+def _fine_stages(model: HNeRVBoost, first: int, out_hw, *,
+                 switch: bool) -> Tuple[FineStage, ...]:
+    """Stages ``first``.. of ``model`` in bf16 with OHWI weights; with
+    ``switch`` the first one's upconv (conv + PixelShuffle) runs in
+    torch."""
     stages = []
     for bi in range(first, len(model.blocks)):
         blk = model.blocks[bi]
@@ -263,8 +272,15 @@ def _fine_tail(model: HNeRVBoost, first: int, out_hw, *, switch: bool,
              _ohwi(blk.rsft.conv1), _bias(blk.rsft.conv1)),
             _bf16(blk.rsft.sft0), _bf16(blk.rsft.sft1),
             _bf16(blk.conv) if switch and bi == first else None))
-    return FineTail(tuple(stages), _ohwi(model.head), _bias(model.head), v3,
-                    plain)
+    return tuple(stages)
+
+
+def _fine_tail(model: HNeRVBoost, first: int, out_hw, *, switch: bool,
+               v3: bool, plain: bool) -> FineTail:
+    """Stages ``first``.. of ``model`` on the tile wrappers; with
+    ``switch`` the first one's upconv runs in torch."""
+    return FineTail(_fine_stages(model, first, out_hw, switch=switch),
+                    _ohwi(model.head), _bias(model.head), v3, plain)
 
 
 def _as_model(cfg: BoostConfig, params_or_model) -> HNeRVBoost:
@@ -394,6 +410,102 @@ def calibrate_planar_bounds(cfg: BoostConfig, params_or_model,
     if acc is None:
         raise ValueError("w8a8_calib holds no frame to calibrate on")
     return {k: v * margin for k, v in acc.items()}
+
+
+def v1_switch(cfg: BoostConfig, pallas_from_h: int) -> int:
+    """The first stage of the v1 kernel tail (``len(plan)`` for none), by
+    the JAX rule on its chip (fast_decode.py:629-644): the first stage
+    whose fine height reaches ``pallas_from_h`` from which every stage has
+    a fine width that is a multiple of 128 and, after the first, a 3x3
+    conv.  The 128 is the TPU's lane tiling; the port keeps it so that both
+    packages serve the same stages on the kernels (at UVG-1080p widths 480
+    and 960 fail it: stage 6 for any ``pallas_from_h`` up to 1080)."""
+    plan, out_hw = _plan(cfg)
+    return next((start for start in range(len(plan))
+                 if out_hw[start][0] >= pallas_from_h
+                 and all(out_hw[j][1] % 128 == 0
+                         and (j == start or min(plan[j].ks, 3) == 3)
+                         for j in range(start, len(plan)))), len(plan))
+
+
+@dataclass(frozen=True)
+class ChwTail:
+    """The v1 tail: the switch stage's upconv and PixelShuffle in torch,
+    then its ResBlockSFT on ``resblock_sft_chw`` with the sin fused in
+    (``input_sin``); every later stage on ``conv3x3_act_chw`` (PixelShuffle
+    in torch for stride > 1) and ``resblock_sft_chw``; the head on
+    ``head_conv_chw``.  With ``plain`` on their plain versions."""
+    stages: Tuple[FineStage, ...]
+    head_w: torch.Tensor
+    head_b: torch.Tensor
+    plain: bool = False
+
+    def launches_per_frame(self) -> Dict[str, int]:
+        return {"conv3x3_act_chw": len(self.stages) - 1,
+                "resblock_sft_chw": len(self.stages), "head_conv_chw": 1}
+
+    def switch(self, x: torch.Tensor, t_embed: torch.Tensor
+               ) -> torch.Tensor:
+        """NCHW bf16 input of the switch stage -> its NHWC bf16 output."""
+        rsft = getattr(fused_sft, "resblock_sft_chw"
+                       + ("_plain" if self.plain else ""))
+        st = self.stages[0]
+        return rsft(nhwc(st.upconv(x)), *st.rsft, st.sft(t_embed),
+                    input_sin=True)
+
+    def __call__(self, x: torch.Tensor, t_embed: torch.Tensor
+                 ) -> torch.Tensor:
+        """NCHW bf16 input of the switch stage -> [1, H, W, 3] bf16 frame."""
+        suffix = "_plain" if self.plain else ""
+        conv = getattr(conv_chw, "conv3x3_act_chw" + suffix)
+        head = getattr(conv_chw, "head_conv_chw" + suffix)
+        rsft = getattr(fused_sft, "resblock_sft_chw" + suffix)
+        x = self.switch(x, t_embed)
+        for st in self.stages[1:]:
+            x = _shuffle(conv(x, st.conv_w, st.conv_b), st.strd)
+            x = rsft(x, *st.rsft, st.sft(t_embed))
+        return head(x, self.head_w, self.head_b)
+
+
+def build_fast_decode(cfg: BoostConfig,
+                      params_or_model: Union[HNeRVBoost,
+                                             Mapping[str, torch.Tensor]],
+                      pallas_from_h: int = 10 ** 9, *,
+                      plain: bool = False) -> Callable:
+    """The v1 decode (port of fast_decode.py:605-703): the stages before
+    ``v1_switch(cfg, pallas_from_h)`` in plain bf16 torch, the rest on the
+    ``ChwTail`` wrappers; with no such stage (the default threshold) the
+    whole decode in plain torch, as in JAX.  The head is tanh * 0.5 + 0.5
+    whatever ``cfg.out_bias``, as the JAX v1 decode computes it.
+    ``decode.switch_at`` is the switch stage (``len(plan)`` for none),
+    ``decode.prefix(embed, t_embed)`` the NCHW input of that stage,
+    ``decode.chw`` the tail (None without one); ``plain`` and
+    ``decode.launches_per_frame`` as in v5."""
+    _check_config(cfg)
+    model = _as_model(cfg, params_or_model)
+    plan, out_hw = _plan(cfg)
+    switch_at = v1_switch(cfg, pallas_from_h)
+    time_embed, prefix = _prefix(model, switch_at)
+    chw = (ChwTail(_fine_stages(model, switch_at, out_hw, switch=True),
+                   _ohwi(model.head), _bias(model.head), plain)
+           if switch_at < len(plan) else None)
+    head = None if chw else _bf16(model.head)
+
+    @torch.no_grad()
+    def decode(embed: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        _check_batch(t)
+        t_embed = time_embed(t)
+        x = prefix(embed, t_embed)
+        if chw is None:  # no stage qualifies: all in torch
+            return nhwc(torch.tanh(head(x)) * 0.5 + 0.5)
+        return chw(x, t_embed)
+
+    decode.time_embed = time_embed
+    decode.prefix = prefix
+    decode.switch_at = switch_at
+    decode.chw = chw
+    decode.launches_per_frame = chw.launches_per_frame() if chw else {}
+    return decode
 
 
 def build_fast_decode_v5(cfg: BoostConfig,

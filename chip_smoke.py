@@ -7,25 +7,32 @@ Phases, one line of output each (or one line per shape):
 
 1. requires CUDA (exits non-zero before anything else without it) and
    prints the card's name and power limit as nvidia-smi reports them;
-2. builds the hand-written kernels from ``boosting_nerv_torch/ops/csrc``;
+2. builds the hand-written kernels from ``boosting_nerv_torch/ops/csrc``
+   and prints ptxas's register and spill report of every kernel instance;
 3. builds HNeRV-Boost at the UVG-1080p serving config of bench.py with
    seeded random weights, encodes one synthetic 1080x1920 frame, and builds
    the decodes: the bf16 serving decode (v5) and the W8A8 one (calibrated
    on that frame at t in {0.01, 0.25, 0.5, 0.75, 1.0}, margin 1.05, as
-   bench.py does), the v3 and v2 fine-grid decodes (``tile_from_h=45``) and
-   the hybrid (v5 with ``fine_from_h=1000``), each also on its wrappers'
-   plain versions but the hybrid;
+   bench.py does), the v3 and v2 fine-grid decodes (``tile_from_h=45``),
+   the hybrid (v5 with ``fine_from_h=1000``) and the v1 decode
+   (``pallas_from_h=512``, as tools/fast_decode_probe.py runs it), each
+   also on its wrappers' plain versions but the hybrid;
 4. holds each kernel wrapper against its plain PyTorch version on the card
    at every tail shape of the decodes that serve it (stage wrappers: bf16
    stages 2-7; W8A8: stage 4's bf16 launch with int8-code output, stages
    5-7 in int8; tile wrappers: the v3 decode's stages 0-7 and head, the v2
-   decode's the same with act none) and at one small ragged shape each
-   (width 50; k = 1 for conv_tile_v3, k = 5 for conv_tile): max abs error
-   within 2e-2 * max(|plain|, 1), int8 codes compared after dequantising
-   with 1/inv; prints the share of codes that differ; times both with CUDA
+   decode's the same with act none; v1 wrappers: resblock_sft_chw with
+   input_sin at stage 6 and without at stage 7, conv3x3_act_chw at stage 7
+   and head_conv_chw, all at 1080x1920x51; the planar wrappers at the
+   planar form of stage 7, C 51 -> Cp 64, Hc 540, wc_real 960, Wd 1024,
+   conv_planar with act sin and as the outimg head) and at one small
+   ragged shape each (width 50 and 9 rows; k = 1 for conv_tile_v3, k = 5
+   for conv_tile; wc_real 50 for the planar ones): max abs error within
+   2e-2 * max(|plain|, 1), int8 codes compared after dequantising with
+   1/inv; prints the share of codes that differ; times both with CUDA
    events, and F.conv2d for conv_tile; then checks that a conv with more
    than 128 input channels, which the kernel does not take, raises
-   ValueError on the card;
+   ValueError on the card from the tile, v1 and planar wrappers;
 5. the bf16 slice: serves 8 frame indices through ``build_serving_decode``;
    checks the frames (shape, finite, [0, 1], max abs error <= 1e-2 against
    the fp32 plain decode with TF32 off) and the launch counts; times the
@@ -36,27 +43,37 @@ Phases, one line of output each (or one line per shape):
    versions, PSNR >= 35 dB against the bf16 kernel decode at t = 0.37, as
    bench.py gates it) and the launch counts; times it against the bf16
    decode in turns (bf16, W8A8, W8A8, bf16);
-7. the v3, v2 and hybrid slices: each serves the 8 indices with the frame
-   checks of phase 5 and its launch counts (v3: conv_tile_v3 8 and
+7. the v3, v2, hybrid and v1 slices: each serves the 8 indices with the
+   frame checks of phase 5 and its launch counts (v3: conv_tile_v3 8 and
    resblock_sft_tile_v3 8 a frame; v2: conv_tile 8, resblock_sft_tile 8;
    hybrid: fused_upconv_rsft 2, fused_conv_rsft 2, conv_tile_v3 3,
-   resblock_sft_tile_v3 2), and is timed in turns against the bf16 v5
-   decode (v5, X, X, v5) and, v3 and v2, against its plain version;
+   resblock_sft_tile_v3 2; v1, which switches at stage 6:
+   conv3x3_act_chw 1, resblock_sft_chw 2, head_conv_chw 1), and is timed
+   in turns against the bf16 v5 decode (v5, X, X, v5) and, v3, v2 and v1,
+   against its plain version;
 8. the serving fallback: a small config with no planar tail (no stride-2
    stage) on the card; ``build_serving_decode`` must return the v3 decode,
    whose launches name only tile wrappers, and its frame must match its
-   plain version and the fp32 decode.
+   plain version and the fp32 decode;
+9. the planar phase, the path of the two standalone planar wrappers (no
+   decode serves them): for each of the 8 indices, the v1 decode's stage 6
+   output in planar form (``to_planar``, Wd 1024) goes through stage 7 and
+   the head as conv_planar (sin), rsft_planar and conv_planar (outimg);
+   the frames must match the v1 slice's and the fp32 decode's, and the
+   launches must be conv_planar 2 and rsft_planar 1 a frame, no other.
 
-The launch counts are set to 0 just before each slice's frames and read
-just after.  The line before the last is a JSON object with one entry per
-kernel; the last line is {"ok": true, "device": {...}}.  Any failed phase
-exits non-zero without printing either.
+The launch counts are set to 0 just before each slice's frames (and the
+planar phase's stage-7 calls) and read just after.  The line before the
+last is a JSON object with one entry per kernel; the last line is
+{"ok": true, "device": {...}}.  Any failed phase exits non-zero without
+printing either.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -73,8 +90,11 @@ T_HOLD = 0.37
 CALIB_TS = (0.01, 0.25, 0.5, 0.75, 1.0)
 TILE_FROM_H = 45    # the serving fallback's switch (fast_decode.py:597)
 FINE_FROM_H = 1000  # hybrid: stages 6-7 and the head on the v3 wrappers
+PALLAS_FROM_H = 512  # v1: the switch stage is 6 (widths 480, 960 fail 128)
+PLANAR_WD = 1024    # the planar width of the 1080p stages (960 real)
 PLANAR = "boosting_nerv_tpu/ops/pallas/planar.py"
 TILE = "boosting_nerv_tpu/ops/pallas/tile_conv.py"
+CHW = "boosting_nerv_tpu/ops/pallas/conv_chw.py"
 STAGE_CU = "boosting_nerv_torch/ops/csrc/stage_conv.cu"
 KERNELS = {  # wrapper: (source, replaces)
     "fused_upconv_rsft": (STAGE_CU, f"{PLANAR}:1308"),
@@ -87,12 +107,21 @@ KERNELS = {  # wrapper: (source, replaces)
     "conv_tile_v3": (STAGE_CU, f"{TILE}:473"),
     "resblock_sft_tile": (STAGE_CU, f"{TILE}:951"),
     "resblock_sft_tile_v3": (STAGE_CU, f"{TILE}:788"),
+    "conv3x3_act_chw": (STAGE_CU, f"{CHW}:88"),
+    "head_conv_chw": (STAGE_CU, f"{CHW}:95"),
+    "resblock_sft_chw": ("boosting_nerv_torch/ops/csrc/stage_conv_sin.cu",
+                         "boosting_nerv_tpu/ops/pallas/fused_sft.py:138"),
+    "conv_planar": (STAGE_CU, f"{PLANAR}:398"),
+    "rsft_planar": (STAGE_CU, f"{PLANAR}:484"),
 }
 LIBRARY = {"conv_tile"}  # one PyTorch call computes it: F.conv2d
 V3_LAUNCHES = {"conv_tile_v3": 8, "resblock_sft_tile_v3": 8}
 V2_LAUNCHES = {"conv_tile": 8, "resblock_sft_tile": 8}
 HYBRID_LAUNCHES = {"fused_upconv_rsft": 2, "fused_conv_rsft": 2,
                    "conv_tile_v3": 3, "resblock_sft_tile_v3": 2}
+V1_LAUNCHES = {"conv3x3_act_chw": 1, "resblock_sft_chw": 2,
+               "head_conv_chw": 1}
+PLANAR_LAUNCHES = {"conv_planar": 2, "rsft_planar": 1}
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and
 # tensor-core operations/s of the kernels' operand types
 HBM_BYTES_S = 3.35e12
@@ -161,12 +190,23 @@ def bound(name, args, kw, out):
     once at the HBM rate, against the convolutions' multiply-adds at the
     tensor-core peak of the operand type."""
     x = args[0]
+    if name in ("conv_planar", "rsft_planar"):
+        # the input's real region (channels, rows, columns; the pad never
+        # reaches the result) is read, the whole planar output written
+        hf, wf = 2 * kw.get("hc_real", x.shape[1]), 2 * kw["wc_real"]
+        convs = ([(kw["c_in"], kw["c_out"])] if name == "conv_planar"
+                 else [(kw["c"], kw["c"])] * 2)
+        ops = sum(2 * 9 * hf * wf * ci * co for ci, co in convs)
+        nbytes = (convs[0][0] * hf * wf * x.element_size()
+                  + _nbytes(out, *args[1:]))
+        return _bound(ops, nbytes, "bf16")
     _, h, wd, c_in = x.shape
-    if name in ("conv_tile", "conv_tile_v3"):
+    if name in ("conv_tile", "conv_tile_v3", "conv3x3_act_chw",
+                "head_conv_chw"):
         w = args[1]
         ops = 2 * w.shape[1] * w.shape[2] * h * wd * c_in * w.shape[0]
         nbytes = _nbytes(x, out, *args[1:])
-    elif name.startswith("resblock_sft_tile"):
+    elif name.startswith("resblock_sft"):
         ops = 2 * 9 * h * wd * c_in * c_in * 2
         nbytes = _nbytes(x, out, *args[1:])
     else:
@@ -178,7 +218,11 @@ def bound(name, args, kw, out):
                        + (hf * wf * c * 3 if kw.get("head") else 0))
         nbytes = _nbytes(x, out, args[2], *vars(w).values(),
                          kw.get("out_inv"))
-    t_ops = ops / PEAK_OPS_S["int8" if name.endswith("_i8") else "bf16"]
+    return _bound(ops, nbytes, "int8" if name.endswith("_i8") else "bf16")
+
+
+def _bound(ops, nbytes, kind):
+    t_ops = ops / PEAK_OPS_S[kind]
     t_bytes = nbytes / HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -195,10 +239,13 @@ def rnd_codes(gen, *shape):
 
 
 def wrapper(name, plain=False):
-    """A kernel wrapper of ops.kernels.planar or .tile_conv by name."""
-    from boosting_nerv_torch.ops.kernels import planar, tile_conv
+    """A kernel wrapper of ops.kernels (planar, tile_conv, conv_chw or
+    fused_sft) by name."""
+    from boosting_nerv_torch.ops.kernels import (conv_chw, fused_sft, planar,
+                                                 tile_conv)
 
-    module = planar if name in planar.WRAPPERS else tile_conv
+    module = next(m for m in (planar, tile_conv, conv_chw, fused_sft)
+                  if hasattr(m, name))
     return getattr(module, name + ("_plain" if plain else ""))
 
 
@@ -328,6 +375,90 @@ def tile_cases(decode_v3, decode_v2, gen):
     return cases
 
 
+def hwio(w):
+    """An OHWI weight as the HWIO kernel of the planar entry points."""
+    return w.permute(1, 2, 3, 0).contiguous()
+
+
+def planar_in(gen, c, hc, wc, wd):
+    """A random planar tensor (4 * round16(c), hc, wd) holding a fine
+    (c, 2 hc, 2 wc) one; zero beyond it."""
+    from boosting_nerv_torch.ops.kernels import planar
+
+    xp = planar.to_planar(rnd(gen, c, 2 * hc, 2 * wc))
+    return torch.nn.functional.pad(xp, (0, wd - wc))
+
+
+def chw_cases(decode_v1, gen):
+    """(label, wrapper, args, kwargs, per_frame) for every call of a frame
+    of the v1 decode (each with its own weights and the SFT vectors of
+    t = 0.5), for the planar form of its stage 7 and head (the planar
+    phase's calls: C 51 -> Cp 64, Hc 540, wc_real 960, Wd 1024), and for
+    one small ragged call of each of the five wrappers with random weights
+    (9 rows, width 50)."""
+    t_embed = decode_v1.time_embed(torch.tensor([0.5], device="cuda"))
+    tail = decode_v1.chw
+    cases = []
+    for st in tail.stages:
+        h, w = st.out_hw
+        if st.upconv is None:
+            x = rnd(gen, 1, h // st.strd, w // st.strd, st.conv_w.shape[3])
+            cases.append((f"v1 stage {st.index}", "conv3x3_act_chw",
+                          (x, st.conv_w, st.conv_b), {}, True))
+        x = rnd(gen, 1, h, w, st.rsft[0].shape[0])
+        cases.append((f"v1 stage {st.index}", "resblock_sft_chw",
+                       (x, *st.rsft, st.sft(t_embed)),
+                       {"input_sin": st.upconv is not None}, True))
+    h, w = tail.stages[-1].out_hw
+    x = rnd(gen, 1, h, w, tail.head_w.shape[3])
+    cases.append(("v1 head", "head_conv_chw", (x, tail.head_w, tail.head_b),
+                  {}, True))
+
+    st = tail.stages[-1]
+    c, hc, wc = st.rsft[0].shape[0], h // 2, w // 2
+    w0, b0, w1, b1 = st.rsft
+    cases += [
+        ("v1 stage 7 planar", "conv_planar",
+         (planar_in(gen, c, hc, wc, PLANAR_WD), hwio(st.conv_w), st.conv_b),
+         {"c_in": c, "c_out": c, "wc_real": wc, "act": "sin"}, True),
+        ("v1 stage 7 planar", "rsft_planar",
+         (planar_in(gen, c, hc, wc, PLANAR_WD), hwio(w0), b0, hwio(w1), b1,
+          st.sft(t_embed)), {"c": c, "hc_real": hc, "wc_real": wc}, True),
+        ("v1 head planar", "conv_planar",
+         (planar_in(gen, c, hc, wc, PLANAR_WD), hwio(tail.head_w),
+          tail.head_b), {"c_in": c, "c_out": 3, "wc_real": wc,
+                         "act": "outimg"}, True),
+    ]
+
+    c, h, w = 5, 9, 50
+    sft = (torch.rand((4, c), generator=gen, device="cuda") - 0.5) * 0.6
+
+    def conv(cout):
+        return (rnd(gen, cout, 3, 3, c, scale=(9 * c) ** -0.5),
+                rnd(gen, cout, scale=0.1))
+
+    def rsft():
+        return (rnd(gen, c, 3, 3, c, scale=0.2), rnd(gen, c, scale=0.1),
+                rnd(gen, c, 3, 3, c, scale=0.2), rnd(gen, c, scale=0.1))
+
+    (wc7, bc7), (w0, b0, w1, b1) = conv(7), rsft()
+    cases += [
+        ("ragged", "conv3x3_act_chw", (rnd(gen, 1, h, w, c), *conv(7)), {},
+         False),
+        ("ragged", "head_conv_chw", (rnd(gen, 1, h, w, c), *conv(3)), {},
+         False),
+        ("ragged", "resblock_sft_chw", (rnd(gen, 1, h, w, c), *rsft(), sft),
+         {"input_sin": True}, False),
+        ("ragged", "conv_planar", (planar_in(gen, c, h, w, 128), hwio(wc7),
+                                   bc7),
+         {"c_in": c, "c_out": 7, "wc_real": w, "act": "sin"}, False),
+        ("ragged", "rsft_planar", (planar_in(gen, c, h, w, 128), hwio(w0), b0,
+                                   hwio(w1), b1, sft),
+         {"c": c, "hc_real": h, "wc_real": w}, False),
+    ]
+    return cases
+
+
 def out_inv(plain, args):
     """The int8-output multiplier of a stage as calibration would set it:
     127 / (1.05 max|out|) per channel of its plain output."""
@@ -395,8 +526,15 @@ def check_kernels(cases, device_line):
 
 def check_refusal(gen, device_line):
     """A conv with more than 128 input channels fits no shared-memory tile
-    of the kernel: every tile wrapper raises ValueError on the card."""
+    of the kernel: the tile, v1 and planar wrappers raise ValueError on the
+    card."""
     c = 200
+    xp = torch.zeros((4 * 208, 2, 128), dtype=torch.bfloat16, device="cuda")
+
+    def rsft_args():
+        return (rnd(gen, c, 3, 3, c), rnd(gen, c), rnd(gen, c, 3, 3, c),
+                rnd(gen, c), torch.zeros((4, c), device="cuda"))
+
     calls = {
         "conv_tile": lambda: wrapper("conv_tile")(
             rnd(gen, 1, 9, 50, c), rnd(gen, 8, 5, 5, c), rnd(gen, 8), k=5),
@@ -406,6 +544,18 @@ def check_refusal(gen, device_line):
             rnd(gen, 1, 9, 50, c), rnd(gen, c, 3, 3, c), rnd(gen, c),
             rnd(gen, c, 3, 3, c), rnd(gen, c),
             torch.zeros((4, c), device="cuda")),
+        "conv3x3_act_chw": lambda: wrapper("conv3x3_act_chw")(
+            rnd(gen, 1, 9, 50, c), rnd(gen, 8, 3, 3, c), rnd(gen, 8)),
+        "head_conv_chw": lambda: wrapper("head_conv_chw")(
+            rnd(gen, 1, 9, 50, c), rnd(gen, 3, 3, 3, c), rnd(gen, 3)),
+        "resblock_sft_chw": lambda: wrapper("resblock_sft_chw")(
+            rnd(gen, 1, 9, 50, c), *rsft_args(), input_sin=True),
+        "conv_planar": lambda: wrapper("conv_planar")(
+            xp, rnd(gen, 3, 3, c, 8), rnd(gen, 8), c_in=c, c_out=8,
+            wc_real=50, act="sin"),
+        "rsft_planar": lambda: wrapper("rsft_planar")(
+            xp, *(hwio(w) if w.dim() == 4 else w for w in rsft_args()), c=c,
+            hc_real=2, wc_real=50),
     }
     for name, call in calls.items():
         try:
@@ -549,6 +699,80 @@ def run_fallback(device_line):
     return launches
 
 
+def run_planar_phase(v1, refs, embed, ts, device_line):
+    """Phase 9: stage 7 and the head of the v1 decode in planar form, fed
+    the v1 decode's own stage 6 output; returns the launch counts."""
+    from boosting_nerv_torch.ops import kernels
+    from boosting_nerv_torch.ops.kernels import planar
+
+    _, st7 = v1.chw.stages
+    c, (h, w) = st7.rsft[0].shape[0], st7.out_hw
+    hc, wc = h // 2, w // 2
+    w0, b0, w1, b1 = st7.rsft
+    conv_w, w0, w1, head_w = map(hwio, (st7.conv_w, w0, w1, v1.chw.head_w))
+
+    def stage7_head(xp, t_embed):
+        x = planar.conv_planar(xp, conv_w, st7.conv_b, c_in=c, c_out=c,
+                               wc_real=wc, act="sin")
+        x = planar.rsft_planar(x, w0, b0, w1, b1, st7.sft(t_embed), c=c,
+                               hc_real=hc, wc_real=wc)
+        return planar.conv_planar(x, head_w, v1.chw.head_b, c_in=c, c_out=3,
+                                  wc_real=wc, act="outimg")
+
+    with torch.no_grad():
+        inputs = []
+        for t in ts:
+            t_embed = v1.time_embed(t)
+            y = v1.chw.switch(v1.prefix(embed, t_embed), t_embed)
+            xp = planar.to_planar(y[0].permute(2, 0, 1))
+            inputs.append((torch.nn.functional.pad(xp, (0, PLANAR_WD - wc)),
+                           t_embed))
+        v1_frames = [v1(embed, t) for t in ts]
+        kernels.reset_launch_counts()
+        frames = [planar.from_planar(stage7_head(*a), 3)[:, :, :w].permute(
+            1, 2, 0)[None] for a in inputs]
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        ms = cuda_ms(lambda: stage7_head(*inputs[0]))
+    want = {k: PLANAR_LAUNCHES.get(k, 0) * len(ts) for k in launches}
+    if launches != want:
+        raise SmokeFailure(f"planar phase launches {launches}, expected "
+                           f"{want}")
+    for out in frames:
+        o = out.float()
+        if tuple(out.shape) != (1, h, w, 3) or not bool(
+                torch.isfinite(o).all()) or o.min() < 0 or o.max() > 1:
+            raise SmokeFailure("planar phase: a frame of the wrong shape, "
+                               "non-finite or outside [0, 1]")
+    err_v1 = max((a.float() - b.float()).abs().max().item()
+                 for a, b in zip(frames, v1_frames))
+    err = max((a.float() - r).abs().max().item()
+              for a, r in zip(frames, refs))
+    print(f"planar phase (v1 stage 7 + head as conv_planar, rsft_planar, "
+          f"conv_planar; Hc {hc}, wc_real {wc}, Wd {PLANAR_WD}) launches over "
+          f"{len(ts)} frames: {launches}; max_abs_err vs v1 frames "
+          f"{err_v1:.6g} (tol {STAGE_TOL}), vs fp32 plain decode {err:.6g} "
+          f"(tol {SLICE_TOL}); {ms:.3f} ms/frame [{device_line}]", flush=True)
+    if not (err_v1 <= STAGE_TOL and err <= SLICE_TOL):
+        raise SmokeFailure(f"planar phase errors {err_v1}, {err}")
+    return launches
+
+
+def print_ptxas(log_path):
+    """One line per source of ptxas's report in the build log: kernel
+    instances, the range of their registers and their spill bytes."""
+    sections = open(log_path).read().split("\n# ")
+    for sec in sections:
+        name, _, text = sec.lstrip("# ").partition("\n")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", text))
+        if regs:
+            print(f"ptxas {name}: {len(regs)} kernel instances, "
+                  f"{min(regs)}-{max(regs)} registers {sorted(regs)}, "
+                  f"{spills} spill bytes", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
@@ -557,8 +781,8 @@ def main() -> int:
     from boosting_nerv_torch.models import build_model
     from boosting_nerv_torch.ops.kernels import _build
     from boosting_nerv_torch.runtime.fast_decode import (
-        build_fast_decode_v2, build_fast_decode_v3, build_fast_decode_v5,
-        build_serving_decode)
+        build_fast_decode, build_fast_decode_v2, build_fast_decode_v3,
+        build_fast_decode_v5, build_serving_decode)
 
     device_line = card()
     print(f"card: {device_line}", flush=True)
@@ -570,6 +794,7 @@ def main() -> int:
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({_build.library_path()})", flush=True)
+    print_ptxas(_build.library_path() + ".log")
 
     cfg = bench_config()
     model = build_model(cfg, seed=0).eval()
@@ -592,14 +817,20 @@ def main() -> int:
     plain_v2 = build_fast_decode_v2(cfg, model, tile_from_h=TILE_FROM_H,
                                     plain=True)
     hybrid = build_fast_decode_v5(cfg, model, fine_from_h=FINE_FROM_H)
-    print(f"decodes built (9, W8A8 calibrated twice): "
+    v1 = build_fast_decode(cfg, model, PALLAS_FROM_H)
+    plain_v1 = build_fast_decode(cfg, model, PALLAS_FROM_H, plain=True)
+    if v1.switch_at != 6:
+        raise SmokeFailure(f"v1 switches at stage {v1.switch_at}, expected 6")
+    print(f"decodes built (11, W8A8 calibrated twice; v1 switch at stage "
+          f"{v1.switch_at}): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     with torch.no_grad():
         refs = [model.decode(embed, t) for t in ts]
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = check_kernels(stage_cases(decode, decode_i8, gen)
-                            + tile_cases(v3, v2, gen), device_line)
+                            + tile_cases(v3, v2, gen) + chw_cases(v1, gen),
+                            device_line)
     check_refusal(gen, device_line)
     runs = [check_frames("bf16", decode, refs, embed, ts)]
     print_turns("bf16", ("plain stages", plain_decode), ("kernels", decode),
@@ -609,7 +840,8 @@ def main() -> int:
     for label, dec, plain, want in (("v3", v3, plain_v3, V3_LAUNCHES),
                                     ("v2", v2, plain_v2, V2_LAUNCHES),
                                     ("hybrid", hybrid, None,
-                                     HYBRID_LAUNCHES)):
+                                     HYBRID_LAUNCHES),
+                                    ("v1", v1, plain_v1, V1_LAUNCHES)):
         runs.append(check_frames(label, dec, refs, embed, ts, want))
         print_turns(f"{label} vs v5 bf16", ("v5 bf16", decode), (label, dec),
                     embed, ts, device_line)
@@ -617,6 +849,7 @@ def main() -> int:
             print_turns(f"{label}", (f"{label} plain", plain),
                         (f"{label} kernels", dec), embed, ts, device_line)
     runs.append(run_fallback(device_line))
+    runs.append(run_planar_phase(v1, refs, embed, ts, device_line))
 
     leaked = [m for m in ("jax", "flax", "boosting_nerv_tpu")
               if m in sys.modules]
