@@ -29,6 +29,36 @@ constexpr int MAX_SMEM = 232448;      // H100 opt-in shared memory per block
 
 enum Act { ACT_NONE = 0, ACT_SIN = 1, ACT_GELU = 2, ACT_OUTIMG = 3 };
 
+// The phases a stage-kernel launch runs (its template parameter P, a
+// mask).  The production kernels are PHASE_ALL, which leaves their code
+// as it was; the other masks are measurement probes (stage_conv_probe.cu,
+// stage_conv_i8_probe.cu; boosting_nerv_torch/tools/probes.py), each
+// knocking out one phase with a result that can still be checked:
+//   STAGE off: s_in is zeroed once per block and never restaged (acc = 0);
+//   GEMM off: acc = 0;
+//   EPI off: the raw accumulator is stored (no bias, dequant, activation,
+//     affine, residual loads);
+//   STORE off: the output is stored only where probe_store() holds, a
+//     runtime flag the compiler cannot fold (it never holds).
+// Bits 16 and 32 select another staging; each kernel names its own.
+enum Phase {
+  PHASE_STAGE = 1,
+  PHASE_GEMM = 2,
+  PHASE_EPI = 4,
+  PHASE_STORE = 8,
+  PHASE_ALL = 15
+};
+
+// The STORE-off probes' flag: 0 and never written, read once per thread
+// through a volatile load, so that the compiler keeps the epilogue whose
+// stores it guards.  A device variable and not a field of the kernels'
+// parameters, whose layout the production instances' code depends on.
+__device__ int g_probe_store = 0;
+
+__device__ __forceinline__ bool probe_store() {
+  return *static_cast<volatile int*>(&g_probe_store) != 0;
+}
+
 // sin with its argument reduced to [-pi, pi] by a two-constant 2*pi
 // (6.28125 is exact in 8 bits, so k * 6.28125 is exact for |k| < 2^16),
 // then the SFU sine, whose error on [-pi, pi] is below 4e-7.  For

@@ -8,7 +8,8 @@ flags, so an edited source builds anew and an unchanged one is loaded from
 ``boosting_nerv_torch/build/``; ptxas's register and spill report is kept
 beside it (``<library>.log``, one ``# <source>`` section per source).  The
 library is bound with ``ctypes``: each pointer and the stream is a
-``c_void_p`` and each int a ``c_int``; every entry point returns
+``c_void_p``, each int a ``c_int`` and each float a ``c_float``; every
+entry point returns
 ``cudaGetLastError()`` after its launch, which ``check`` turns into an
 exception.  Nothing here runs on import: the CPU tests import this module
 on machines without ``nvcc``.
@@ -103,6 +104,24 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bnt_stage_conv3x3_i8_smem.argtypes = [ci, ci]
     lib.bnt_error_string.restype = ctypes.c_char_p
     lib.bnt_error_string.argtypes = [ci]
+    # the probes (ops/kernels/probes.py)
+    lib.bnt_stage_conv_probe.restype = ci
+    lib.bnt_stage_conv_probe.argtypes = [vp] * 9 + [ci] * 8 + [vp]
+    lib.bnt_stage_conv3x3_i8_probe.restype = ci
+    lib.bnt_stage_conv3x3_i8_probe.argtypes = [vp] * 12 + [ci] * 9 + [vp]
+    lib.bnt_stage_conv3x3_i8_probe_smem.restype = ci
+    lib.bnt_stage_conv3x3_i8_probe_smem.argtypes = [ci] * 4
+    lib.bnt_gemm_probe.restype = ci
+    lib.bnt_gemm_probe.argtypes = ([vp] * 3 + [ci] * 10
+                                   + [ctypes.c_float, ci, vp])
+    lib.bnt_gemm_probe_smem.restype = ci
+    lib.bnt_gemm_probe_smem.argtypes = [ci] * 6
+    lib.bnt_gemm_probe_fill.restype = ci
+    lib.bnt_gemm_probe_fill.argtypes = [ci] * 7
+    lib.bnt_stage_build_probe.restype = ci
+    lib.bnt_stage_build_probe.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+    lib.bnt_stage_build_probe_smem.restype = ci
+    lib.bnt_stage_build_probe_smem.argtypes = [ci] * 2
     return lib
 
 

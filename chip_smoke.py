@@ -60,10 +60,23 @@ Phases, one line of output each (or one line per shape):
    output in planar form (``to_planar``, Wd 1024) goes through stage 7 and
    the head as conv_planar (sin), rsft_planar and conv_planar (outimg);
    the frames must match the v1 slice's and the fp32 decode's, and the
-   launches must be conv_planar 2 and rsft_planar 1 a frame, no other.
+   launches must be conv_planar 2 and rsft_planar 1 a frame, no other;
+10. the probe phase, the path of the four probe wrappers
+   (``boosting_nerv_torch/tools/probes.py``, the counterparts of the TPU
+   probes in ``tools/``): prints each probe instance's registers, spills
+   and HMMA/IMMA count from ``cuobjdump -sass`` (a no-GEMM instance must
+   have none, every other K1-K3 instance some, the staging kernels none);
+   holds every probe variant against its plain version at full size and
+   at a small ragged one (2e-2 * max(|plain|, 1), or exact where the
+   variant computes the production launch's function: "all" against the
+   production wrapper, DIRECT, PACK and ASYNC, the staging modes against
+   their plain staging, no STORE against its untouched output); then times
+   every variant through the entry point and prints one line per TPU site
+   and the phase breakdown of each stage.
 
-The launch counts are set to 0 just before each slice's frames (and the
-planar phase's stage-7 calls) and read just after.  The line before the
+The launch counts are set to 0 just before each slice's frames (the
+planar phase's stage-7 calls, the probe phase's timed run) and read just
+after.  The line before the
 last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero without
 printing either.
@@ -758,6 +771,78 @@ def run_planar_phase(v1, refs, embed, ts, device_line):
     return launches
 
 
+def run_probe_phase(device_line):
+    """Phase 10: the probes; returns the launch counts of the timed run and
+    the kernels-line entries of the four probe wrappers (each with the
+    numbers of its family's headline variant)."""
+    from boosting_nerv_torch.ops import kernels
+    from boosting_nerv_torch.ops.kernels import _build
+    from boosting_nerv_torch.tools import probes
+
+    lib = _build.library_path()
+    regs = {i["name"]: i for i in probes.ptxas_instances(lib + ".log")}
+    counts = probes.sass_mma_counts(lib)
+    for name, n in counts.items():
+        src, desc = probes.source_of(name), probes.describe(name)
+        if desc is None or src not in probes.PROBE_SOURCES:
+            continue
+        reg = regs.get(name, {})
+        print(f"probe instance {src} {desc[0]} {desc[1]}: "
+              f"{reg.get('registers')} registers, {reg.get('spills')} spill "
+              f"bytes, {n} HMMA/IMMA", flush=True)
+    if not any(probes.source_of(n) in probes.PROBE_SOURCES for n in counts):
+        raise SmokeFailure("no probe instance in the library's SASS")
+    bad = probes.mma_rule_failures(counts)
+    if bad:
+        raise SmokeFailure(f"probe instances with the wrong tensor-core "
+                           f"instruction count: {bad}")
+    keys = list(probes.VARIANTS)
+    errs = dict.fromkeys(keys, 0.0)
+    t0 = time.perf_counter()
+    try:
+        for size in ("tiny", "full"):
+            checked = probes.run(keys, probes.Ctx.make("cuda", size),
+                                 check=True, time=False)
+            for k, r in checked.items():
+                errs[k] = max(errs[k], r["err"] or 0.0)
+        print(f"probe checks: {len(keys)} variants at full size and at a "
+              f"small ragged size, every one held "
+              f"({time.perf_counter() - t0:.1f} s) [{device_line}]",
+              flush=True)
+        heads = [head for _, _, head in probes.FAMILIES.values()]
+        ctx = probes.Ctx.make("cuda", "full")
+        kernels.reset_launch_counts()
+        timed = probes.run(keys, ctx, extras=heads)
+        launches = dict(kernels.LAUNCHES)
+    except probes.ProbeFailure as e:
+        raise SmokeFailure(f"probe phase: {e}") from e
+    for site, entry in probes.PROBES.items():
+        parts = [f"{k} {timed[k]['ms']:.4f} ms (bound "
+                 f"{timed[k]['bound_ms']:.4f} {timed[k]['bound_by']}, "
+                 f"{100 * timed[k]['share']:.2f}%)" for k in entry.variants]
+        print(f"probe {site}: " + "; ".join(parts) + f" [{device_line}]",
+              flush=True)
+    for line in probes.breakdown_lines(timed):
+        print(f"{line} [{device_line}]", flush=True)
+    entries = {}
+    for fam, (name, src, head) in probes.FAMILIES.items():
+        mine = [k for k in keys if probes.VARIANTS[k].family == fam]
+        sites = [s for s, e in probes.PROBES.items()
+                 if set(e.variants) & set(mine)]
+        r = timed[head]
+        entries[name] = {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": ", ".join(sites),
+            "max_abs_err": max(errs[k] for k in mine), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        print(f"probe {name} ({fam}) headline {head}: ms {r['ms']:.4f} "
+              f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+              f"({r['bound_by']}) library_ms {r['library_ms']} "
+              f"[{device_line}]", flush=True)
+    return launches, entries
+
+
 def print_ptxas(log_path):
     """One line per source of ptxas's report in the build log: kernel
     instances, the range of their registers and their spill bytes."""
@@ -850,18 +935,23 @@ def main() -> int:
                         (f"{label} kernels", dec), embed, ts, device_line)
     runs.append(run_fallback(device_line))
     runs.append(run_planar_phase(v1, refs, embed, ts, device_line))
+    probe_launches, probe_entries = run_probe_phase(device_line)
+    runs.append(probe_launches)
 
     leaked = [m for m in ("jax", "flax", "boosting_nerv_tpu")
               if m in sys.modules]
     if leaked:
         raise SmokeFailure(f"imported {leaked}")
-    unused = [k for k in KERNELS if not sum(r[k] for r in runs)]
+    entries = [{"name": name, "route": "cuda", "source": src,
+                "replaces": rep, **summary[name]}
+               for name, (src, rep) in KERNELS.items()]
+    entries += list(probe_entries.values())
+    unused = [e["name"] for e in entries
+              if not sum(r[e["name"]] for r in runs)]
     if unused:
         raise SmokeFailure(f"kernels the main paths never launched: {unused}")
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(r[name] for r in runs), **summary[name]}
-        for name, (src, rep) in KERNELS.items()]}))
+        {**e, "launches": sum(r[e["name"]] for r in runs)} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
