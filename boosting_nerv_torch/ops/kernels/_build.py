@@ -102,6 +102,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bnt_stage_conv3x3_i8.argtypes = [vp] * 12 + [ci] * 8 + [vp]
     lib.bnt_stage_conv3x3_i8_smem.restype = ci
     lib.bnt_stage_conv3x3_i8_smem.argtypes = [ci, ci]
+    lib.bnt_conv_sm90.restype = ci
+    lib.bnt_conv_sm90.argtypes = [vp] * 10 + [ci] * 9 + [vp]
+    lib.bnt_conv_sm90_smem.restype = ci
+    lib.bnt_conv_sm90_smem.argtypes = [ci] * 4
     lib.bnt_error_string.restype = ctypes.c_char_p
     lib.bnt_error_string.argtypes = [ci]
     # the probes (ops/kernels/probes.py)

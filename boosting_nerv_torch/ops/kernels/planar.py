@@ -26,8 +26,9 @@ The stage wrappers' tensors are NHWC on the fine grid: the TPU's
 subpixel-planar layout served Mosaic and is not part of their contract.
 Each wrapper runs its plain PyTorch version for a tensor on the CPU and its
 CUDA kernel (three or four launches of one fused 3x3 convolution:
-``ops/csrc/stage_conv.cu`` for bf16, ``ops/csrc/stage_conv_i8.cu`` for
-W8A8) for a tensor on the card; on a CUDA tensor it launches or raises, it
+``ops/csrc/conv_sm90.cu`` for ``fused_upconv_rsft``, ``ops/csrc/stage_conv.cu``
+for the other bf16 wrapper, ``ops/csrc/stage_conv_i8.cu`` for W8A8) for a
+tensor on the card; on a CUDA tensor it launches or raises, it
 never falls back.  ``LAUNCHES`` (shared with ``tile_conv``, ``conv_chw``
 and ``fused_sft``) counts the wrapper calls that launched a CUDA kernel.
 
@@ -64,12 +65,12 @@ from typing import Mapping, Optional
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES, _build, quant
+from . import LAUNCHES, _build, conv_sm90, quant
 
 WRAPPERS = ("fused_upconv_rsft", "fused_conv_rsft", "fused_upconv_rsft_i8",
             "fused_conv_rsft_i8")   # the stage wrappers
 
-_ACT = {"none": 0, "sin": 1, "gelu": 2, "outimg": 3}
+_ACT = conv_sm90.ACT_CODES   # bnt Act, shared by both bf16 kernels
 _SIN = {"none": 0, "input": 1, "residual": 2}   # bnt::Sin
 ACTS = {"none": lambda v: v, "sin": torch.sin,
         "outimg": lambda v: torch.tanh(v) * 0.5 + 0.5, "gelu": F.gelu}
@@ -387,10 +388,21 @@ def check_tensors(x, c_in, tensors, x_dtypes, smem_fn, convs):
     return True
 
 
-def _check_conv(x, w, b, k, ks, act):
+def stage_smem(lib):
+    """The shared-memory fit of the stage kernel (``stage_conv.cu``)."""
+    return lib.bnt_stage_conv_smem
+
+
+def sm90_smem(lib):
+    """The shared-memory fit of the Hopper kernel (``conv_sm90.cu``)."""
+    return lambda cin, cout, ks: conv_sm90.smem(lib, cin, cout, ks)
+
+
+def _check_conv(x, w, b, k, ks, act, smem_fn=stage_smem):
     """``check_tensors`` for one k x k conv + act of NHWC x with the OHWI
-    weight w and bias b (bf16 on the card).  Raises for a k outside ``ks``,
-    an unknown act or a weight that is not [Cout, k, k, Cin]."""
+    weight w and bias b (bf16 on the card), fitted by ``smem_fn``.  Raises
+    for a k outside ``ks``, an unknown act or a weight that is not
+    [Cout, k, k, Cin]."""
     if k not in ks:
         raise ValueError(f"k must be one of {ks}, got {k}")
     if act not in ACTS:
@@ -402,8 +414,7 @@ def _check_conv(x, w, b, k, ks, act):
     bf = torch.bfloat16
     return check_tensors(x, c_in, [("w", w, (cout, k, k, c_in), bf),
                                    ("b", b, (cout,), bf)], (bf,),
-                         lambda lib: lib.bnt_stage_conv_smem,
-                         [(c_in, cout, k)])
+                         smem_fn, [(c_in, cout, k)])
 
 
 def run_conv(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -431,7 +442,7 @@ def _check_rsft(x, w0, b0, w1, b1, sft):
                ("w1", w1, (c, 3, 3, c), bf), ("b1", b1, (c,), bf),
                ("sft", sft, (4, c), torch.float32)]
     return check_tensors(x, c, tensors, (bf,),
-                         lambda lib: lib.bnt_stage_conv_smem, [(c, c, 3)])
+                         stage_smem, [(c, c, 3)])
 
 
 def _stage_convs(c_in, c, up, head, *ks):
@@ -440,7 +451,8 @@ def _stage_convs(c_in, c, up, head, *ks):
         [(c, 3, *ks)] if head else [])
 
 
-def _check_bf16(x, w: StageWeights, sft, out_inv, c_in, c, head, up):
+def _check_bf16(x, w: StageWeights, sft, out_inv, c_in, c, head, up,
+                smem_fn=stage_smem):
     bf = torch.bfloat16
     tensors = [("weights.conv_w", w.conv_w, (4 * c if up else c, 3, 3, c_in),
                 bf), ("weights.conv_b", w.conv_b, (4 * c if up else c,), bf),
@@ -452,8 +464,7 @@ def _check_bf16(x, w: StageWeights, sft, out_inv, c_in, c, head, up):
         tensors += [("weights.head_w", w.head_w, (3, 3, 3, c), bf),
                     ("weights.head_b", w.head_b, (3,), bf)]
     return _check_inputs(x, sft, out_inv, c_in, c, head, tensors, (bf,),
-                         lambda lib: lib.bnt_stage_conv_smem,
-                         _stage_convs(c_in, c, up, head, 3))
+                         smem_fn, _stage_convs(c_in, c, up, head, 3))
 
 
 def _check_i8(x, w: StageWeightsI8, sft, out_inv, c_in, c, head, up):
@@ -533,14 +544,11 @@ def fused_upconv_rsft(x: torch.Tensor, weights: StageWeights,
     codes at ``out_inv`` ([C] float32).  sft: [4, C] (scale0, shift0,
     scale1, shift1), float32 on the card."""
     c_in, c = _channels(weights.conv_w, up=True)
-    if not _check_bf16(x, weights, sft, out_inv, c_in, c, False, True):
+    if not _check_bf16(x, weights, sft, out_inv, c_in, c, False, True,
+                       sm90_smem):
         return fused_upconv_rsft_plain(x, weights, sft, out_inv)
-    lib = _build.load_library()
-    n, h, w, _ = x.shape
-    y = torch.empty((n, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
-    launch_conv(lib, x, weights.conv_w, weights.conv_b, y, act="sin",
-                shuffle=True)
-    out = rsft_cuda(lib, y, weights.rsft, sft, out_inv)
+    out = conv_sm90.upconv_rsft(conv_sm90.cuda_conv(_build.load_library()),
+                                x, weights, sft, out_inv)
     LAUNCHES["fused_upconv_rsft"] += 1
     return out
 

@@ -22,19 +22,22 @@ every mode computes the function above.  Their degree-9 polynomial sin and
 Abramowitz-Stegun erf become the kernel's reduced SFU sine and ``erff``.
 
 Each wrapper runs its plain PyTorch version (``*_plain``) for a tensor on
-the CPU, and for a tensor on the card the bf16 kernel of
-``ops/csrc/stage_conv.cu`` with KS = k taps: one launch per conv, two per
-ResBlockSFT (``planar.rsft_cuda``).  On a CUDA tensor it launches or
-raises ValueError (for example for more than 128 input channels, which no
-channel chunk of the kernel's shared-memory tile takes); it never falls
-back.  ``LAUNCHES`` counts the wrapper calls that launched.
+the CPU, and for a tensor on the card one launch per conv, two per
+ResBlockSFT (``planar.rsft_cuda``): ``conv_tile`` of the Hopper kernel
+``ops/csrc/conv_sm90.cu`` (``conv_sm90``), the others of the bf16 stage
+kernel ``ops/csrc/stage_conv.cu`` with KS = k taps.  On a CUDA tensor it
+launches or raises ValueError (for example for more than 128 input
+channels, which no shared-memory tile of either kernel takes); it never
+falls back.  ``LAUNCHES`` counts the wrapper calls that launched.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .planar import conv_act_plain, rsft_nhwc_plain, run_conv, run_rsft
+from . import LAUNCHES, _build, conv_sm90
+from .planar import (_check_conv, conv_act_plain, rsft_nhwc_plain, run_conv,
+                     run_rsft, sm90_smem)
 
 
 # --------------------------------------------------------------------- #
@@ -71,8 +74,15 @@ resblock_sft_tile_v3_plain = resblock_sft_tile_plain
 def conv_tile(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
               k: int) -> torch.Tensor:
     """k x k same-padded conv + bias of NHWC x, k in {1, 3, 5}:
-    [N, H, W, Cin] -> [N, H, W, Cout]."""
-    return run_conv("conv_tile", x, w, b, k=k, ks=(1, 3, 5))
+    [N, H, W, Cin] -> [N, H, W, Cout]: one launch of ``conv_sm90.cu`` on
+    the card."""
+    if not _check_conv(x, w, b, k, (1, 3, 5), "none", sm90_smem):
+        return conv_tile_plain(x, w, b, k=k)
+    out = torch.empty(x.shape[:3] + (w.shape[0],), dtype=x.dtype,
+                      device=x.device)
+    conv_sm90.launch(_build.load_library(), x, w, b, out)
+    LAUNCHES["conv_tile"] += 1
+    return out
 
 
 def conv_tile_v3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,

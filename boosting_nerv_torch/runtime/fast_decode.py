@@ -50,6 +50,8 @@ serving path (the decode-fps convention: the encoder is not part of it).
   (fast_decode.py:591-598).  W8A8 on such a config raises ValueError: the
   JAX one prints a message and serves bf16, the port serves what was asked
   or raises.
+- Every decode's head is tanh * 0.5 + 0.5 whatever ``cfg.out_bias``, as
+  every JAX decode's is (a reference quirk, kept).
 - On a CUDA tensor the wrappers launch the hand-written kernels or raise;
   there is no fallback, and a calibration that fails raises.
   ``ops.kernels.LAUNCHES`` counts their launches and
@@ -76,7 +78,6 @@ from ..config import BoostConfig, decoder_stage_plan
 from ..models.hnerv import HNeRVBoost
 from ..ops.kernels import conv_chw, fused_sft, planar, quant, tile_conv
 from ..ops.kernels.planar import nchw, nhwc
-from ..ops.losses import out_img
 from ..ops.pe import position_encoding
 
 DT = torch.bfloat16
@@ -580,7 +581,7 @@ def build_fast_decode_v5(cfg: BoostConfig,
         if fine is not None:
             return fine(x, t_embed)
         if head is not None:  # stride-2 final stage: head in plain torch
-            x = out_img(head(nchw(x)), cfg.out_bias).permute(0, 2, 3, 1)
+            x = nhwc(torch.tanh(head(nchw(x))) * 0.5 + 0.5)
         return x
 
     decode.time_embed = time_embed
@@ -612,7 +613,7 @@ def _build_fine_decode(cfg: BoostConfig, params_or_model, tile_from_h: int,
         t_embed = time_embed(t)
         x = prefix(embed, t_embed)
         if fine is None:  # no stage reaches tile_from_h: all in torch
-            return out_img(head(x), cfg.out_bias).permute(0, 2, 3, 1)
+            return nhwc(torch.tanh(head(x)) * 0.5 + 0.5)
         return fine(nhwc(x), t_embed)
 
     decode.time_embed = time_embed

@@ -27,12 +27,18 @@ Phases, one line of output each (or one line per shape):
    planar form of stage 7, C 51 -> Cp 64, Hc 540, wc_real 960, Wd 1024,
    conv_planar with act sin and as the outimg head) and at one small
    ragged shape each (width 50 and 9 rows; k = 1 for conv_tile_v3, k = 5
-   for conv_tile; wc_real 50 for the planar ones): max abs error within
+   for conv_tile, also at 128 -> 80 channels, which the Hopper kernel
+   takes only at its narrowest N slice; wc_real 50 for the planar ones;
+   conv_tile and fused_upconv_rsft on the Hopper kernel conv_sm90.cu, the
+   others on the stage kernels): max abs error within
    2e-2 * max(|plain|, 1), int8 codes compared after dequantising with
    1/inv; prints the share of codes that differ; times both with CUDA
    events, and F.conv2d for conv_tile; then checks that a conv with more
    than 128 input channels, which the kernel does not take, raises
-   ValueError on the card from the tile, v1 and planar wrappers;
+   ValueError on the card from the tile, v1 and planar wrappers; and
+   times the stage kernel's chain (stage_conv.cu) beside conv_sm90.cu in
+   turns (old, new, new, old) at conv_tile's v2 stage-6 call and at
+   fused_upconv_rsft's bf16 stages 2, 4 and 6 (the same-call A/B);
 5. the bf16 slice: serves 8 frame indices through ``build_serving_decode``;
    checks the frames (shape, finite, [0, 1], max abs error <= 1e-2 against
    the fp32 plain decode with TF32 off) and the launch counts; times the
@@ -109,14 +115,15 @@ PLANAR = "boosting_nerv_tpu/ops/pallas/planar.py"
 TILE = "boosting_nerv_tpu/ops/pallas/tile_conv.py"
 CHW = "boosting_nerv_tpu/ops/pallas/conv_chw.py"
 STAGE_CU = "boosting_nerv_torch/ops/csrc/stage_conv.cu"
+SM90_CU = "boosting_nerv_torch/ops/csrc/conv_sm90.cu"
 KERNELS = {  # wrapper: (source, replaces)
-    "fused_upconv_rsft": (STAGE_CU, f"{PLANAR}:1308"),
+    "fused_upconv_rsft": (SM90_CU, f"{PLANAR}:1308"),
     "fused_conv_rsft": (STAGE_CU, f"{PLANAR}:1541"),
     "fused_upconv_rsft_i8": ("boosting_nerv_torch/ops/csrc/stage_conv_i8.cu",
                              f"{PLANAR}:1308 (W8A8 prep {PLANAR}:707)"),
     "fused_conv_rsft_i8": ("boosting_nerv_torch/ops/csrc/stage_conv_i8.cu",
                            f"{PLANAR}:1541 (W8A8 prep {PLANAR}:673)"),
-    "conv_tile": (STAGE_CU, f"{TILE}:144"),
+    "conv_tile": (SM90_CU, f"{TILE}:144"),
     "conv_tile_v3": (STAGE_CU, f"{TILE}:473"),
     "resblock_sft_tile": (STAGE_CU, f"{TILE}:951"),
     "resblock_sft_tile_v3": (STAGE_CU, f"{TILE}:788"),
@@ -380,6 +387,10 @@ def tile_cases(decode_v3, decode_v2, gen):
 
     cases += [
         ("ragged k5", "conv_tile", conv_args(5, 7), {"k": 5}, False),
+        ("ragged k5 wide", "conv_tile",
+         (rnd(gen, 1, h, w, 128), rnd(gen, 80, 5, 5, 128,
+                                      scale=(25 * 128) ** -0.5),
+          rnd(gen, 80, scale=0.1)), {"k": 5}, False),
         ("ragged k1", "conv_tile_v3", conv_args(1, 7),
          {"k": 1, "act": "gelu"}, False),
         ("ragged", "resblock_sft_tile", rsft_args(), {}, False),
@@ -535,6 +546,51 @@ def check_kernels(cases, device_line):
             if b_by == "bytes":
                 s["bound_by"] = "bytes"
     return summary
+
+
+def run_ab(decode, v2, gen, device_line):
+    """The same-call old/new comparison of the two wrappers moved onto
+    conv_sm90.cu: the stage kernel's chain (stage_conv.cu, as the parent
+    tree served them) against the wrapper, timed in turns old, new, new,
+    old, at conv_tile's v2 stage-6 call (61 -> 204) and at the bf16 v5
+    stages 2, 4 and 6 of fused_upconv_rsft.  Measurement only: no decode
+    path chooses by it, and the old chain counts no launch."""
+    from boosting_nerv_torch.ops.kernels import _build, planar, tile_conv
+
+    lib = _build.load_library()
+    st6 = next(st for st in v2.fine.stages if st.index == 6)
+    h, w = st6.out_hw
+    x = rnd(gen, 1, h // st6.strd, w // st6.strd, st6.conv_w.shape[3])
+    wt, b = st6.conv_w, st6.conv_b
+    out = torch.empty(x.shape[:3] + (wt.shape[0],), dtype=x.dtype,
+                      device="cuda")
+    cases = [("conv_tile v2 stage 6", tuple(x.shape),
+              lambda: planar.launch_conv(lib, x, wt, b, out),
+              lambda: tile_conv.conv_tile(x, wt, b, k=wt.shape[1]))]
+    t_embed = decode.time_embed(torch.tensor([0.5], device="cuda"))
+    for st in decode.tail:
+        if st.kernel != "fused_upconv_rsft":
+            continue
+        xs, sft, sw = rnd(gen, *st.in_shape), st.sft(t_embed), st.weights
+
+        def old(xs=xs, sft=sft, sw=sw):
+            n, hh, ww, _ = xs.shape
+            y = torch.empty((n, 2 * hh, 2 * ww, sw.w0.shape[0]),
+                            dtype=xs.dtype, device="cuda")
+            planar.launch_conv(lib, xs, sw.conv_w, sw.conv_b, y, act="sin",
+                               shuffle=True)
+            return planar.rsft_cuda(lib, y, sw.rsft, sft)
+
+        cases.append((f"fused_upconv_rsft stage {st.index}",
+                      tuple(xs.shape), old,
+                      lambda xs=xs, sft=sft, sw=sw:
+                      planar.fused_upconv_rsft(xs, sw, sft)))
+    for label, shape, old, new in cases:
+        o1, n1 = cuda_ms(old), cuda_ms(new)
+        n2, o2 = cuda_ms(new), cuda_ms(old)
+        print(f"a/b {label} in {shape}: stage_conv.cu {(o1 + o2) / 2:.4f} "
+              f"ms ({o1:.4f}, {o2:.4f}), conv_sm90.cu {(n1 + n2) / 2:.4f} "
+              f"ms ({n1:.4f}, {n2:.4f}) [{device_line}]", flush=True)
 
 
 def check_refusal(gen, device_line):
@@ -917,6 +973,7 @@ def main() -> int:
                             + tile_cases(v3, v2, gen) + chw_cases(v1, gen),
                             device_line)
     check_refusal(gen, device_line)
+    run_ab(decode, v2, gen, device_line)
     runs = [check_frames("bf16", decode, refs, embed, ts)]
     print_turns("bf16", ("plain stages", plain_decode), ("kernels", decode),
                 embed, ts, device_line)
