@@ -10,13 +10,17 @@
 //             clip(rint(v * out_inv), +-127); PixelShuffle(2) folded into
 //             the store addressing.
 //
-// It replaces two Pallas kernels of boosting_nerv_tpu/ops/pallas/:
-// tile_conv.py:144 conv_tile (k x k conv + bias, one launch,
-// ops/kernels/tile_conv.py) and planar.py:1308 fused_upconv_rsft (the
-// stride-2 stage: upconv with shuffle and sin, rsft 0 with both affines
-// and gelu, rsft 1 with the residual and the optional int8-code store;
-// three launches, ops/kernels/planar.py).  Every other wrapper stays on
-// stage_conv.cu.
+// It replaces four Pallas kernels of boosting_nerv_tpu/ops/pallas/:
+// tile_conv.py:144 conv_tile (k x k conv + bias, one launch) and
+// tile_conv.py:788 resblock_sft_tile_v3 (the ResBlockSFT pair: conv0
+// with both affines and gelu, conv1 with the residual; two launches),
+// ops/kernels/tile_conv.py; planar.py:1308 fused_upconv_rsft (the
+// stride-2 stage: upconv with shuffle and sin, then the pair with the
+// optional int8-code store; three launches) and planar.py:1541
+// fused_conv_rsft in bf16 (the stride-1 stage: conv and sin, the pair,
+// the optional 51 -> 3 head with outimg; three or four launches),
+// ops/kernels/planar.py through ops/kernels/conv_sm90.py.  Every other
+// wrapper stays on stage_conv.cu.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): conv_tile's
 // v2 stage-6 call (540x960, 61 -> 204) is 116 GFLOP, 0.117 ms of tensor
@@ -62,88 +66,24 @@
 //   and store kind are template arguments: an epilogue unrolled per
 //   accumulator register, with the runtime activation switch in each
 //   copy, overflowed the instruction cache and cost more than the GEMM.
+// - The epilogue, the largest phase (36-42% of a stride-1 stage by the
+//   phase probes, K5: conv_sm90_probe.cu), was a chain of dependent
+//   latencies per element (its residual load, its activation) with two
+//   warps a scheduler to hide them.  It works out each row's base
+//   address, its pixel stride and each lane's channel offsets once, so
+//   that an element's address is two adds (PixelShuffle included), and a
+//   warp keeps two pixels in flight (N 56, 64, 80; the N 8 head keeps
+//   the element-by-element loop, which measured faster there).  The two
+//   warpgroups meet only at the repack, so one's epilogue already runs
+//   beside the other's wgmmas; a ping-pong schedule (a 2 x 64 tile per
+//   warpgroup, turns on the tensor cores) measured slower, its extra halo
+//   rows costing more than the GEMM time it hid.
 //
 // The tile is 4 x 64 output pixels (two consumer warpgroups, each two m64
 // tiles, one a row), or 2 x 64 with one warpgroup where the larger tile
 // does not fit the shared memory.
 
 #include "conv_sm90.cuh"
-
-namespace {
-
-using sm90::Params;  // MAX_SMEM: stage_common.cuh, the card's opt-in limit
-
-// Bytes of one raw row slot: the widest row span plus its 16-byte
-// widening, rounded up to 16.
-int raw_pitch(int ks, int cin) {
-  return ((sm90::TW + ks - 1) * cin * 2 + 30 + 15) / 16 * 16;
-}
-
-// The shared-memory plan of a launch: warpgroups (2, else 1) and the
-// weight ring (every block resident, else the deepest ring up to MAX_WS
-// that fits, at least 2).  Fills p and returns the bytes, or -1 where
-// nothing fits.
-int fit(Params& p, int ns) {
-  const int kblocks = p.nslices * p.ks * p.ks;
-  for (int nwg = 2; nwg >= 1; --nwg) {
-    for (int ws = kblocks; ws >= 1;) {
-      const sm90::Layout l =
-          sm90::layout(p.ks, p.cin_pad, p.raw_pitch, nwg, ws, ns);
-      if (l.total <= MAX_SMEM) {
-        p.nwg = nwg;
-        p.ws = ws;
-        p.resident = ws == kblocks;
-        return l.total;
-      }
-      ws = ws == kblocks ? std::min(kblocks - 1, sm90::MAX_WS) : ws - 1;
-      if (ws < 2) break;
-    }
-  }
-  return -1;
-}
-
-bool valid_ns(int ns) {
-  return ns == 8 || ns == 56 || ns == 64 || ns == 80;
-}
-
-// Fills the shape fields of p; false for a shape the kernel does not take.
-bool shape(Params& p, int cin, int cout, int ks, int ns) {
-  p.cin = cin;
-  p.cout = cout;
-  p.ks = ks;
-  p.cin_pad = (cin + 15) / 16 * 16;
-  p.nslices = (cout + ns - 1) / ns;
-  p.raw_pitch = raw_pitch(ks, cin);
-  return (ks == 1 || ks == 3 || ks == 5) && cin >= 1 && cout >= 1 &&
-         p.cin_pad <= sm90::MAX_CIN_PAD && valid_ns(ns);
-}
-
-template <int NS>
-int launch(const Params& p, int smem, cudaStream_t s) {
-  auto kernel = sm90::conv_sm90_kernel<NS>;
-  static bool attr = false;
-  if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-    if (err != cudaSuccess) return err;
-    attr = true;
-  }
-  const int threads = 128 * p.nwg + sm90::PRODUCER;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, smem);
-  if (err != cudaSuccess) return err;
-  const int tiles = p.tiles_w * p.tiles_h * p.n;
-  const int blocks = std::max(1, std::min(tiles, sms * std::max(per_sm, 1)));
-  kernel<<<blocks, threads, smem, s>>>(p);
-  return cudaGetLastError();
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -152,9 +92,9 @@ extern "C" {
 // MAX_CIN_PAD input channels, an ns without an instance, or no plan that
 // fits the card's shared memory.
 int bnt_conv_sm90_smem(int cin, int cout, int ks, int ns) {
-  Params p{};
-  if (!shape(p, cin, cout, ks, ns)) return -1;
-  return fit(p, ns);
+  sm90::Params p{};
+  if (!sm90::shape(p, cin, cout, ks, ns)) return -1;
+  return sm90::fit(p, ns);
 }
 
 // One fused ks x ks convolution on the given stream; wpk is the weight
@@ -167,36 +107,18 @@ int bnt_conv_sm90(const void* x, const void* wpk, const void* bias,
                   const void* residual, const void* out_inv, void* out,
                   int n, int h, int w, int cin, int cout, int act,
                   int shuffle, int ks, int ns, void* stream) {
-  Params p{};
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.wpk = static_cast<const __nv_bfloat16*>(wpk);
-  p.bias = static_cast<const __nv_bfloat16*>(bias);
-  p.in_scale = static_cast<const float*>(in_scale);
-  p.in_shift = static_cast<const float*>(in_shift);
-  p.out_scale = static_cast<const float*>(out_scale);
-  p.out_shift = static_cast<const float*>(out_shift);
-  p.residual = static_cast<const __nv_bfloat16*>(residual);
-  p.out_inv = static_cast<const float*>(out_inv);
-  p.out = out;
-  p.n = n;
-  p.h = h;
-  p.w = w;
-  p.act = act;
-  p.shuffle = shuffle;
-  if (!shape(p, cin, cout, ks, ns) || n < 1 || h < 1 || w < 1 ||
-      (shuffle && cout % 4 != 0) || act < ACT_NONE || act > ACT_OUTIMG ||
-      (reinterpret_cast<uintptr_t>(wpk) & 15) != 0)
-    return cudaErrorInvalidValue;
-  const int smem = fit(p, ns);
+  sm90::Params p{};
+  const int smem = sm90::prepare(p, x, wpk, bias, in_scale, in_shift,
+                                 out_scale, out_shift, residual, out_inv,
+                                 out, n, h, w, cin, cout, act, shuffle, ks,
+                                 ns);
   if (smem < 0) return cudaErrorInvalidValue;
-  p.tiles_w = (w + sm90::TW - 1) / sm90::TW;
-  p.tiles_h = (h + sm90::tile_h(p.nwg) - 1) / sm90::tile_h(p.nwg);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (ns) {
-    case 8: return launch<8>(p, smem, s);
-    case 56: return launch<56>(p, smem, s);
-    case 64: return launch<64>(p, smem, s);
-    default: return launch<80>(p, smem, s);
+    case 8: return sm90::launch<8, PHASE_ALL>(p, smem, s);
+    case 56: return sm90::launch<56, PHASE_ALL>(p, smem, s);
+    case 64: return sm90::launch<64, PHASE_ALL>(p, smem, s);
+    default: return sm90::launch<80, PHASE_ALL>(p, smem, s);
   }
 }
 

@@ -24,6 +24,13 @@
 // start, and a shifted A needs no copy and no register staging.
 // Warpgroup g owns tile rows 2g and 2g + 1 (one m64 tile each; warp w of
 // the group holds columns 16w..16w+15 of the accumulators).
+//
+// The kernel's template parameter P is the phase mask of stage_common.cuh:
+// PHASE_ALL in production (conv_sm90.cu), a knockout in the probe units
+// (conv_sm90_probe*.cu, K5), where STAGE is the consumers' repack (the
+// producer's copies still run).  The kernel and its helpers live in an
+// anonymous namespace, so that each unit's instances carry its file's name
+// (boosting_nerv_torch/tools/probes.py tells probe instances by it).
 
 #pragma once
 
@@ -85,6 +92,8 @@ __host__ __device__ inline Layout layout(int ks, int cin_pad, int raw_pitch,
   l.total = l.bars + 2 * (1 + ws) * 8;
   return l;
 }
+
+namespace {
 
 // ---------------------------------------------------------------- PTX ---
 
@@ -351,21 +360,27 @@ __device__ __forceinline__ void produce(const Params& p, const Layout& L,
 
 // NS: output channels per N slice (the wgmma N).  Threads: 128 * p.nwg
 // consumers, then one producer warp.
-// The epilogue of one output row segment: the fp32 sums of up to 64
-// pixels (tx0 + px, px < 64) x NS channels (n0 + ch) of row oy, staged in
-// s_acc[px][ch] (pitch NS + 4, so that the accumulators' float2 stores hit
-// distinct banks): + bias, activation ACT, output affine, + residual, a
-// bf16 store or (Q) an int8-code store; warp wq of the warpgroup takes
-// pixels wq, wq + 4, ..., its lanes consecutive channels, so that a
-// pixel's stores are contiguous.  ACT and Q are compile-time, so that the
-// loop carries one activation's code and one store's.
-template <int NS, int ACT, bool Q>
-__device__ __forceinline__ void epilogue_loop(
+// The epilogue of one output row segment, element by element: the fp32
+// sums of up to 64 pixels (tx0 + px, px < 64) x NS channels (n0 + ch) of
+// row oy, staged in s_acc[px][ch] (pitch NS + 4, so that the
+// accumulators' float2 stores hit distinct banks): + bias, activation ACT,
+// output affine, + residual, a bf16 store or (Q) an int8-code store; warp
+// wq of the warpgroup takes pixels wq, wq + 4, ..., its lanes consecutive
+// channels, so that a pixel's stores are contiguous.  Each element's
+// address is out_offset's.  This is the loop of the N 8 instances (the
+// 3-channel head: three live lanes a warp), where epilogue_loop below
+// measured a third slower on an H100 (the cause is not resolved).  ACT
+// and Q are compile-time, so that the loop carries one activation's code
+// and one store's.  Without PHASE_STORE in P the stores happen only under
+// probe_store() (never).
+template <int NS, int ACT, bool Q, int P>
+__device__ __forceinline__ void epilogue_loop_elem(
     const float* s_acc, int b, int oy, int tx0, int n0, int wq, int lane,
     int h, int w, int cout, int shuffle, const __nv_bfloat16* residual,
     const float* out_inv, void* out, const float (&bias)[(NS + 31) / 32],
     const float (&mul)[(NS + 31) / 32], const float (&add)[(NS + 31) / 32]) {
   constexpr int CH = (NS + 31) / 32;
+  const bool store = (P & PHASE_STORE) != 0 || probe_store();
   for (int px = wq; px < TW && tx0 + px < w; px += 4) {
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
@@ -375,6 +390,7 @@ __device__ __forceinline__ void epilogue_loop(
       float v = activate(s_acc[px * (NS + 4) + ch] + bias[c], ACT);
       v = v * mul[c] + add[c];
       if (residual) v += __bfloat162float(residual[off]);
+      if (!store) continue;
       if constexpr (Q) {
         static_cast<int8_t*>(out)[off] =
             quant(v, out_inv[shuffle ? n >> 2 : n]);
@@ -385,33 +401,108 @@ __device__ __forceinline__ void epilogue_loop(
   }
 }
 
-// epilogue_loop for launch p's activation and store.  Not inlined: one copy
-// of the epilogue's code stays in the instruction cache.
-template <int NS>
-static __device__ __noinline__ void epilogue_row(const Params& p,
-                                                 const float* s_acc, int b,
-                                                 int oy, int tx0, int n0,
-                                                 int wq, int lane) {
+// The epilogue of one output row segment as epilogue_loop_elem computes
+// it, for N 56, 64 and 80: the sums of up to npx pixels (px < npx <= 64)
+// of one output row.  Element (px, lane + 32 c) of the output and the
+// residual lies at base + px * pstride + coff[c]: the addressing is two
+// adds an element (coff[c] < 0 marks a channel beyond NS or Cout).  A
+// warp takes two of its pixels at a time and issues both residual loads
+// before either's arithmetic, so that two independent chains (loads,
+// activation) are in flight and not one.
+template <int NS, int ACT, bool Q, int P>
+__device__ __forceinline__ void epilogue_loop(
+    const float* s_acc, int npx, int wq, int lane, size_t base,
+    size_t pstride, const long long (&coff)[(NS + 31) / 32],
+    const int (&qch)[(NS + 31) / 32], const __nv_bfloat16* residual,
+    const float* out_inv, void* out, const float (&bias)[(NS + 31) / 32],
+    const float (&mul)[(NS + 31) / 32], const float (&add)[(NS + 31) / 32]) {
+  constexpr int CH = (NS + 31) / 32;
+  const bool store = (P & PHASE_STORE) != 0 || probe_store();
+  constexpr int U = 2;
+  for (int px0 = wq; px0 < npx; px0 += 4 * U) {
+    float res[U][CH];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const size_t pix = base + (px0 + 4 * u) * pstride;
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        res[u][c] = residual && coff[c] >= 0 && px0 + 4 * u < npx
+                        ? __bfloat162float(residual[pix + coff[c]])
+                        : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int px = px0 + 4 * u;
+      if (px >= npx) break;
+      const size_t pix = base + px * pstride;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        if (coff[c] < 0) continue;
+        const size_t off = pix + coff[c];
+        float v = activate(s_acc[px * (NS + 4) + lane + 32 * c] + bias[c],
+                           ACT);
+        v = v * mul[c] + add[c];
+        if (residual) v += res[u][c];
+        if (!store) continue;
+        if constexpr (Q) {
+          static_cast<int8_t*>(out)[off] = quant(v, out_inv[qch[c]]);
+        } else {
+          static_cast<__nv_bfloat16*>(out)[off] = __float2bfloat16(v);
+        }
+      }
+    }
+  }
+}
+
+// The epilogue loop for launch p's activation and store, output row oy,
+// pixels tx0.. of image b, channels n0..; for epilogue_loop it works out
+// the row's base, the pixel stride and each lane's channel offsets
+// (out_offset's arithmetic, PixelShuffle included) once.  Not inlined:
+// one copy of the epilogue's code stays in the instruction cache.
+// Without PHASE_EPI in P it stores the raw sums (no bias, activation,
+// affine or residual).
+template <int NS, int P>
+__device__ __noinline__ void epilogue_row(const Params& p,
+                                          const float* s_acc, int b, int oy,
+                                          int tx0, int n0, int wq,
+                                          int lane) {
+  constexpr bool kEpi = (P & PHASE_EPI) != 0;
   // the fields this uses, read once: the stores could alias p
-  const int h = p.h, w = p.w, cout = p.cout, act = p.act;
+  const int h = p.h, w = p.w, cout = p.cout;
+  const int act = kEpi ? p.act : ACT_NONE;
   const int shuffle = p.shuffle;
-  const __nv_bfloat16* residual = p.residual;
+  const __nv_bfloat16* residual = kEpi ? p.residual : nullptr;
   const float* out_inv = p.out_inv;
   void* out = p.out;
   constexpr int CH = (NS + 31) / 32;
   float bias[CH], mul[CH], add[CH];
+  long long coff[CH];
+  int qch[CH];
 #pragma unroll
   for (int c = 0; c < CH; ++c) {
     const int n = n0 + lane + 32 * c;
     const bool ok = lane + 32 * c < NS && n < cout;
-    bias[c] = ok ? __bfloat162float(p.bias[n]) : 0.0f;
-    mul[c] = ok && p.out_scale ? p.out_scale[n] + 1.0f : 1.0f;
-    add[c] = ok && p.out_shift ? p.out_shift[n] : 0.0f;
+    const bool aff = kEpi && ok;
+    bias[c] = aff ? __bfloat162float(p.bias[n]) : 0.0f;
+    mul[c] = aff && p.out_scale ? p.out_scale[n] + 1.0f : 1.0f;
+    add[c] = aff && p.out_shift ? p.out_shift[n] : 0.0f;
+    const int cq = n >> 2, r1 = (n >> 1) & 1, r2 = n & 1;
+    coff[c] = !ok ? -1
+              : shuffle ? (long long)(r1 * 2 * w + r2) * (cout >> 2) + cq
+                        : n;
+    qch[c] = shuffle ? cq : n;
   }
+  const size_t base = out_offset(b, oy, tx0, 0, h, w, cout, shuffle);
+  const size_t pstride = shuffle ? 2 * (cout >> 2) : cout;
+  const int npx = min(TW, w - tx0);
 #define BNT_EPI(A, Q)                                                      \
-  epilogue_loop<NS, A, Q>(s_acc, b, oy, tx0, n0, wq, lane, h, w,     \
-                                cout, shuffle, residual, out_inv, out,     \
-                                bias, mul, add)
+  if constexpr (NS == 8)                                                   \
+    epilogue_loop_elem<NS, A, Q, P>(s_acc, b, oy, tx0, n0, wq, lane, h, w, \
+                                    cout, shuffle, residual, out_inv, out, \
+                                    bias, mul, add);                       \
+  else                                                                     \
+    epilogue_loop<NS, A, Q, P>(s_acc, npx, wq, lane, base, pstride, coff,  \
+                               qch, residual, out_inv, out, bias, mul, add)
   if (out_inv) {
     switch (act) {
       case ACT_SIN: BNT_EPI(ACT_SIN, true); break;
@@ -430,9 +521,11 @@ static __device__ __noinline__ void epilogue_row(const Params& p,
 #undef BNT_EPI
 }
 
-template <int NS>
+template <int NS, int P = PHASE_ALL>
 __global__ void __launch_bounds__(2 * 128 + PRODUCER, 1)
 conv_sm90_kernel(const __grid_constant__ Params p) {
+  constexpr bool kStage = (P & PHASE_STAGE) != 0;
+  constexpr bool kGemm = (P & PHASE_GEMM) != 0;
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = layout(p.ks, p.cin_pad, p.raw_pitch, p.nwg, p.ws, NS);
   const int consumers = 128 * p.nwg;
@@ -486,6 +579,12 @@ conv_sm90_kernel(const __grid_constant__ Params p) {
     }
   }
 
+  if constexpr (!kStage) {  // probe: one zero operand tile, never repacked
+    for (int i = threadIdx.x; i < L.raw / 16; i += consumers)
+      reinterpret_cast<uint4*>(smem + L.pad)[i] = make_uint4(0, 0, 0, 0);
+    fence_async_smem();
+  }
+
   Ring wr;
   uint32_t raw_phase = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -496,7 +595,7 @@ conv_sm90_kernel(const __grid_constant__ Params p) {
     bar_wait(full_raw, raw_phase);
     consumer_sync(consumers);  // the previous tile's GEMM is done with s_pad
     const unsigned char* rbuf = smem + L.raw;
-    for (int r = 0; r < ph; ++r) {
+    for (int r = 0; r < (kStage ? ph : 0); ++r) {
       const int iy = t.ty0 - halo + r;
       const bool row_in = iy >= 0 && iy < p.h;
       // element of pixel ix of this row: row + ix * cin
@@ -553,25 +652,29 @@ conv_sm90_kernel(const __grid_constant__ Params p) {
           wblk = s_w + slot * wbytes;
           wr.next(p.ws);
         }
-        const int dy = tap / p.ks, dx = tap - dy * p.ks;
-        const __nv_bfloat16* a0 =
-            s_pad + ((wg * ROWS_PER_WG + dy) * pw + dx) * 8;
-        wgmma_fence();
-        for (int k = 0; k < nks; ++k) {
-          const uint64_t db = desc(wblk + k * NS * 32, 128, 256);
-          const __nv_bfloat16* ak = a0 + 2 * k * gs * 8;
-          wgmma_ss<NS>(acc[0], desc(ak, lbo_a, 128), db);
-          wgmma_ss<NS>(acc[1], desc(ak + pw * 8, lbo_a, 128), db);
-        }
-        wgmma_commit();
-        if (slot >= 0) {
-          // the previous tap's wgmmas are done: release its weight slot
-          wgmma_wait<1>();
-          if (held >= 0 && lane == 0) bar_arrive(&empty_w[held]);
-          held = slot;
+        if constexpr (kGemm) {
+          const int dy = tap / p.ks, dx = tap - dy * p.ks;
+          const __nv_bfloat16* a0 =
+              s_pad + ((wg * ROWS_PER_WG + dy) * pw + dx) * 8;
+          wgmma_fence();
+          for (int k = 0; k < nks; ++k) {
+            const uint64_t db = desc(wblk + k * NS * 32, 128, 256);
+            const __nv_bfloat16* ak = a0 + 2 * k * gs * 8;
+            wgmma_ss<NS>(acc[0], desc(ak, lbo_a, 128), db);
+            wgmma_ss<NS>(acc[1], desc(ak + pw * 8, lbo_a, 128), db);
+          }
+          wgmma_commit();
+          if (slot >= 0) {
+            // the previous tap's wgmmas are done: release its weight slot
+            wgmma_wait<1>();
+            if (held >= 0 && lane == 0) bar_arrive(&empty_w[held]);
+            held = slot;
+          }
+        } else if (slot >= 0 && lane == 0) {  // probe: acc stays 0
+          bar_arrive(&empty_w[slot]);
         }
       }
-      wgmma_wait<0>();
+      if constexpr (kGemm) wgmma_wait<0>();
       if (held >= 0 && lane == 0) bar_arrive(&empty_w[held]);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
@@ -596,11 +699,142 @@ conv_sm90_kernel(const __grid_constant__ Params p) {
               make_float2(acc[mt][i], acc[mt][i + 1]);
         }
         wg_sync(wg);
-        epilogue_row<NS>(p, s_acc, t.b, oy, t.tx0, n0, wq, lane);
+        epilogue_row<NS, P>(p, s_acc, t.b, oy, t.tx0, n0, wq, lane);
         wg_sync(wg);
       }
     }
   }
 }
+
+// ------------------------------------------------------------- host ---
+
+// Bytes of one raw row slot: the widest row span plus its 16-byte
+// widening, rounded up to 16.
+inline int raw_pitch(int ks, int cin) {
+  return ((TW + ks - 1) * cin * 2 + 30 + 15) / 16 * 16;
+}
+
+// The shared-memory plan of a launch: warpgroups (2, else 1) and the
+// weight ring (every block resident, else the deepest ring up to MAX_WS
+// that fits, at least 2).  Fills p and returns the bytes, or -1 where
+// nothing fits.
+inline int fit(Params& p, int ns) {
+  const int kblocks = p.nslices * p.ks * p.ks;
+  for (int nwg = 2; nwg >= 1; --nwg) {
+    for (int ws = kblocks; ws >= 1;) {
+      const Layout l = layout(p.ks, p.cin_pad, p.raw_pitch, nwg, ws, ns);
+      if (l.total <= MAX_SMEM) {
+        p.nwg = nwg;
+        p.ws = ws;
+        p.resident = ws == kblocks;
+        return l.total;
+      }
+      ws = ws == kblocks ? std::min(kblocks - 1, MAX_WS) : ws - 1;
+      if (ws < 2) break;
+    }
+  }
+  return -1;
+}
+
+inline bool valid_ns(int ns) {
+  return ns == 8 || ns == 56 || ns == 64 || ns == 80;
+}
+
+// Fills the shape fields of p; false for a shape the kernel does not take.
+inline bool shape(Params& p, int cin, int cout, int ks, int ns) {
+  p.cin = cin;
+  p.cout = cout;
+  p.ks = ks;
+  p.cin_pad = (cin + 15) / 16 * 16;
+  p.nslices = (cout + ns - 1) / ns;
+  p.raw_pitch = raw_pitch(ks, cin);
+  return (ks == 1 || ks == 3 || ks == 5) && cin >= 1 && cout >= 1 &&
+         p.cin_pad <= MAX_CIN_PAD && valid_ns(ns);
+}
+
+// Fills p from a C entry point's arguments and plans its shared memory:
+// the bytes, or -1 for a launch the kernel does not take.
+inline int prepare(Params& p, const void* x, const void* wpk,
+                   const void* bias, const void* in_scale,
+                   const void* in_shift, const void* out_scale,
+                   const void* out_shift, const void* residual,
+                   const void* out_inv, void* out, int n, int h, int w,
+                   int cin, int cout, int act, int shuffle, int ks, int ns) {
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.wpk = static_cast<const __nv_bfloat16*>(wpk);
+  p.bias = static_cast<const __nv_bfloat16*>(bias);
+  p.in_scale = static_cast<const float*>(in_scale);
+  p.in_shift = static_cast<const float*>(in_shift);
+  p.out_scale = static_cast<const float*>(out_scale);
+  p.out_shift = static_cast<const float*>(out_shift);
+  p.residual = static_cast<const __nv_bfloat16*>(residual);
+  p.out_inv = static_cast<const float*>(out_inv);
+  p.out = out;
+  p.n = n;
+  p.h = h;
+  p.w = w;
+  p.act = act;
+  p.shuffle = shuffle;
+  if (!shape(p, cin, cout, ks, ns) || n < 1 || h < 1 || w < 1 ||
+      (shuffle && cout % 4 != 0) || act < ACT_NONE || act > ACT_OUTIMG ||
+      (reinterpret_cast<uintptr_t>(wpk) & 15) != 0)
+    return -1;
+  const int smem = fit(p, ns);
+  p.tiles_w = (w + TW - 1) / TW;
+  p.tiles_h = smem < 0 ? 0 : (h + tile_h(p.nwg) - 1) / tile_h(p.nwg);
+  return smem;
+}
+
+template <int NS, int P>
+int launch(const Params& p, int smem, cudaStream_t s) {
+  auto kernel = conv_sm90_kernel<NS, P>;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return err;
+    attr = true;
+  }
+  const int threads = 128 * p.nwg + PRODUCER;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = p.tiles_w * p.tiles_h * p.n;
+  const int blocks = std::max(1, std::min(tiles, sms * std::max(per_sm, 1)));
+  kernel<<<blocks, threads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+// The knockout instance <NS, mask> of a probe launch (K5); mask is one of
+// PROBE_MASKS.
+constexpr int PROBE_MASKS[] = {
+    PHASE_ALL, PHASE_ALL & ~PHASE_STAGE, PHASE_ALL & ~PHASE_GEMM,
+    PHASE_ALL & ~PHASE_EPI, PHASE_ALL & ~PHASE_STORE};
+
+template <int NS, int I = 0>
+int launch_masked(int phases, const Params& p, int smem, cudaStream_t s) {
+  if constexpr (I < 5) {
+    if (phases == PROBE_MASKS[I])
+      return launch<NS, PROBE_MASKS[I]>(p, smem, s);
+    return launch_masked<NS, I + 1>(phases, p, smem, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// K5 probe launches at N slice 8, 56, 64, 80 with the phase mask
+// `phases`, each defined by its own probe unit (conv_sm90_probe*.cu), so
+// that their instances compile in parallel.
+int launch_probe_8(const Params& p, int smem, int phases, cudaStream_t s);
+int launch_probe_56(const Params& p, int smem, int phases, cudaStream_t s);
+int launch_probe_64(const Params& p, int smem, int phases, cudaStream_t s);
+int launch_probe_80(const Params& p, int smem, int phases, cudaStream_t s);
 
 }  // namespace sm90

@@ -124,6 +124,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bnt_gemm_probe_fill.argtypes = [ci] * 7
     lib.bnt_stage_build_probe.restype = ci
     lib.bnt_stage_build_probe.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+    lib.bnt_conv_sm90_probe.restype = ci
+    lib.bnt_conv_sm90_probe.argtypes = [vp] * 10 + [ci] * 10 + [vp]
     lib.bnt_stage_build_probe_smem.restype = ci
     lib.bnt_stage_build_probe_smem.argtypes = [ci] * 2
     return lib

@@ -1,5 +1,6 @@
 """Host side of the Hopper bf16 conv kernel (``ops/csrc/conv_sm90.cu``),
-which serves ``tile_conv.conv_tile`` and ``planar.fused_upconv_rsft``.
+which serves ``tile_conv.conv_tile``, ``tile_conv.resblock_sft_tile_v3``,
+``planar.fused_upconv_rsft`` and ``planar.fused_conv_rsft`` (bf16).
 
 What the kernel needs from Python is plain torch and lives here:
 
@@ -8,7 +9,9 @@ What the kernel needs from Python is plain torch and lives here:
   channels, counting 16 channels of overhead per slice (51 -> 56,
   61 -> 64, 73 -> 80, 204 -> 3 x 80, 244 -> 4 x 64, 3 -> 8); ``plan``
   takes the first width in that order whose launch fits the shared memory
-  (a 5 x 5 conv of 128 channels to 80 fits only at N 8);
+  (a 5 x 5 conv of 128 channels to 80 fits only at N 8); ``fit`` mirrors
+  the library's shared-memory plan (warpgroups, weight ring, bytes) for
+  the CPU tests, and chip_smoke.py holds the two equal;
 - the weight packing: ``pack_weight`` turns an OHWI weight into the
   kernel's B layout, one block per (N slice, tap), each k16 step of a
   block NS x 16 as 8 x 8 core matrices ([NS/8][2][8][8], no swizzle), the
@@ -22,8 +25,10 @@ What the kernel needs from Python is plain torch and lives here:
   pixel shift and its B from the packed blocks through ``b_offsets``, then
   the epilogue.
 
-``launch`` is one kernel launch; ``upconv_rsft`` the three launches of
-the stride-2 stage, with a launch or ``emulate`` as its conv.
+``launch`` is one kernel launch; ``rsft`` the two launches of a
+ResBlockSFT, ``upconv_rsft`` and ``conv_rsft`` the three (four with the
+head) of the stride-2 and stride-1 stages, each with a launch
+(``cuda_conv``) or ``emulate`` (``emulated_conv``) as its conv.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from . import _build, quant
 NS_CHOICES = (8, 56, 64, 80)       # the kernel's instances (conv_sm90.cu)
 TH, TW = 4, 64                     # output tile (rows, columns)
 ACT_CODES = {"none": 0, "sin": 1, "gelu": 2, "outimg": 3}
+MAX_SMEM = 232448                  # the card's opt-in shared memory a block
+MAX_CIN_PAD, MAX_WS = 128, 8
 
 def slice_widths(cout: int) -> list:
     """The N slice widths for ``cout`` channels, best first."""
@@ -96,10 +103,10 @@ def b_offsets(ns: int) -> torch.Tensor:
     return (n // 8) * 128 + (q // 8) * 64 + (n % 8) * 8 + q % 8
 
 
-def group_stride(k: int) -> int:
-    """Pixels between 8-channel groups of the operand tile: its pixel count
-    rounded to 1 modulo 8 (conv_sm90.cuh::group_stride)."""
-    return (TH + k - 1) * (TW + k - 1) // 8 * 8 + 9
+def group_stride(k: int, th: int = TH) -> int:
+    """Pixels between 8-channel groups of the operand tile of th rows: its
+    pixel count rounded to 1 modulo 8 (conv_sm90.cuh::group_stride)."""
+    return (th + k - 1) * (TW + k - 1) // 8 * 8 + 9
 
 
 def a_offsets(gs: int) -> torch.Tensor:
@@ -111,6 +118,36 @@ def a_offsets(gs: int) -> torch.Tensor:
     i = torch.arange(64)[:, None]
     q = torch.arange(16)[None, :]
     return (i // 8) * 64 + (q // 8) * gs * 8 + (i % 8) * 8 + q % 8
+
+
+def _smem_bytes(cp, k, raw, ns, nwg, ws) -> int:
+    """conv_sm90.cuh::layout's total bytes."""
+    th = 2 * nwg
+    pad = -(-(cp // 8 * group_stride(k, th) * 16) // 128) * 128
+    return (pad + (th + k - 1) * raw + ws * ns * cp * 2
+            + nwg * TW * (ns + 4) * 4 + 2 * (1 + ws) * 8)
+
+
+def fit(cin: int, cout: int, k: int, ns: int):
+    """The kernel's shared-memory plan of a launch (conv_sm90.cuh::fit,
+    which chip_smoke.py holds this to): (consumer warpgroups, weight ring
+    depth, resident, bytes), or None for a shape it does not take."""
+    cp = cin_pad(cin)
+    if (k not in (1, 3, 5) or cin < 1 or cout < 1 or cp > MAX_CIN_PAD
+            or ns not in NS_CHOICES):
+        return None
+    kblocks = -(-cout // ns) * k * k
+    raw = ((TW + k - 1) * cin * 2 + 30 + 15) // 16 * 16
+    for nwg in (2, 1):
+        ws = kblocks
+        while True:
+            total = _smem_bytes(cp, k, raw, ns, nwg, ws)
+            if total <= MAX_SMEM:
+                return nwg, ws, ws == kblocks, total
+            ws = min(kblocks - 1, MAX_WS) if ws == kblocks else ws - 1
+            if ws < 2:
+                break
+    return None
 
 
 def smem(lib, cin: int, cout: int, ks: int) -> int:
@@ -216,7 +253,8 @@ Conv = Callable[..., torch.Tensor]
 
 
 def cuda_conv(lib) -> Conv:
-    """A conv of ``upconv_rsft``'s form that launches the kernel."""
+    """A conv of the chains' form (x, w, b, output shape, launch options)
+    that launches the kernel."""
     def conv(x, w, b, shape, **kw):
         dtype = torch.bfloat16 if kw.get("out_inv") is None else torch.int8
         out = torch.empty(shape, dtype=dtype, device=x.device)
@@ -226,20 +264,43 @@ def cuda_conv(lib) -> Conv:
 
 
 def emulated_conv(x, w, b, shape, **kw) -> torch.Tensor:
-    """A conv of ``upconv_rsft``'s form computed by ``emulate``."""
+    """A conv of the chains' form computed by ``emulate``."""
     return emulate(x, pack_weight(w, slice_width(w.shape[0])), b,
                    cout=w.shape[0], k=w.shape[1], **kw)
 
 
+def rsft(conv: Conv, y, weights, sft, out_inv=None) -> torch.Tensor:
+    """ResBlockSFT of NHWC y as two convs: t = SFT1(gelu(conv0(SFT0(y)) +
+    b0)); y + conv1(t) + b1, stored bf16 or as int8 codes at ``out_inv``.
+    ``weights``: (w0, b0, w1, b1) OHWI, or a stage's weights with those
+    fields."""
+    w0, b0, w1, b1 = (weights if isinstance(weights, tuple) else
+                      (weights.w0, weights.b0, weights.w1, weights.b1))
+    t = conv(y, w0, b0, y.shape, act="gelu", in_affine=(sft[0], sft[1]),
+             out_affine=(sft[2], sft[3]))
+    return conv(t, w1, b1, y.shape, residual=y, out_inv=out_inv)
+
+
 def upconv_rsft(conv: Conv, x, weights, sft, out_inv=None) -> torch.Tensor:
     """The stride-2 stage as three convs: y = sin(PixelShuffle2(conv(x) +
-    b)); t = SFT1(gelu(conv0(SFT0(y)) + b0)); y + conv1(t) + b1, stored
-    bf16 or as int8 codes at ``out_inv``."""
+    b)), then ``rsft(y)``."""
     n, h, wd, _ = x.shape
     c = weights.w0.shape[0]
     y = conv(x, weights.conv_w, weights.conv_b, (n, 2 * h, 2 * wd, c),
              act="sin", shuffle=True)
-    t = conv(y, weights.w0, weights.b0, y.shape, act="gelu",
-             in_affine=(sft[0], sft[1]), out_affine=(sft[2], sft[3]))
-    return conv(t, weights.w1, weights.b1, y.shape, residual=y,
-                out_inv=out_inv)
+    return rsft(conv, y, weights, sft, out_inv)
+
+
+def conv_rsft(conv: Conv, x, weights, sft, head=False, out_inv=None
+              ) -> torch.Tensor:
+    """The stride-1 stage as three convs, four with the head: y =
+    sin(conv(x) + b), then ``rsft(y)``; with ``head`` the 3x3 conv to 3
+    channels with act outimg (tanh(v) * 0.5 + 0.5) on it (N slice 8)."""
+    c = weights.w0.shape[0]
+    y = conv(x, weights.conv_w, weights.conv_b, x.shape[:3] + (c,),
+             act="sin")
+    out = rsft(conv, y, weights, sft, out_inv)
+    if head:
+        out = conv(out, weights.head_w, weights.head_b, x.shape[:3] + (3,),
+                   act="outimg")
+    return out

@@ -26,11 +26,12 @@ The stage wrappers' tensors are NHWC on the fine grid: the TPU's
 subpixel-planar layout served Mosaic and is not part of their contract.
 Each wrapper runs its plain PyTorch version for a tensor on the CPU and its
 CUDA kernel (three or four launches of one fused 3x3 convolution:
-``ops/csrc/conv_sm90.cu`` for ``fused_upconv_rsft``, ``ops/csrc/stage_conv.cu``
-for the other bf16 wrapper, ``ops/csrc/stage_conv_i8.cu`` for W8A8) for a
-tensor on the card; on a CUDA tensor it launches or raises, it
-never falls back.  ``LAUNCHES`` (shared with ``tile_conv``, ``conv_chw``
-and ``fused_sft``) counts the wrapper calls that launched a CUDA kernel.
+``ops/csrc/conv_sm90.cu`` for both bf16 wrappers, the chains
+``conv_sm90.upconv_rsft`` / ``conv_rsft``; ``ops/csrc/stage_conv_i8.cu``
+for W8A8) for a tensor on the card; on a CUDA tensor it launches or
+raises, it never falls back.  ``LAUNCHES`` (shared with ``tile_conv``,
+``conv_chw`` and ``fused_sft``) counts the wrapper calls that launched a
+CUDA kernel.
 
 The standalone planar entry points of the same Pallas module keep the
 planar layout, because it is their own input and output contract:
@@ -380,12 +381,18 @@ def check_tensors(x, c_in, tensors, x_dtypes, smem_fn, convs):
         if t.dtype != dtype:
             raise ValueError(f"the CUDA kernel takes {name} as {dtype}, got "
                              f"{t.dtype}")
+    check_fit(smem_fn, convs)
+    return True
+
+
+def check_fit(smem_fn, convs) -> None:
+    """Raise ValueError unless every conv's (Cin, Cout, ...) fits the
+    shared memory of the kernel whose fit ``smem_fn(lib)`` gives."""
     smem = smem_fn(_build.load_library())
     for conv in convs:
         if smem(*conv) < 0:
             raise ValueError(f"a {conv[0]}->{conv[1]} conv does not fit the "
                              "kernel's shared-memory tile (Cin <= 128)")
-    return True
 
 
 def stage_smem(lib):
@@ -433,16 +440,16 @@ def run_conv(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
-def _check_rsft(x, w0, b0, w1, b1, sft):
+def _check_rsft(x, w0, b0, w1, b1, sft, smem_fn=stage_smem):
     """``check_tensors`` for a ResBlockSFT of NHWC x: w0/w1 OHWI
-    [C, 3, 3, C] and b0/b1 [C] bf16, sft [4, C] float32 on the card."""
+    [C, 3, 3, C] and b0/b1 [C] bf16, sft [4, C] float32 on the card;
+    its C -> C conv fitted by ``smem_fn``."""
     c = x.shape[-1]
     bf = torch.bfloat16
     tensors = [("w0", w0, (c, 3, 3, c), bf), ("b0", b0, (c,), bf),
                ("w1", w1, (c, 3, 3, c), bf), ("b1", b1, (c,), bf),
                ("sft", sft, (4, c), torch.float32)]
-    return check_tensors(x, c, tensors, (bf,),
-                         stage_smem, [(c, c, 3)])
+    return check_tensors(x, c, tensors, (bf,), smem_fn, [(c, c, 3)])
 
 
 def _stage_convs(c_in, c, up, head, *ks):
@@ -451,8 +458,9 @@ def _stage_convs(c_in, c, up, head, *ks):
         [(c, 3, *ks)] if head else [])
 
 
-def _check_bf16(x, w: StageWeights, sft, out_inv, c_in, c, head, up,
-                smem_fn=stage_smem):
+def _check_bf16(x, w: StageWeights, sft, out_inv, c_in, c, head, up):
+    """``_check_inputs`` for a bf16 stage, its convs fitted by the Hopper
+    kernel (``sm90_smem``)."""
     bf = torch.bfloat16
     tensors = [("weights.conv_w", w.conv_w, (4 * c if up else c, 3, 3, c_in),
                 bf), ("weights.conv_b", w.conv_b, (4 * c if up else c,), bf),
@@ -464,7 +472,7 @@ def _check_bf16(x, w: StageWeights, sft, out_inv, c_in, c, head, up,
         tensors += [("weights.head_w", w.head_w, (3, 3, 3, c), bf),
                     ("weights.head_b", w.head_b, (3,), bf)]
     return _check_inputs(x, sft, out_inv, c_in, c, head, tensors, (bf,),
-                         smem_fn, _stage_convs(c_in, c, up, head, 3))
+                         sm90_smem, _stage_convs(c_in, c, up, head, 3))
 
 
 def _check_i8(x, w: StageWeightsI8, sft, out_inv, c_in, c, head, up):
@@ -544,8 +552,7 @@ def fused_upconv_rsft(x: torch.Tensor, weights: StageWeights,
     codes at ``out_inv`` ([C] float32).  sft: [4, C] (scale0, shift0,
     scale1, shift1), float32 on the card."""
     c_in, c = _channels(weights.conv_w, up=True)
-    if not _check_bf16(x, weights, sft, out_inv, c_in, c, False, True,
-                       sm90_smem):
+    if not _check_bf16(x, weights, sft, out_inv, c_in, c, False, True):
         return fused_upconv_rsft_plain(x, weights, sft, out_inv)
     out = conv_sm90.upconv_rsft(conv_sm90.cuda_conv(_build.load_library()),
                                 x, weights, sft, out_inv)
@@ -562,15 +569,8 @@ def fused_conv_rsft(x: torch.Tensor, weights: StageWeights,
     if not _check_bf16(x, weights, sft, out_inv, c_in, c, head, False):
         return fused_conv_rsft_plain(x, weights, sft, head=head,
                                      out_inv=out_inv)
-    lib = _build.load_library()
-    y = torch.empty(x.shape[:3] + (c,), dtype=x.dtype, device=x.device)
-    launch_conv(lib, x, weights.conv_w, weights.conv_b, y, act="sin")
-    out = rsft_cuda(lib, y, weights.rsft, sft, out_inv)
-    if head:
-        rgb = torch.empty(x.shape[:3] + (3,), dtype=x.dtype, device=x.device)
-        launch_conv(lib, out, weights.head_w, weights.head_b, rgb,
-                    act="outimg")
-        out = rgb
+    out = conv_sm90.conv_rsft(conv_sm90.cuda_conv(_build.load_library()),
+                              x, weights, sft, head, out_inv)
     LAUNCHES["fused_conv_rsft"] += 1
     return out
 

@@ -1,8 +1,8 @@
-"""Measurement probes of the stage kernels: the port of the Pallas kernels of
-the repository's ``tools/`` (the TPU probes that split the stage kernels'
-time into phases, timed the dot ceiling and the K-buffer builds).  Four
-wrappers, each on its own CUDA unit of ``ops/csrc``, each beside its plain
-PyTorch version:
+"""Measurement probes of the port's conv kernels: the port of the Pallas
+kernels of the repository's ``tools/`` (the TPU probes that split the stage
+kernels' time into phases, timed the dot ceiling and the K-buffer builds),
+and the same phase knockouts of the Hopper kernel.  Five wrappers, each on
+its own CUDA units of ``ops/csrc``, each beside its plain PyTorch version:
 
 - ``stage_conv_probe`` (``stage_conv_probe.cu``): one 3x3 launch of the
   bf16 stage kernel with a probe's ``phases`` ("all", or one of "nostage",
@@ -18,6 +18,10 @@ PyTorch version:
   ceiling of their inner loop.
 - ``stage_build_probe`` (``stage_build_probe.cu``): the staging of the
   input tiles alone ("f32", "raw16", "i8", "i8_pack").
+- ``conv_sm90_probe`` (K5, ``conv_sm90_probe.cu`` and the per-N units
+  ``conv_sm90_probe_56.cu``, ``_64.cu``, ``_80.cu``): one 3x3 launch of
+  the Hopper kernel ``conv_sm90.cu`` with a probe's ``phases``, where
+  "nostage" knocks out the consumers' repack into the operand tile.
 
 What each knockout computes, so that it is checked and not only timed:
 no STAGE stages zeros and no GEMM multiplies by zero weights (both give
@@ -25,10 +29,13 @@ the epilogue of a zero sum); no EPI stores the raw sum (a bias-free conv,
 no activation, affine or residual); no STORE leaves ``out`` as it was
 (the wrappers fill a new output with ``SENTINEL`` when the store is off).
 "all", "direct" and "pack" / "async" compute the production launch's
-function (``planar.launch_conv`` / the int8 launch), bit for bit on the
-card.  ``conv_rsft_probe`` and ``conv_rsft_i8_probe`` chain the launches
-of a stride-1 stage (``planar.fused_conv_rsft`` / ``_i8``), with the same
-probe mode on every launch; with "all" they equal those wrappers.
+function (``planar.launch_conv``, the int8 launch, ``conv_sm90.launch``),
+bit for bit on the card.  ``conv_rsft_probe`` and ``conv_rsft_i8_probe``
+chain the launches of a stride-1 stage, with the same probe mode on every
+launch; with "all" they equal, bit for bit, the same chain on the
+production instances: ``conv_rsft_stage`` (the stage kernel, K1),
+``planar.fused_conv_rsft`` (the Hopper kernel, K5) and
+``planar.fused_conv_rsft_i8``.
 
 Each wrapper runs its plain version for a tensor on the CPU and launches
 its kernel for one on the card, or raises ValueError; it never falls back.
@@ -44,9 +51,10 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES, _build, quant
+from . import LAUNCHES, _build, conv_sm90, quant
 from .planar import (_ACT, ACTS, StageWeights, StageWeightsI8, _ptr, _stream,
-                     check_tensors, nchw, nhwc)
+                     check_tensors, launch_conv, nchw, nhwc, rsft_cuda,
+                     sm90_smem)
 
 STAGE, GEMM, EPI, STORE = 1, 2, 4, 8          # Phase (stage_common.cuh)
 ALL = STAGE | GEMM | EPI | STORE
@@ -147,33 +155,19 @@ def stage_conv_probe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     Cin], b [Cout] bf16, affines (scale, shift) float32 of Cin / Cout,
     residual output-shaped; returns ``out`` (or a new tensor)."""
     mask = _mask(phases, staging, STAGING)
-    if act not in ACTS:
-        raise ValueError(f"act must be one of {tuple(ACTS)}, got {act!r}")
-    if w.dim() != 4 or tuple(w.shape[1:3]) != (3, 3):
-        raise ValueError(f"w must be OHWI [Cout, 3, 3, Cin], got "
-                         f"{tuple(w.shape)}")
+    kw = {"act": act, "shuffle": shuffle, "in_affine": in_affine,
+          "out_affine": out_affine, "residual": residual, "out": out}
+    if not _check_conv_probe(x, w, b, kw,
+                             lambda lib: lib.bnt_stage_conv_smem):
+        return stage_conv_probe_plain(x, w, b, phases=phases,
+                                      staging=staging, **kw)
     cout, cin = w.shape[0], w.shape[3]
-    shape = _out_shape(x, cout, shuffle)
-    bf = torch.bfloat16
-    tensors = ([("w", w, (cout, 3, 3, cin), bf), ("b", b, (cout,), bf)]
-               + _vectors("in_affine", in_affine, cin)
-               + _vectors("out_affine", out_affine, cout))
-    for name, t in (("residual", residual), ("out", out)):
-        if t is not None:
-            tensors.append((name, t, shape, bf))
-    if not check_tensors(x, cin, tensors, (bf,),
-                         lambda lib: lib.bnt_stage_conv_smem,
-                         [(cin, cout, 3)]):
-        return stage_conv_probe_plain(
-            x, w, b, act=act, shuffle=shuffle, in_affine=in_affine,
-            out_affine=out_affine, residual=residual, phases=phases,
-            staging=staging, out=out)
     if not 33 <= cin <= 96:
         raise ValueError(f"the probe kernel takes 33..96 input channels, got "
                          f"{cin}")
     if staging == "direct" and in_affine is not None:
         raise ValueError("direct staging takes no input affine")
-    out = _out(x, shape, bf, mask, out)
+    out = _out(x, _out_shape(x, cout, shuffle), torch.bfloat16, mask, out)
     s_in, h_in = in_affine if in_affine is not None else (None, None)
     s_out, h_out = out_affine if out_affine is not None else (None, None)
     lib = _build.load_library()
@@ -186,16 +180,60 @@ def stage_conv_probe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     return out
 
 
+def _check_conv_probe(x, w, b, kw, smem_fn):
+    """``check_tensors`` for one 3x3 probe launch (``kw``: its act, shuffle,
+    affines, residual and out), fitted by ``smem_fn``."""
+    act, shuffle = kw["act"], kw["shuffle"]
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {tuple(ACTS)}, got {act!r}")
+    if w.dim() != 4 or tuple(w.shape[1:3]) != (3, 3):
+        raise ValueError(f"w must be OHWI [Cout, 3, 3, Cin], got "
+                         f"{tuple(w.shape)}")
+    cout, cin = w.shape[0], w.shape[3]
+    shape = _out_shape(x, cout, shuffle)
+    bf = torch.bfloat16
+    tensors = ([("w", w, (cout, 3, 3, cin), bf), ("b", b, (cout,), bf)]
+               + _vectors("in_affine", kw["in_affine"], cin)
+               + _vectors("out_affine", kw["out_affine"], cout))
+    for name in ("residual", "out"):
+        if kw[name] is not None:
+            tensors.append((name, kw[name], shape, bf))
+    return check_tensors(x, cin, tensors, (bf,), smem_fn, [(cin, cout, 3)])
+
+
+def conv_rsft_stage(x: torch.Tensor, weights: StageWeights,
+                    sft: torch.Tensor, head: bool = False) -> torch.Tensor:
+    """The stride-1 stage on the bf16 stage kernel's production instances
+    (``stage_conv.cu`` through ``planar.launch_conv`` and
+    ``planar.rsft_cuda``: the chain ``planar.fused_conv_rsft`` ran before
+    it moved onto ``conv_sm90.cu``), on the card: K1's exact reference and
+    the old chain of chip_smoke.py's same-call A/B.  It counts no launch:
+    no wrapper serves it."""
+    lib = _build.load_library()
+    c = weights.w0.shape[0]
+    y = torch.empty(x.shape[:3] + (c,), dtype=x.dtype, device=x.device)
+    launch_conv(lib, x, weights.conv_w, weights.conv_b, y, act="sin")
+    out = rsft_cuda(lib, y, weights.rsft, sft)
+    if head:
+        rgb = torch.empty(x.shape[:3] + (3,), dtype=x.dtype, device=x.device)
+        launch_conv(lib, out, weights.head_w, weights.head_b, rgb,
+                    act="outimg")
+        out = rgb
+    return out
+
+
 def conv_rsft_probe(x: torch.Tensor, weights: StageWeights, sft: torch.Tensor,
                     *, head: bool = False, phases: str = "all",
                     staging: str = "smem", bufs: Optional[Sequence] = None,
-                    plain: bool = False) -> torch.Tensor:
-    """A stride-1 stage (``planar.fused_conv_rsft``'s launches: conv + sin,
-    the ResBlockSFT pair, the optional outimg head), every launch with the
+                    plain: bool = False, sm90: bool = False) -> torch.Tensor:
+    """A stride-1 stage (conv + sin, the ResBlockSFT pair, the optional
+    outimg head: ``planar.fused_conv_rsft``'s launches), every launch with the
     same probe mode ("direct" only on the launches without an input
-    affine).  ``bufs``: the launches' outputs, reused; ``plain``: the plain
+    affine), on the stage kernel (K1) or with ``sm90`` on the Hopper kernel
+    (K5).  ``bufs``: the launches' outputs, reused; ``plain``: the plain
     versions on the card too."""
-    launch = stage_conv_probe_plain if plain else stage_conv_probe
+    launch = (stage_conv_probe_plain if plain else
+              conv_sm90_probe if sm90 else stage_conv_probe)
     bufs = list(bufs) if bufs is not None else [None] * 4
     mode = {"phases": phases, "staging": staging}
     in_mode = {"phases": phases,
@@ -209,6 +247,43 @@ def conv_rsft_probe(x: torch.Tensor, weights: StageWeights, sft: torch.Tensor,
     if head:
         out = launch(out, weights.head_w, weights.head_b, act="outimg",
                      out=bufs[3], **mode)
+    return out
+
+
+# --------------------------------------------------------------------- #
+# K5: the Hopper conv kernel
+# --------------------------------------------------------------------- #
+
+def conv_sm90_probe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+                    act: str = "none", shuffle: bool = False,
+                    in_affine: Optional[Tuple[torch.Tensor, ...]] = None,
+                    out_affine: Optional[Tuple[torch.Tensor, ...]] = None,
+                    residual: Optional[torch.Tensor] = None,
+                    phases: str = "all", staging: str = "smem",
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One 3x3 launch of the Hopper kernel (``conv_sm90.launch``'s
+    function, bf16 store) with a probe's phases; "nostage" knocks out the
+    repack (the operand tile is zeroed once and never restaged).
+    Arguments as ``stage_conv_probe``'s (Cin <= 128 on the card, staging
+    "smem" only); its plain version is ``stage_conv_probe_plain``."""
+    mask = _mask(phases, staging, {"smem": 0})
+    kw = {"act": act, "shuffle": shuffle, "in_affine": in_affine,
+          "out_affine": out_affine, "residual": residual, "out": out}
+    if not _check_conv_probe(x, w, b, kw, sm90_smem):
+        return stage_conv_probe_plain(x, w, b, phases=phases, **kw)
+    cout, cin = w.shape[0], w.shape[3]
+    out = _out(x, _out_shape(x, cout, shuffle), torch.bfloat16, mask, out)
+    s_in, h_in = in_affine if in_affine is not None else (None, None)
+    s_out, h_out = out_affine if out_affine is not None else (None, None)
+    lib = _build.load_library()
+    ns = conv_sm90.plan(lib, cin, cout, 3)[0]
+    err = lib.bnt_conv_sm90_probe(
+        _ptr(x), _ptr(conv_sm90.packed(w, ns)), _ptr(b), _ptr(s_in),
+        _ptr(h_in), _ptr(s_out), _ptr(h_out), _ptr(residual), None,
+        _ptr(out), *x.shape[:3], cin, cout, _ACT[act], int(shuffle), 3, ns,
+        mask, _stream(x))
+    _build.check(err, "conv_sm90_probe launch")
+    LAUNCHES["conv_sm90_probe"] += 1
     return out
 
 

@@ -23,12 +23,13 @@ Abramowitz-Stegun erf become the kernel's reduced SFU sine and ``erff``.
 
 Each wrapper runs its plain PyTorch version (``*_plain``) for a tensor on
 the CPU, and for a tensor on the card one launch per conv, two per
-ResBlockSFT (``planar.rsft_cuda``): ``conv_tile`` of the Hopper kernel
-``ops/csrc/conv_sm90.cu`` (``conv_sm90``), the others of the bf16 stage
-kernel ``ops/csrc/stage_conv.cu`` with KS = k taps.  On a CUDA tensor it
-launches or raises ValueError (for example for more than 128 input
-channels, which no shared-memory tile of either kernel takes); it never
-falls back.  ``LAUNCHES`` counts the wrapper calls that launched.
+ResBlockSFT: ``conv_tile`` and ``resblock_sft_tile_v3`` of the Hopper
+kernel ``ops/csrc/conv_sm90.cu`` (``conv_sm90.launch`` / ``conv_sm90.rsft``),
+``conv_tile_v3`` and ``resblock_sft_tile`` of the bf16 stage kernel
+``ops/csrc/stage_conv.cu`` with KS = k taps (``planar.rsft_cuda``).  On a
+CUDA tensor it launches or raises ValueError (for example for more than
+128 input channels, which no shared-memory tile of either kernel takes);
+it never falls back.  ``LAUNCHES`` counts the wrapper calls that launched.
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ from __future__ import annotations
 import torch
 
 from . import LAUNCHES, _build, conv_sm90
-from .planar import (_check_conv, conv_act_plain, rsft_nhwc_plain, run_conv,
-                     run_rsft, sm90_smem)
+from .planar import (_check_conv, _check_rsft, conv_act_plain,
+                     rsft_nhwc_plain, run_conv, run_rsft, sm90_smem)
 
 
 # --------------------------------------------------------------------- #
@@ -104,5 +105,11 @@ def resblock_sft_tile_v3(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
                          w1: torch.Tensor, b1: torch.Tensor, sft: torch.Tensor
                          ) -> torch.Tensor:
     """The same function as ``resblock_sft_tile`` (the v3 formulation's
-    port), counted under its own name."""
-    return run_rsft("resblock_sft_tile_v3", x, w0, b0, w1, b1, sft)
+    port), counted under its own name: two launches of ``conv_sm90.cu`` on
+    the card."""
+    if not _check_rsft(x, w0, b0, w1, b1, sft, sm90_smem):
+        return resblock_sft_tile_v3_plain(x, w0, b0, w1, b1, sft)
+    out = conv_sm90.rsft(conv_sm90.cuda_conv(_build.load_library()), x,
+                         (w0, b0, w1, b1), sft)
+    LAUNCHES["resblock_sft_tile_v3"] += 1
+    return out

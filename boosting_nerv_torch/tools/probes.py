@@ -1,5 +1,6 @@
-"""Probes of the stage kernels on the card: the port's counterpart of the
-Pallas measurement kernels in the repository's ``tools/``.
+"""Probes of the conv kernels on the card: the port's counterpart of the
+Pallas measurement kernels in the repository's ``tools/``, and the same
+phase knockouts of the Hopper kernel.
 
     PYTHONPATH=. python3 -m boosting_nerv_torch.tools.probes [SITE ...]
         [--device cpu] [--size tiny]
@@ -17,7 +18,11 @@ port's kernels (``VARIANTS``; the wrappers are ``ops/kernels/probes.py``):
   ASYNC staging;
 - K3 ``gemm_probe``: the kernels' fragment loop on resident operands (the
   tensor-core ceiling), per-tap against flat K, M / N / K / reps sweeps;
-- K4 ``stage_build_probe``: the staging of the input tiles alone.
+- K4 ``stage_build_probe``: the staging of the input tiles alone;
+- K5 ``conv_sm90_probe``: the Hopper kernel ``conv_sm90.cu`` with one
+  phase knocked out (the repack into the operand tile, the wgmma GEMM, the
+  epilogue, the store), at the stage chains and the conv_tile call that K1
+  probes, the counterpart of K1 on the kernel that now serves them.
 
 Mosaic's tactics (K-buffers, lane rolls, VMEM slots, compiler-crash
 bisects on a deviceless TPU) have no counterpart; where a TPU variant
@@ -75,10 +80,19 @@ FAMILIES = {  # family: (wrapper, source, the variant of its headline)
            "gemm.im2col.flat.r1"),
     "K4": ("stage_build_probe",
            "boosting_nerv_torch/ops/csrc/stage_build_probe.cu", "build.f32"),
+    "K5": ("conv_sm90_probe",
+           "boosting_nerv_torch/ops/csrc/conv_sm90_probe.cu", "s7.sm90.all"),
 }
 PROBE_SOURCES = tuple(os.path.basename(src) for _, src, _ in
-                      FAMILIES.values())
+                      FAMILIES.values()) + tuple(
+    f"conv_sm90_probe_{ns}.cu" for ns in (56, 64, 80))
 NO_GEMM = kp.PHASES["nogemm"]
+# K5 knocks out the repack, its kernel's STAGE phase
+LABELS = {"K5": {"nostage": "norepack"}}
+
+
+def _label(family, phases):
+    return LABELS.get(family, {}).get(phases, phases)
 
 
 class ProbeFailure(Exception):
@@ -218,7 +232,7 @@ def _k1_stage(name, head, phases):
             return kp.conv_rsft_probe(x, ws, sft, head=head, phases=phases,
                                       plain=True)
 
-        ref = ((lambda: planar.fused_conv_rsft(x, ws, sft, head=head))
+        ref = ((lambda: kp.conv_rsft_stage(x, ws, sft, head=head))
                if phases == "all" else None)
         return Call(run, _stage_ops(h, w, cin, c, head),
                     _nbytes(x, bufs[3] if head else bufs[2], sft,
@@ -248,7 +262,7 @@ def _k1_conv(name, phases, staging="smem"):
         def plain():
             return kp.stage_conv_probe_plain(x, wt, b, **mode)
 
-        ref = ((lambda: tile_conv.conv_tile(x, wt, b, k=3))
+        ref = ((lambda: _stage_conv(x, wt, b))
                if phases == "all" else None)
         lib = ((lambda: F.conv2d(planar.nchw(x), wt.permute(0, 3, 1, 2), b,
                                  padding=1))
@@ -257,6 +271,15 @@ def _k1_conv(name, phases, staging="smem"):
                     check=_checks(run, plain, ref, phases), plain=plain,
                     library=lib)
     return make
+
+
+def _stage_conv(x, wt, b):
+    """One launch of the stage kernel's production instance (K1's exact
+    reference for a conv + bias)."""
+    out = torch.empty(x.shape[:3] + (wt.shape[0],), dtype=x.dtype,
+                      device=x.device)
+    planar.launch_conv(_build.load_library(), x, wt, b, out)
+    return out
 
 
 def _k1_rsft(rung):
@@ -294,6 +317,60 @@ def _k1_rsft(rung):
         return Call(run, 2 * 9 * h * w * c * c * launches,
                     _nbytes(x, o_buf, w0, b0, w1, b1, sft),
                     check=_checks(run, plain, ref, "all"), plain=plain)
+    return make
+
+
+# --------------------------------------------------------------------- #
+# K5: the Hopper conv kernel
+# --------------------------------------------------------------------- #
+
+def _k5_stage(name, head, phases):
+    """K1's stage chain on conv_sm90.cu, the production wrapper
+    ``planar.fused_conv_rsft`` "all"'s exact reference."""
+    def make(ctx):
+        x, ws, sft = _stage_bf16(ctx, name, head)
+        _, h, w, cin = x.shape
+        c = ws.w0.shape[0]
+        store = phases != "nostore"
+        bufs = [_buf((1, h, w, c), BF16, store, x.device) for _ in range(3)]
+        bufs.append(_buf((1, h, w, 3), BF16, store, x.device) if head
+                    else None)
+        mode = {"head": head, "phases": phases, "sm90": True}
+
+        def run():
+            return kp.conv_rsft_probe(x, ws, sft, bufs=bufs, **mode)
+
+        def plain():
+            return kp.conv_rsft_probe(x, ws, sft, plain=True, **mode)
+
+        ref = ((lambda: planar.fused_conv_rsft(x, ws, sft, head=head))
+               if phases == "all" else None)
+        return Call(run, _stage_ops(h, w, cin, c, head),
+                    _nbytes(x, bufs[3] if head else bufs[2], sft,
+                            *vars(ws).values()),
+                    check=_checks(run, plain, ref, phases), plain=plain)
+    return make
+
+
+def _k5_conv(name, phases):
+    """A conv + bias on conv_sm90.cu (``tile_conv.conv_tile``'s launch,
+    "all"'s exact reference)."""
+    def make(ctx):
+        x, wt, b = _conv_inputs(ctx, name)
+        _, h, w, cin = x.shape
+        cout = wt.shape[0]
+        out = _buf((1, h, w, cout), BF16, phases != "nostore", x.device)
+
+        def run():
+            return kp.conv_sm90_probe(x, wt, b, phases=phases, out=out)
+
+        def plain():
+            return kp.stage_conv_probe_plain(x, wt, b, phases=phases)
+
+        ref = ((lambda: tile_conv.conv_tile(x, wt, b, k=3))
+               if phases == "all" else None)
+        return Call(run, 2 * 9 * h * w * cin * cout, _nbytes(x, out, wt, b),
+                    check=_checks(run, plain, ref, phases), plain=plain)
     return make
 
 
@@ -511,6 +588,20 @@ def _variants() -> Dict[str, Variant]:
     v["conv7.direct"] = Variant(
         "K1", "conv 51->51 + bias, 1080x1920, A fragments from device "
         "memory per tap (no s_in tile)", _k1_conv("s7", "all", "direct"))
+    for key, name, head, what in (
+            ("s7.sm90", "s7", True, "fused_conv_rsft + head on conv_sm90.cu, "
+             "4 launches, 1080x1920x51 (stage 7)"),
+            ("s5.sm90", "s5", False, "fused_conv_rsft on conv_sm90.cu, 3 "
+             "launches, 540x960x61 (stage 5)"),
+            ("s3.sm90", "s3", False, "fused_conv_rsft on conv_sm90.cu, 3 "
+             "launches, 270x480x73 (stage 3)")):
+        for ph in KNOCKOUTS:
+            v[f"{key}.{ph}"] = Variant("K5", f"{what}, {_label('K5', ph)}",
+                                       _k5_stage(name, head, ph))
+    for ph in KNOCKOUTS:
+        v[f"ct6.sm90.{ph}"] = Variant(
+            "K5", f"conv 61->204 + bias on conv_sm90.cu, 540x960 (v2 "
+            f"conv_tile stage 6), {_label('K5', ph)}", _k5_conv("ct6", ph))
     for rung, what in (("full", "conv0 (gelu, SFT, in-image test) + conv1"),
                        ("conv0only", "conv0 alone (second launch off)"),
                        ("nogelu", "conv0 with act none + conv1"),
@@ -657,9 +748,11 @@ PROBES: Dict[str, Site] = {
         "lib.matmul4096 is a library yardstick, not a port"),
     "tools/r3_prologue_probe.py:194": Site(
         "B+head@540: cur / sslot / nodots / noprolog",
-        ("s7.bf16.all", "s7.bf16.nogemm", "s7.bf16.nostage"),
-        "K1 on fused_conv_rsft + head (4 launches) at 1080x1920x51: "
-        + _STAGE7, _STAGE_BOUND,
+        ("s7.bf16.all", "s7.bf16.nogemm", "s7.bf16.nostage", "s7.sm90.all",
+         "s7.sm90.nogemm", "s7.sm90.nostage"),
+        "K1 on fused_conv_rsft + head (4 launches) at 1080x1920x51, on the "
+        "stage kernel; K5 the same on conv_sm90.cu: " + _STAGE7,
+        _STAGE_BOUND,
         "sslot computes exactly what cur computes (a VMEM slot tactic): "
         "both are s7.bf16.all"),
     "tools/rsft_planar_bisect.py:125": Site(
@@ -736,6 +829,10 @@ BREAKDOWNS = (
     ("stage 3, bf16 (K1)", "s3.bf16"),
     ("conv_tile stage 6, v2 (K1)", "ct6"),
     ("conv 51->51 (conv_tile stage 7, v2; K1)", "conv7"),
+    ("stage 7 + head, bf16 on conv_sm90.cu (K5)", "s7.sm90"),
+    ("stage 5, bf16 on conv_sm90.cu (K5)", "s5.sm90"),
+    ("stage 3, bf16 on conv_sm90.cu (K5)", "s3.sm90"),
+    ("conv_tile stage 6, v2, on conv_sm90.cu (K5)", "ct6.sm90"),
 )
 
 
@@ -865,9 +962,9 @@ def breakdown_lines(results: Dict[str, dict]) -> List[str]:
         for ph in KNOCKOUTS[1:]:
             r = results.get(f"{group}.{ph}")
             if r is not None and r["ms"] is not None:
-                parts.append(f"{ph} {r['ms']:.4f} ms "
-                             f"({100 * (base['ms'] - r['ms']) / base['ms']:.1f}"
-                             f"% of all)")
+                share = 100 * (base["ms"] - r["ms"]) / base["ms"]
+                parts.append(f"{_label(base['family'], ph)} {r['ms']:.4f} ms "
+                             f"({share:.1f}% of all)")
         lines.append(f"breakdown {label}: all {base['ms']:.4f} ms (bound "
                      f"{base['bound_ms']:.4f}); " + "; ".join(parts))
     return lines
@@ -886,6 +983,7 @@ _NAMES = (
      ("I8", "NTC")),
     ("K4", re.compile(r"stage_build_kernelILi(\d+)ELi(\d+)E"),
      ("MODE", "CK")),
+    ("K5", re.compile(r"conv_sm90_kernelILi(\d+)ELi(\d+)E"), ("NS", "P")),
 )
 
 
@@ -929,8 +1027,8 @@ def ptxas_instances(log_path: str) -> List[dict]:
 
 
 def sass_mma_counts(lib_path: str) -> Dict[str, int]:
-    """HMMA + IMMA instructions per kernel instance (mangled name) in the
-    library's SASS (``cuobjdump -sass``)."""
+    """Tensor-core instructions (HMMA, IMMA, and wgmma's HGMMA) per kernel
+    instance (mangled name) in the library's SASS (``cuobjdump -sass``)."""
     tool = next((c for c in (
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                      "cuobjdump"), shutil.which("cuobjdump"))
@@ -946,7 +1044,7 @@ def sass_mma_counts(lib_path: str) -> Dict[str, int]:
         if m:
             name = m.group(1)
             counts[name] = 0
-        elif name is not None and re.search(r"\b[HI]MMA\b", line):
+        elif name is not None and re.search(r"\b(?:[HI]|HG)MMA\b", line):
             counts[name] += 1
     return counts
 
@@ -954,7 +1052,7 @@ def sass_mma_counts(lib_path: str) -> Dict[str, int]:
 def mma_rule_failures(counts) -> List[str]:
     """The probe instances whose tensor-core instruction count breaks the
     rule: a no-GEMM instance has none (the knockout was not folded into
-    something else), every other K1-K3 instance some, K4 none."""
+    something else), every other K1-K3 and K5 instance some, K4 none."""
     bad = []
     for name, n in counts.items():
         d = describe(name)

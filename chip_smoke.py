@@ -29,16 +29,21 @@ Phases, one line of output each (or one line per shape):
    ragged shape each (width 50 and 9 rows; k = 1 for conv_tile_v3, k = 5
    for conv_tile, also at 128 -> 80 channels, which the Hopper kernel
    takes only at its narrowest N slice; wc_real 50 for the planar ones;
-   conv_tile and fused_upconv_rsft on the Hopper kernel conv_sm90.cu, the
-   others on the stage kernels): max abs error within
+   conv_tile, resblock_sft_tile_v3 and the bf16 fused_upconv_rsft and
+   fused_conv_rsft on the Hopper kernel conv_sm90.cu, the others on the
+   stage kernels): max abs error within
    2e-2 * max(|plain|, 1), int8 codes compared after dequantising with
    1/inv; prints the share of codes that differ; times both with CUDA
    events, and F.conv2d for conv_tile; then checks that a conv with more
    than 128 input channels, which the kernel does not take, raises
    ValueError on the card from the tile, v1 and planar wrappers; and
    times the stage kernel's chain (stage_conv.cu) beside conv_sm90.cu in
-   turns (old, new, new, old) at conv_tile's v2 stage-6 call and at
-   fused_upconv_rsft's bf16 stages 2, 4 and 6 (the same-call A/B);
+   turns (old, new, new, old) at conv_tile's v2 stage-6 call, at
+   fused_upconv_rsft's bf16 stages 2, 4 and 6, at fused_conv_rsft's
+   stages 3, 5 and 7 + head and at every resblock_sft_tile_v3 call of
+   the v3 decode (the same-call A/B), after checking conv_sm90.cu's
+   shared-memory plan of every conv shape it serves against its Python
+   mirror and printing the plan;
 5. the bf16 slice: serves 8 frame indices through ``build_serving_decode``;
    checks the frames (shape, finite, [0, 1], max abs error <= 1e-2 against
    the fp32 plain decode with TF32 off) and the launch counts; times the
@@ -78,7 +83,8 @@ Phases, one line of output each (or one line per shape):
    production wrapper, DIRECT, PACK and ASYNC, the staging modes against
    their plain staging, no STORE against its untouched output); then times
    every variant through the entry point and prints one line per TPU site
-   and the phase breakdown of each stage.
+   and the phase breakdown of each stage (K1 on the stage kernel, K5 on
+   conv_sm90.cu).
 
 The launch counts are set to 0 just before each slice's frames (the
 planar phase's stage-7 calls, the probe phase's timed run) and read just
@@ -118,7 +124,7 @@ STAGE_CU = "boosting_nerv_torch/ops/csrc/stage_conv.cu"
 SM90_CU = "boosting_nerv_torch/ops/csrc/conv_sm90.cu"
 KERNELS = {  # wrapper: (source, replaces)
     "fused_upconv_rsft": (SM90_CU, f"{PLANAR}:1308"),
-    "fused_conv_rsft": (STAGE_CU, f"{PLANAR}:1541"),
+    "fused_conv_rsft": (SM90_CU, f"{PLANAR}:1541"),
     "fused_upconv_rsft_i8": ("boosting_nerv_torch/ops/csrc/stage_conv_i8.cu",
                              f"{PLANAR}:1308 (W8A8 prep {PLANAR}:707)"),
     "fused_conv_rsft_i8": ("boosting_nerv_torch/ops/csrc/stage_conv_i8.cu",
@@ -126,7 +132,7 @@ KERNELS = {  # wrapper: (source, replaces)
     "conv_tile": (SM90_CU, f"{TILE}:144"),
     "conv_tile_v3": (STAGE_CU, f"{TILE}:473"),
     "resblock_sft_tile": (STAGE_CU, f"{TILE}:951"),
-    "resblock_sft_tile_v3": (STAGE_CU, f"{TILE}:788"),
+    "resblock_sft_tile_v3": (SM90_CU, f"{TILE}:788"),
     "conv3x3_act_chw": (STAGE_CU, f"{CHW}:88"),
     "head_conv_chw": (STAGE_CU, f"{CHW}:95"),
     "resblock_sft_chw": ("boosting_nerv_torch/ops/csrc/stage_conv_sin.cu",
@@ -548,14 +554,17 @@ def check_kernels(cases, device_line):
     return summary
 
 
-def run_ab(decode, v2, gen, device_line):
-    """The same-call old/new comparison of the two wrappers moved onto
-    conv_sm90.cu: the stage kernel's chain (stage_conv.cu, as the parent
-    tree served them) against the wrapper, timed in turns old, new, new,
-    old, at conv_tile's v2 stage-6 call (61 -> 204) and at the bf16 v5
-    stages 2, 4 and 6 of fused_upconv_rsft.  Measurement only: no decode
-    path chooses by it, and the old chain counts no launch."""
-    from boosting_nerv_torch.ops.kernels import _build, planar, tile_conv
+def run_ab(decode, v2, v3, gen, device_line):
+    """The same-call old/new comparison of the wrappers moved onto
+    conv_sm90.cu: the stage kernel's chain (stage_conv.cu, as they were
+    served before) against the wrapper, timed in turns old, new, new, old,
+    at conv_tile's v2 stage-6 call (61 -> 204), at the bf16 v5 stages 2, 4
+    and 6 of fused_upconv_rsft and 3, 5 and 7 + head of fused_conv_rsft,
+    and at every resblock_sft_tile_v3 call of the v3 decode (45x80 to
+    1080x1920).  Measurement only: no decode path chooses by it, and the
+    old chain counts no launch."""
+    from boosting_nerv_torch.ops.kernels import (_build, planar, probes,
+                                                 tile_conv)
 
     lib = _build.load_library()
     st6 = next(st for st in v2.fine.stages if st.index == 6)
@@ -585,12 +594,66 @@ def run_ab(decode, v2, gen, device_line):
                       tuple(xs.shape), old,
                       lambda xs=xs, sft=sft, sw=sw:
                       planar.fused_upconv_rsft(xs, sw, sft)))
+    for st in decode.tail:
+        if st.kernel != "fused_conv_rsft":
+            continue
+        xs, sft, sw = rnd(gen, *st.in_shape), st.sft(t_embed), st.weights
+        label = f"fused_conv_rsft stage {st.index}" + (
+            " + head" if st.head else "")
+        cases.append((label, tuple(xs.shape),
+                      lambda xs=xs, sft=sft, sw=sw, hd=st.head:
+                      probes.conv_rsft_stage(xs, sw, sft, head=hd),
+                      lambda xs=xs, sft=sft, sw=sw, hd=st.head:
+                      planar.fused_conv_rsft(xs, sw, sft, head=hd)))
+    t3 = v3.time_embed(torch.tensor([0.5], device="cuda"))
+    for st in v3.fine.stages:
+        h, w = st.out_hw
+        xs, sft = rnd(gen, 1, h, w, st.rsft[0].shape[0]), st.sft(t3)
+        cases.append((f"resblock_sft_tile_v3 v3 stage {st.index}",
+                      tuple(xs.shape),
+                      lambda xs=xs, sft=sft, rw=st.rsft:
+                      planar.rsft_cuda(lib, xs, rw, sft),
+                      lambda xs=xs, sft=sft, rw=st.rsft:
+                      tile_conv.resblock_sft_tile_v3(xs, *rw, sft)))
     for label, shape, old, new in cases:
         o1, n1 = cuda_ms(old), cuda_ms(new)
         n2, o2 = cuda_ms(new), cuda_ms(old)
         print(f"a/b {label} in {shape}: stage_conv.cu {(o1 + o2) / 2:.4f} "
               f"ms ({o1:.4f}, {o2:.4f}), conv_sm90.cu {(n1 + n2) / 2:.4f} "
               f"ms ({n1:.4f}, {n2:.4f}) [{device_line}]", flush=True)
+
+
+def check_plans(decode, v2, v3, device_line):
+    """Every conv shape that conv_sm90.cu serves in the decodes: the
+    library's shared-memory fit equals its mirror ``conv_sm90.fit`` (which
+    the CPU tests use), and the plan each launch gets is printed."""
+    from boosting_nerv_torch.ops.kernels import _build, conv_sm90
+
+    shapes = set()
+    for st in decode.tail:
+        w = st.weights
+        shapes |= {tuple(w.conv_w.shape[i] for i in (3, 0, 1)),
+                   (w.w0.shape[0], w.w0.shape[0], 3)}
+        if st.head:
+            shapes.add((w.w0.shape[0], 3, 3))
+    for st in v2.fine.stages:
+        if st.upconv is None:
+            shapes.add(tuple(st.conv_w.shape[i] for i in (3, 0, 1)))
+    shapes.add(tuple(v2.fine.head_w.shape[i] for i in (3, 0, 1)))
+    shapes |= {(st.rsft[0].shape[0], st.rsft[0].shape[0], 3)
+               for st in v3.fine.stages}
+    lib = _build.load_library()
+    for cin, cout, k in sorted(shapes):
+        ns, smem = conv_sm90.plan(lib, cin, cout, k)
+        mirror = conv_sm90.fit(cin, cout, k, ns)
+        if mirror is None or mirror[-1] != smem:
+            raise SmokeFailure(f"conv_sm90 plan of {cin}->{cout} k{k} N "
+                               f"{ns}: library {smem} bytes, mirror "
+                               f"{mirror}")
+        print(f"plan conv_sm90 {cin}->{cout} k{k}: N {ns} x "
+              f"{-(-cout // ns)}, {mirror[0]} warpgroup(s), "
+              f"{'resident' if mirror[2] else f'ring {mirror[1]}'}, "
+              f"{smem} bytes [{device_line}]", flush=True)
 
 
 def check_refusal(gen, device_line):
@@ -973,7 +1036,8 @@ def main() -> int:
                             + tile_cases(v3, v2, gen) + chw_cases(v1, gen),
                             device_line)
     check_refusal(gen, device_line)
-    run_ab(decode, v2, gen, device_line)
+    check_plans(decode, v2, v3, device_line)
+    run_ab(decode, v2, v3, gen, device_line)
     runs = [check_frames("bf16", decode, refs, embed, ts)]
     print_turns("bf16", ("plain stages", plain_decode), ("kernels", decode),
                 embed, ts, device_line)

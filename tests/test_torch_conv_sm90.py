@@ -3,10 +3,12 @@ the CPU: its N-slice plan, its weight packing and operand layouts, and
 ``emulate`` (the kernel's staging, descriptor addressing and epilogue in
 plain torch, consuming the packed weights and the padded operand tile)
 against the Pallas kernels it replaces in interpret mode:
-``tile_conv.py:144`` conv_tile at k = 1, 3 and 5 and ``planar.py:1308``
-fused_upconv_rsft with and without ``out_inv``.  The CUDA kernel runs only
-on the card: chip_smoke.py holds it against the wrappers' plain versions
-there.
+``tile_conv.py:144`` conv_tile at k = 1, 3 and 5, ``planar.py:1308``
+fused_upconv_rsft with and without ``out_inv``, ``planar.py:1541``
+fused_conv_rsft without and with the head and with ``out_inv`` (planar in
+and out), and ``tile_conv.py:788`` resblock_sft_tile_v3 (mode "dy3").
+The CUDA kernel runs only on the card: chip_smoke.py holds it against the
+wrappers' plain versions there.
 
 Tolerance: 2e-2 * max(|Pallas|, 1), both sides storing bf16; int8 codes
 are compared after dequantising with 1 / out_inv (the Pallas stage keeps y
@@ -106,6 +108,78 @@ def _upconv_case(r, out_inv, h, w):
     return got.float().numpy(), want, inv
 
 
+def _conv_rsft_case(r, mode, h, w):
+    """``conv_rsft`` on ``emulated_conv`` against the Pallas stride-1 stage
+    on the planar form of an h x w fine frame (h, w even)."""
+    c, hc, wc = 5, h // 2, w // 2
+    p = {"ck": _rand(r, 3, 3, c, c, s=0.2), "cb": _rand(r, c, s=0.1),
+         "w0": _rand(r, 3, 3, c, c, s=0.2), "b0": _rand(r, c, s=0.1),
+         "w1": _rand(r, 3, 3, c, c, s=0.2), "b1": _rand(r, c, s=0.1)}
+    hk, hb = _rand(r, 3, 3, c, 3, s=0.2), _rand(r, 3, s=0.1)
+    sft = [r.normal(size=c).astype(np.float32) * 0.3 for _ in range(4)]
+    x = _rand(r, 1, h, w, c)
+    head = mode == "head"
+    inv = jinv = None
+    if mode == "out_inv":
+        s0, h0, s1, h1 = sft
+        y = np.sin(_conv_ref(x, p["ck"], p["cb"]))
+        t = _gelu(_conv_ref(y * (s0 + 1) + h0, p["w0"], p["b0"]))
+        out = y + _conv_ref(t * (s1 + 1) + h1, p["w1"], p["b1"])
+        bound = np.abs(out).max(axis=(0, 1, 2)) * 1.05
+        inv = quant.out_quant_vec(torch.from_numpy(bound))
+        jinv = pk.out_quant_vec(jnp.asarray(bound), 16)
+    prep = pk.prepare_conv_rsft(
+        *(jnp.asarray(p[k]) for k in ("ck", "cb", "w0", "b0", "w1", "b1")),
+        c=c, head_k=jnp.asarray(hk) if head else None,
+        head_b=jnp.asarray(hb) if head else None)
+    xp = pk.to_planar(jnp.asarray(x[0].transpose(2, 0, 1)).astype(
+        jnp.bfloat16))
+    xp = jnp.pad(xp, ((0, 0), (0, 0), (0, WD - wc)))
+    res = pk.fused_conv_rsft(
+        xp, prep, pk.sft_planar_vectors(*map(jnp.asarray, sft), 16), c=c,
+        wc_real=wc, head=head, th=4, out_inv=jinv, interpret=True)
+    if head:
+        want = pk.rgb_planar_to_nhwc(res, hc, wc)
+    else:
+        want = pk.from_planar(res, c)[:, :, :w].transpose(1, 2, 0)[None]
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    weights = planar.StageWeights(*(
+        t.to(torch.bfloat16).contiguous() for t in (
+            _ohwi(p["ck"]), torch.from_numpy(p["cb"]), _ohwi(p["w0"]),
+            torch.from_numpy(p["b0"]), _ohwi(p["w1"]),
+            torch.from_numpy(p["b1"]))), *((
+                _ohwi(hk).to(torch.bfloat16),
+                torch.from_numpy(hb).to(torch.bfloat16)) if head else ()))
+    got = conv_sm90.conv_rsft(
+        conv_sm90.emulated_conv, torch.from_numpy(x).to(torch.bfloat16),
+        weights, torch.from_numpy(np.stack(sft)), head, inv)
+    return got.float().numpy(), want, inv
+
+
+def _rsft_case(r, _, h, w):
+    """``rsft`` on ``emulated_conv`` against the Pallas v3 ResBlockSFT."""
+    c = 6
+    x = _rand(r, 1, h, w, c)
+    w0, w1 = _rand(r, 3, 3, c, c, s=0.2), _rand(r, 3, 3, c, c, s=0.2)
+    b0, b1 = _rand(r, c, s=0.1), _rand(r, c, s=0.1)
+    sft = [r.normal(size=c).astype(np.float32) * 0.3 for _ in range(4)]
+    want = tk.resblock_sft_tile_v3(_chw(x), w0, b0, w1, b1, *sft, w_real=w,
+                                   mode="dy3", interpret=True)
+    want = np.asarray(want[:, :, :w].astype(jnp.float32)).transpose(
+        1, 2, 0)[None]
+    bf = torch.bfloat16
+    got = conv_sm90.rsft(
+        conv_sm90.emulated_conv, torch.from_numpy(x).to(bf),
+        (_ohwi(w0).to(bf), torch.from_numpy(b0).to(bf), _ohwi(w1).to(bf),
+         torch.from_numpy(b1).to(bf)), torch.from_numpy(np.stack(sft)))
+    return got.float().numpy(), want, None
+
+
+CASES = {"conv_tile": _conv_tile_case, "fused_upconv_rsft": _upconv_case,
+         "fused_conv_rsft": _conv_rsft_case,
+         "resblock_sft_tile_v3": _rsft_case}
+
+
 def _conv_ref(x, k, b):
     """Same-padded 3x3 conv of NHWC float32 numpy x with an HWIO kernel."""
     t = torch.nn.functional.conv2d(
@@ -122,14 +196,17 @@ def _gelu(v):
 @pytest.mark.parametrize("case", [
     ("conv_tile", 1, 9, 70), ("conv_tile", 3, 16, 70),
     ("conv_tile", 5, 9, 50), ("fused_upconv_rsft", False, 9, 50),
-    ("fused_upconv_rsft", True, 9, 50)],
+    ("fused_upconv_rsft", True, 9, 50), ("fused_conv_rsft", "nohead", 10, 50),
+    ("fused_conv_rsft", "head", 10, 50),
+    ("fused_conv_rsft", "out_inv", 10, 50),
+    ("resblock_sft_tile_v3", None, 9, 50)],
     ids=["conv_tile_k1", "conv_tile_k3", "conv_tile_k5", "upconv",
-         "upconv_out_inv"])
+         "upconv_out_inv", "conv_rsft", "conv_rsft_head",
+         "conv_rsft_out_inv", "rsft_v3"])
 def test_emulation_matches_pallas(case):
     name, arg, h, w = case
     r = np.random.default_rng(sum(map(ord, str(case))))
-    fn = _conv_tile_case if name == "conv_tile" else _upconv_case
-    got, want, inv = fn(r, arg, h, w)
+    got, want, inv = CASES[name](r, arg, h, w)
     assert got.shape == want.shape
     if inv is not None:
         scale = (1 / inv).numpy()
@@ -183,6 +260,53 @@ def test_packed_weight_reads_back_through_the_descriptor(cout, k, cin):
                 assert torch.equal(wpk[blk + offs],
                                    full[s * ns:(s + 1) * ns, tap,
                                         kk * 16:(kk + 1) * 16])
+
+
+def test_check_rsft_on_the_hopper_kernel_refuses_wide_cin(monkeypatch):
+    """``_check_rsft`` fitted by ``sm90_smem``: a meta tensor is refused
+    (no card), and on the card a ResBlockSFT of more than 128 channels
+    fails the Hopper kernel's fit (the library's fit here is its mirror,
+    ``conv_sm90.fit``, which chip_smoke.py holds to the library)."""
+    c = 200
+    x = torch.zeros(1, 4, 9, c)
+    w, b = torch.zeros(c, 3, 3, c), torch.zeros(c)
+    with pytest.raises(ValueError, match="device"):
+        planar._check_rsft(x.to("meta"), w, b, w, b, torch.zeros(4, c),
+                           planar.sm90_smem)
+
+    class Lib:  # the library's fit, as conv_sm90.fit computes it
+        @staticmethod
+        def bnt_conv_sm90_smem(cin, cout, ks, ns):
+            plan = conv_sm90.fit(cin, cout, ks, ns)
+            return -1 if plan is None else plan[-1]
+
+    conv_sm90.plan.cache_clear()
+    monkeypatch.setattr(planar._build, "load_library", lambda: Lib)
+    with pytest.raises(ValueError, match="Cin <= 128"):
+        planar.check_fit(planar.sm90_smem, [(c, c, 3)])
+    planar.check_fit(planar.sm90_smem, [(128, 128, 3), (51, 51, 3)])
+    conv_sm90.plan.cache_clear()
+
+
+def test_shared_memory_plan_at_the_bench_shapes():
+    """Two warpgroups on a 4 x 64 tile with every weight block resident
+    where that fits (the 51- and 61-channel convs, the 3-channel head),
+    else with a weight ring (73 channels, the upconvs), else one
+    warpgroup; every plan within the card's shared memory; nothing beyond
+    128 input channels."""
+    def plan(cin, cout, k=3):
+        return conv_sm90.fit(cin, cout, k, conv_sm90.slice_width(cout))
+    assert all(plan(*s)[:3] == (2, 9, True)
+               for s in ((51, 51), (61, 61), (51, 3)))
+    assert all(plan(*s)[0] == 2 and not plan(*s)[2]
+               for s in ((73, 73), (61, 204), (73, 244), (88, 292)))
+    assert plan(106, 792)[0] == 1
+    assert conv_sm90.fit(128, 80, 5, 80) is None
+    assert conv_sm90.fit(128, 80, 5, 8)[0] == 1
+    assert all(conv_sm90.fit(c, c, 3, ns) is None
+               for c in (129, 200) for ns in conv_sm90.NS_CHOICES)
+    for cin, cout, k in ((6, 7, 5), (51, 459, 1), (106, 106, 3)):
+        assert plan(cin, cout, k)[-1] <= conv_sm90.MAX_SMEM
 
 
 def test_operand_tile_layout_is_bank_conflict_free():

@@ -430,7 +430,7 @@ def test_registry_covers_four_families_and_every_variant_is_used():
     breakdown = {f"{g}.{ph}" for g in groups for ph in tp.KNOCKOUTS}
     assert set(tp.VARIANTS) == used | breakdown
     assert {v.family for v in tp.VARIANTS.values()} == {
-        "K1", "K2", "K3", "K4", "library"}
+        "K1", "K2", "K3", "K4", "K5", "library"}
 
 
 def test_entry_point_plumbing_on_cpu():
@@ -500,6 +500,50 @@ def test_instance_report_parsers(tmp_path):
         "spill loads\nptxas info    : Used 232 registers, 380 bytes cmem[0]\n")
     assert tp.ptxas_instances(str(log)) == [
         {"source": src, "name": k1, "registers": 232, "spills": 12}]
+
+
+def test_k5_instances_are_told_by_their_unit_and_need_hgmma():
+    """K5's instances carry their probe unit's name; the no-GEMM mask
+    (P 13) must have no HGMMA, the others some; the production unit's
+    instances are not probes."""
+    def k5(unit, ns, mask):
+        return _mangled(unit, ("conv_sm90_kernel",
+                               f"ILi{ns}ELi{mask}EEEvN4sm906ParamsE"))
+    nogemm, all_ = k5("conv_sm90_probe_56.cu", 56, 13), k5(
+        "conv_sm90_probe_80.cu", 80, 15)
+    head = k5("conv_sm90_probe.cu", 8, 11)
+    prod = k5("conv_sm90.cu", 64, 15)
+    assert tp.describe(nogemm) == ("K5", {"NS": 56, "P": 13})
+    assert {tp.source_of(k) for k in (nogemm, all_, head)} <= set(
+        tp.PROBE_SOURCES)
+    assert tp.source_of(prod) not in tp.PROBE_SOURCES
+    ok = {nogemm: 0, all_: 90, head: 9, prod: 0}
+    assert tp.mma_rule_failures(ok) == []
+    assert len(tp.mma_rule_failures({nogemm: 18, all_: 0, head: 9})) == 2
+
+
+@pytest.mark.parametrize("head", [False, True])
+def test_k5_chain_all_is_the_production_plain(head):
+    """On the CPU the K5 chain runs the plain launches: with every phase
+    it is the production wrapper's plain version, bit for bit; its
+    knockouts compute what K1's do."""
+    c = 6
+    g = torch.Generator().manual_seed(5)
+    r = lambda *s: ((torch.rand(*s, generator=g) - 0.5) * 0.6).to(  # noqa
+        torch.bfloat16)
+    w = planar.StageWeights(r(c, 3, 3, c), r(c), r(c, 3, 3, c), r(c),
+                            r(c, 3, 3, c), r(c),
+                            r(3, 3, 3, c) if head else None,
+                            r(3) if head else None)
+    x, sft = r(1, 9, 13, c), (torch.rand(4, c, generator=g) - 0.5) * 0.6
+    assert torch.equal(kp.conv_rsft_probe(x, w, sft, head=head, sm90=True),
+                       planar.fused_conv_rsft(x, w, sft, head=head))
+    for ph in ("nostage", "nogemm", "noepi", "nostore"):
+        assert torch.equal(
+            kp.conv_rsft_probe(x, w, sft, head=head, phases=ph, sm90=True),
+            kp.conv_rsft_probe(x, w, sft, head=head, phases=ph)), ph
+    with pytest.raises(ValueError):
+        kp.conv_sm90_probe(x, w.w0, w.b0, staging="direct")
 
 
 def test_bound_takes_the_larger_of_bytes_and_operations():
