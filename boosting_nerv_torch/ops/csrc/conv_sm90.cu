@@ -19,7 +19,8 @@
 // optional int8-code store; three launches) and planar.py:1541
 // fused_conv_rsft in bf16 (the stride-1 stage: conv and sin, the pair,
 // the optional 51 -> 3 head with outimg; three or four launches),
-// ops/kernels/planar.py through ops/kernels/conv_sm90.py.  Every other
+// ops/kernels/planar.py through ops/kernels/conv_sm90.py.  Its int8 form
+// (conv_sm90_i8.cu) serves the W8A8 forms of the last two; every other
 // wrapper stays on stage_conv.cu.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): conv_tile's

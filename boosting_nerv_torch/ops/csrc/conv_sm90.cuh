@@ -1,6 +1,17 @@
-// The Hopper bf16 conv kernel, conv_sm90_kernel<NS> (see conv_sm90.cu for
-// what it computes, what bounds it and its C entry points): a persistent,
-// warp-specialised implicit GEMM over 4 x 64-pixel output tiles.
+// The Hopper conv kernel, conv_sm90_kernel<NS, P, F, R> (see conv_sm90.cu
+// for what it computes, what bounds it and its C entry points, and
+// conv_sm90_i8.cu for its int8 form): a persistent, warp-specialised
+// implicit GEMM over 4 x 64-pixel output tiles.
+//
+// F is the operand form (Form): bf16 operands (FORM_BF16, fp32 sums), or
+// int8 operands (wgmma s8, int32 sums dequantised per output channel in
+// the epilogue) repacked from int8 codes (FORM_S8) or from a bf16 input
+// quantised in the repack (FORM_S8Q).  Both forms' operand tiles and
+// weight blocks are 16-byte core matrices: a k16 step of bf16 spans the
+// bytes of a k32 step of s8, so the layouts and the descriptors' leading
+// and stride byte offsets are the same; only the channels per 16-byte
+// group (8 or 16) differ.  R is the output rows per consumer warpgroup
+// (2, or 3 at N 64 in the int8 form: ROWS_S8_64).
 //
 // Block: NWG (1 or 2) consumer warpgroups, then one producer warp.
 //   producer (lane 0): per tile, one bulk copy (TMA, cp.async.bulk) per
@@ -12,18 +23,20 @@
 //     when every block of the launch fits (resident), else streamed per
 //     tile.
 //   consumers: repack the raw rows into the operand tile s_pad (prologue
-//     affine on in-image taps, zero padding, zero channels beyond Cin),
-//     laid out [channel group of 8][pixel][8]; then for every N slice of
-//     NS channels and every tap, wgmma m64nNSk16 with both operands in
-//     shared memory through no-swizzle K-major descriptors (fp32
-//     accumulators): A is the 64 pixels of one output row shifted by the
-//     tap, B the weight block; the epilogue stores each slice.
+//     affine on in-image taps, zero padding, zero channels beyond Cin;
+//     in FORM_S8Q then the quantisation), laid out [16-byte channel
+//     group][pixel][16 bytes]; then for every N slice of NS channels and
+//     every tap, wgmma m64nNSk16 (bf16) or m64nNSk32 (s8) with both
+//     operands in shared memory through no-swizzle K-major descriptors
+//     (fp32 or s32 accumulators): A is the 64 pixels of one output row
+//     shifted by the tap, B the weight block; the epilogue stores each
+//     slice.
 // In s_pad's layout the 8 pixels of an 8 x 16-byte core matrix are
 // consecutive pixels of a tile row, so a tap's shift (dy, dx) is only a
 // start address (dy * PW + dx pixels): the descriptor takes any 16-byte
 // start, and a shifted A needs no copy and no register staging.
-// Warpgroup g owns tile rows 2g and 2g + 1 (one m64 tile each; warp w of
-// the group holds columns 16w..16w+15 of the accumulators).
+// Warpgroup g owns tile rows R g .. R g + R - 1 (one m64 tile each; warp w
+// of the group holds columns 16w..16w+15 of the accumulators).
 //
 // The kernel's template parameter P is the phase mask of stage_common.cuh:
 // PHASE_ALL in production (conv_sm90.cu), a knockout in the probe units
@@ -34,15 +47,29 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "stage_common.cuh"
 
 namespace sm90 {
 
 constexpr int TW = 64;                // output columns per tile: one m64
 constexpr int ROWS_PER_WG = 2;        // output rows per consumer warpgroup
+constexpr int ROWS_S8_64 = 3;         // the int8 form's at N 64 (rows_of)
 constexpr int MAX_CIN_PAD = 128;
 constexpr int MAX_WS = 8;             // weight ring depth when streamed
 constexpr int PRODUCER = 32;          // producer threads (one warp)
+
+// The operand form of a launch (the kernel's template parameter F).
+enum Form { FORM_BF16 = 0, FORM_S8 = 1, FORM_S8Q = 2 };
+
+// Bytes of one operand element and of one input element of form f.
+__host__ __device__ constexpr int op_bytes(int f) {
+  return f == FORM_BF16 ? 2 : 1;
+}
+__host__ __device__ constexpr int in_bytes(int f) {
+  return f == FORM_S8 ? 1 : 2;
+}
 
 struct Params {
   const __nv_bfloat16* x;          // [N, H, W, Cin]
@@ -62,32 +89,50 @@ struct Params {
   int tiles_w, tiles_h;
 };
 
+// An int8-form launch: Params with x int8 codes (FORM_S8) or bf16
+// (FORM_S8Q), wpk int8 codes [slice][tap][k32 step][NS/8][2][8][16] and
+// bias unused, and
+struct ParamsS8 : Params {
+  const float* dq_scale;           // [Cout] dequant scale of the sums
+  const float* dq_bias;            // [Cout] float32 bias
+  const float* in_inv;             // [Cin] quantisation multiplier (S8Q)
+};
+
+template <int F>
+using ParamsOf = std::conditional_t<F == FORM_BF16, Params, ParamsS8>;
+
 // Shared-memory carve-up of one launch (offsets in bytes).
 struct Layout {
   int pad, raw, wgt, stage, bars, total;
 };
 
-__host__ __device__ inline int tile_h(int nwg) { return ROWS_PER_WG * nwg; }
-
-__host__ __device__ inline int wblock_bytes(int ns, int cin_pad) {
-  return ns * cin_pad * 2;
+__host__ __device__ inline int tile_h(int nwg, int rows = ROWS_PER_WG) {
+  return rows * nwg;
 }
 
-// Pixels from one 8-channel group of s_pad to the next: the tile's pixel
-// count rounded to 1 modulo 8, so that the eight groups a warp's repack
-// stores touch lie in distinct banks.
-__host__ __device__ inline int group_stride(int ks, int nwg) {
-  return (tile_h(nwg) + ks - 1) * (TW + ks - 1) / 8 * 8 + 9;
+// e: the bytes of one operand element (op_bytes).
+__host__ __device__ inline int wblock_bytes(int ns, int cin_pad, int e = 2) {
+  return ns * cin_pad * e;
+}
+
+// Pixels from one 16-byte channel group of s_pad to the next: the tile's
+// pixel count rounded to 1 modulo 8, so that the eight groups a warp's
+// repack stores touch lie in distinct banks.
+__host__ __device__ inline int group_stride(int ks, int nwg,
+                                            int rows = ROWS_PER_WG) {
+  return (tile_h(nwg, rows) + ks - 1) * (TW + ks - 1) / 8 * 8 + 9;
 }
 
 __host__ __device__ inline Layout layout(int ks, int cin_pad, int raw_pitch,
-                                         int nwg, int ws, int ns) {
-  const int ph = tile_h(nwg) + ks - 1;
+                                         int nwg, int ws, int ns,
+                                         int rows = ROWS_PER_WG, int e = 2) {
+  const int ph = tile_h(nwg, rows) + ks - 1;
   Layout l;
   l.pad = 0;
-  l.raw = (cin_pad / 8 * group_stride(ks, nwg) * 16 + 127) / 128 * 128;
+  l.raw = (cin_pad / (16 / e) * group_stride(ks, nwg, rows) * 16 + 127) /
+          128 * 128;
   l.wgt = l.raw + ph * raw_pitch;
-  l.stage = l.wgt + ws * wblock_bytes(ns, cin_pad);
+  l.stage = l.wgt + ws * wblock_bytes(ns, cin_pad, e);
   l.bars = l.stage + nwg * TW * (ns + 4) * 4;
   l.total = l.bars + 2 * (1 + ws) * 8;
   return l;
@@ -173,6 +218,10 @@ __device__ __forceinline__ void fence_async_smem() {
 // Keeps the accumulators in place across the asynchronous wgmma.
 __device__ __forceinline__ void fence_reg(float& r) {
   asm volatile("" : "+f"(r) :: "memory");
+}
+
+__device__ __forceinline__ void fence_reg(int& r) {
+  asm volatile("" : "+r"(r) :: "memory");
 }
 
 // A no-swizzle K-major wgmma descriptor: 8 x 16-byte core matrices, the two
@@ -264,36 +313,115 @@ __device__ __forceinline__ void wgmma_ss<80>(float* d, uint64_t a,
 }
 
 
+// wgmma m64nNk32, s8 x s8 -> s32, both operands K-major from shared memory
+// (the only layout 8-bit wgmma takes): d += A * B.  The integer shapes take
+// N in 8, 16, 24, 32, then steps of 16: no 56.
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<8>(int* d, uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int* d, uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<80>(int* d, uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39"
+      "}, %40, %41, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// The input element type of form F (int8 codes or bf16) and the operand
+// element type (bf16 or int8 codes).
+template <int F>
+using InOf = std::conditional_t<F == FORM_S8, int8_t, __nv_bfloat16>;
+template <int F>
+using OpOf = std::conditional_t<F == FORM_BF16, __nv_bfloat16, int8_t>;
+
+// One wgmma of form F's operand type: d += A * B.
+template <int F, int N, typename Acc>
+__device__ __forceinline__ void wgmma(Acc* d, uint64_t a, uint64_t b) {
+  if constexpr (F == FORM_BF16) {
+    wgmma_ss<N>(d, a, b);
+  } else {
+    wgmma_s8<N>(d, a, b);
+  }
+}
+
 // The 16-byte-aligned bulk copy of input row iy (image b), columns
-// [xs, xe): its source, its length, and where the row's first element
-// lies in it (elements).
+// [xs, xe) of an input of TI elements: its source, its length, and where
+// the row's first element lies in it (elements).
 struct Span {
   const unsigned char* src;
   uint32_t bytes;
   int mis;
 };
 
+template <typename TI>
 __device__ __forceinline__ Span row_span(const Params& p, int b, int iy,
                                          int xs, int xe) {
   const size_t row = ((size_t)b * p.h + iy) * p.w;
-  const uintptr_t a0 =
-      reinterpret_cast<uintptr_t>(p.x + (row + xs) * p.cin);
-  const uintptr_t a1 =
-      reinterpret_cast<uintptr_t>(p.x + (row + xe) * p.cin);
+  const TI* x = reinterpret_cast<const TI*>(p.x);
+  const uintptr_t a0 = reinterpret_cast<uintptr_t>(x + (row + xs) * p.cin);
+  const uintptr_t a1 = reinterpret_cast<uintptr_t>(x + (row + xe) * p.cin);
   const uintptr_t lo = a0 & ~uintptr_t(15);
   const uintptr_t hi = (a1 + 15) & ~uintptr_t(15);
   return {reinterpret_cast<const unsigned char*>(lo),
-          static_cast<uint32_t>(hi - lo), static_cast<int>((a0 - lo) >> 1)};
+          static_cast<uint32_t>(hi - lo),
+          static_cast<int>((a0 - lo) / sizeof(TI))};
 }
 
 struct TileAt {
   int b, ty0, tx0;
 };
 
+template <int R>
 __device__ __forceinline__ TileAt tile_at(const Params& p, int tile) {
   const int tiles_hw = p.tiles_w * p.tiles_h;
   const int r = tile % tiles_hw;
-  return {tile / tiles_hw, r / p.tiles_w * tile_h(p.nwg),
+  return {tile / tiles_hw, r / p.tiles_w * tile_h(p.nwg, R),
           r % p.tiles_w * TW};
 }
 
@@ -311,12 +439,14 @@ struct Ring {
 
 // The producer warp's lane 0: raw input rows of every tile of this block,
 // and the weight blocks (once if resident, else per tile).
+template <int F, int R>
 __device__ __forceinline__ void produce(const Params& p, const Layout& L,
                                         unsigned char* smem, int ns) {
-  const int ph = tile_h(p.nwg) + p.ks - 1, pw = TW + p.ks - 1;
+  using TI = InOf<F>;
+  const int ph = tile_h(p.nwg, R) + p.ks - 1, pw = TW + p.ks - 1;
   const int halo = (p.ks - 1) / 2;
   const int tiles = p.tiles_w * p.tiles_h * p.n;
-  const uint32_t wbytes = wblock_bytes(ns, p.cin_pad);
+  const uint32_t wbytes = wblock_bytes(ns, p.cin_pad, op_bytes(F));
   const int kblocks = p.nslices * p.ks * p.ks;
   uint64_t* full_raw = reinterpret_cast<uint64_t*>(smem + L.bars);
   uint64_t* empty_raw = full_raw + 1;
@@ -333,16 +463,16 @@ __device__ __forceinline__ void produce(const Params& p, const Layout& L,
   Ring wr;
   uint32_t raw_phase = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const TileAt t = tile_at(p, tile);
+    const TileAt t = tile_at<R>(p, tile);
     const int xs = max(t.tx0 - halo, 0), xe = min(t.tx0 - halo + pw, p.w);
     const int y0 = max(t.ty0 - halo, 0), y1 = min(t.ty0 - halo + ph, p.h);
     bar_wait(empty_raw, raw_phase ^ 1);
     uint32_t total = 0;
     for (int iy = y0; iy < y1; ++iy)
-      total += row_span(p, t.b, iy, xs, xe).bytes;
+      total += row_span<TI>(p, t.b, iy, xs, xe).bytes;
     bar_expect(full_raw, total);
     for (int iy = y0; iy < y1; ++iy) {
-      const Span s = row_span(p, t.b, iy, xs, xe);
+      const Span s = row_span<TI>(p, t.b, iy, xs, xe);
       bulk_load(smem + L.raw + (iy - t.ty0 + halo) * p.raw_pitch, s.src,
                 s.bytes, full_raw);
     }
@@ -360,25 +490,58 @@ __device__ __forceinline__ void produce(const Params& p, const Layout& L,
 
 // NS: output channels per N slice (the wgmma N).  Threads: 128 * p.nwg
 // consumers, then one producer warp.
-// The epilogue of one output row segment, element by element: the fp32
-// sums of up to 64 pixels (tx0 + px, px < 64) x NS channels (n0 + ch) of
-// row oy, staged in s_acc[px][ch] (pitch NS + 4, so that the
-// accumulators' float2 stores hit distinct banks): + bias, activation ACT,
-// output affine, + residual, a bf16 store or (Q) an int8-code store; warp
-// wq of the warpgroup takes pixels wq, wq + 4, ..., its lanes consecutive
-// channels, so that a pixel's stores are contiguous.  Each element's
-// address is out_offset's.  This is the loop of the N 8 instances (the
-// 3-channel head: three live lanes a warp), where epilogue_loop below
-// measured a third slower on an H100 (the cause is not resolved).  ACT
-// and Q are compile-time, so that the loop carries one activation's code
-// and one store's.  Without PHASE_STORE in P the stores happen only under
-// probe_store() (never).
-template <int NS, int ACT, bool Q, int P>
+// The first epilogue step of one element: the bf16 form's fp32 sum +
+// bias, or (S8) the int8 form's int32 sum dequantised, sum * dq + bias;
+// then the output affine and the residual.  The int8 form rounds each
+// product and sum on its own, as the plain version computes them (no
+// fused multiply-add), so that the int8 codes it stores match its codes.
+template <bool S8>
+__device__ __forceinline__ float dequant(float sum, float bias, float dq) {
+  if constexpr (S8) {
+    return __fadd_rn(__fmul_rn(sum, dq), bias);
+  } else {
+    return sum + bias;
+  }
+}
+
+template <bool S8>
+__device__ __forceinline__ float affine(float v, float mul, float add) {
+  if constexpr (S8) {
+    return __fadd_rn(__fmul_rn(v, mul), add);
+  } else {
+    return v * mul + add;
+  }
+}
+
+template <bool S8>
+__device__ __forceinline__ float add_res(float v, float r) {
+  if constexpr (S8) {
+    return __fadd_rn(v, r);
+  } else {
+    return v + r;
+  }
+}
+
+// The epilogue of one output row segment, element by element: the sums
+// (as floats) of up to 64 pixels (tx0 + px, px < 64) x NS channels (n0 +
+// ch) of row oy, staged in s_acc[px][ch] (pitch NS + 4, so that the
+// accumulators' float2 stores hit distinct banks): dequant<S8> (+ bias),
+// activation ACT, output affine, + residual, a bf16 store or (Q) an
+// int8-code store; warp wq of the warpgroup takes pixels wq, wq + 4, ...,
+// its lanes consecutive channels, so that a pixel's stores are
+// contiguous.  Each element's address is out_offset's.  This is the loop
+// of the N 8 instances (the 3-channel head: three live lanes a warp),
+// where epilogue_loop below measured a third slower on an H100 (the cause
+// is not resolved).  ACT and Q are compile-time, so that the loop carries
+// one activation's code and one store's.  Without PHASE_STORE in P the
+// stores happen only under probe_store() (never).
+template <int NS, int ACT, bool Q, int P, bool S8>
 __device__ __forceinline__ void epilogue_loop_elem(
     const float* s_acc, int b, int oy, int tx0, int n0, int wq, int lane,
     int h, int w, int cout, int shuffle, const __nv_bfloat16* residual,
     const float* out_inv, void* out, const float (&bias)[(NS + 31) / 32],
-    const float (&mul)[(NS + 31) / 32], const float (&add)[(NS + 31) / 32]) {
+    const float (&dq)[(NS + 31) / 32], const float (&mul)[(NS + 31) / 32],
+    const float (&add)[(NS + 31) / 32]) {
   constexpr int CH = (NS + 31) / 32;
   const bool store = (P & PHASE_STORE) != 0 || probe_store();
   for (int px = wq; px < TW && tx0 + px < w; px += 4) {
@@ -387,9 +550,10 @@ __device__ __forceinline__ void epilogue_loop_elem(
       const int ch = lane + 32 * c, n = n0 + ch;
       if (ch >= NS || n >= cout) continue;
       const size_t off = out_offset(b, oy, tx0 + px, n, h, w, cout, shuffle);
-      float v = activate(s_acc[px * (NS + 4) + ch] + bias[c], ACT);
-      v = v * mul[c] + add[c];
-      if (residual) v += __bfloat162float(residual[off]);
+      float v = activate(
+          dequant<S8>(s_acc[px * (NS + 4) + ch], bias[c], dq[c]), ACT);
+      v = affine<S8>(v, mul[c], add[c]);
+      if (residual) v = add_res<S8>(v, __bfloat162float(residual[off]));
       if (!store) continue;
       if constexpr (Q) {
         static_cast<int8_t*>(out)[off] =
@@ -409,13 +573,14 @@ __device__ __forceinline__ void epilogue_loop_elem(
 // warp takes two of its pixels at a time and issues both residual loads
 // before either's arithmetic, so that two independent chains (loads,
 // activation) are in flight and not one.
-template <int NS, int ACT, bool Q, int P>
+template <int NS, int ACT, bool Q, int P, bool S8>
 __device__ __forceinline__ void epilogue_loop(
     const float* s_acc, int npx, int wq, int lane, size_t base,
     size_t pstride, const long long (&coff)[(NS + 31) / 32],
     const int (&qch)[(NS + 31) / 32], const __nv_bfloat16* residual,
     const float* out_inv, void* out, const float (&bias)[(NS + 31) / 32],
-    const float (&mul)[(NS + 31) / 32], const float (&add)[(NS + 31) / 32]) {
+    const float (&dq)[(NS + 31) / 32], const float (&mul)[(NS + 31) / 32],
+    const float (&add)[(NS + 31) / 32]) {
   constexpr int CH = (NS + 31) / 32;
   const bool store = (P & PHASE_STORE) != 0 || probe_store();
   constexpr int U = 2;
@@ -439,10 +604,11 @@ __device__ __forceinline__ void epilogue_loop(
       for (int c = 0; c < CH; ++c) {
         if (coff[c] < 0) continue;
         const size_t off = pix + coff[c];
-        float v = activate(s_acc[px * (NS + 4) + lane + 32 * c] + bias[c],
+        float v = activate(dequant<S8>(s_acc[px * (NS + 4) + lane + 32 * c],
+                                       bias[c], dq[c]),
                            ACT);
-        v = v * mul[c] + add[c];
-        if (residual) v += res[u][c];
+        v = affine<S8>(v, mul[c], add[c]);
+        if (residual) v = add_res<S8>(v, res[u][c]);
         if (!store) continue;
         if constexpr (Q) {
           static_cast<int8_t*>(out)[off] = quant(v, out_inv[qch[c]]);
@@ -459,14 +625,15 @@ __device__ __forceinline__ void epilogue_loop(
 // the row's base, the pixel stride and each lane's channel offsets
 // (out_offset's arithmetic, PixelShuffle included) once.  Not inlined:
 // one copy of the epilogue's code stays in the instruction cache.
-// Without PHASE_EPI in P it stores the raw sums (no bias, activation,
-// affine or residual).
-template <int NS, int P>
-__device__ __noinline__ void epilogue_row(const Params& p,
+// Without PHASE_EPI in P it stores the raw sums (no bias, dequant,
+// activation, affine or residual).
+template <int NS, int P, int F>
+__device__ __noinline__ void epilogue_row(const ParamsOf<F>& p,
                                           const float* s_acc, int b, int oy,
                                           int tx0, int n0, int wq,
                                           int lane) {
   constexpr bool kEpi = (P & PHASE_EPI) != 0;
+  constexpr bool kS8 = F != FORM_BF16;
   // the fields this uses, read once: the stores could alias p
   const int h = p.h, w = p.w, cout = p.cout;
   const int act = kEpi ? p.act : ACT_NONE;
@@ -475,7 +642,7 @@ __device__ __noinline__ void epilogue_row(const Params& p,
   const float* out_inv = p.out_inv;
   void* out = p.out;
   constexpr int CH = (NS + 31) / 32;
-  float bias[CH], mul[CH], add[CH];
+  float bias[CH], dq[CH], mul[CH], add[CH];
   long long coff[CH];
   int qch[CH];
 #pragma unroll
@@ -483,7 +650,13 @@ __device__ __noinline__ void epilogue_row(const Params& p,
     const int n = n0 + lane + 32 * c;
     const bool ok = lane + 32 * c < NS && n < cout;
     const bool aff = kEpi && ok;
-    bias[c] = aff ? __bfloat162float(p.bias[n]) : 0.0f;
+    if constexpr (kS8) {
+      bias[c] = aff ? p.dq_bias[n] : 0.0f;
+      dq[c] = aff ? p.dq_scale[n] : 1.0f;
+    } else {
+      bias[c] = aff ? __bfloat162float(p.bias[n]) : 0.0f;
+      dq[c] = 1.0f;
+    }
     mul[c] = aff && p.out_scale ? p.out_scale[n] + 1.0f : 1.0f;
     add[c] = aff && p.out_shift ? p.out_shift[n] : 0.0f;
     const int cq = n >> 2, r1 = (n >> 1) & 1, r2 = n & 1;
@@ -497,12 +670,14 @@ __device__ __noinline__ void epilogue_row(const Params& p,
   const int npx = min(TW, w - tx0);
 #define BNT_EPI(A, Q)                                                      \
   if constexpr (NS == 8)                                                   \
-    epilogue_loop_elem<NS, A, Q, P>(s_acc, b, oy, tx0, n0, wq, lane, h, w, \
-                                    cout, shuffle, residual, out_inv, out, \
-                                    bias, mul, add);                       \
+    epilogue_loop_elem<NS, A, Q, P, kS8>(s_acc, b, oy, tx0, n0, wq, lane,  \
+                                         h, w, cout, shuffle, residual,    \
+                                         out_inv, out, bias, dq, mul,      \
+                                         add);                             \
   else                                                                     \
-    epilogue_loop<NS, A, Q, P>(s_acc, npx, wq, lane, base, pstride, coff,  \
-                               qch, residual, out_inv, out, bias, mul, add)
+    epilogue_loop<NS, A, Q, P, kS8>(s_acc, npx, wq, lane, base, pstride,   \
+                                    coff, qch, residual, out_inv, out,     \
+                                    bias, dq, mul, add)
   if (out_inv) {
     switch (act) {
       case ACT_SIN: BNT_EPI(ACT_SIN, true); break;
@@ -521,13 +696,20 @@ __device__ __noinline__ void epilogue_row(const Params& p,
 #undef BNT_EPI
 }
 
-template <int NS, int P = PHASE_ALL>
+template <int NS, int P = PHASE_ALL, int F = FORM_BF16, int R = ROWS_PER_WG>
 __global__ void __launch_bounds__(2 * 128 + PRODUCER, 1)
-conv_sm90_kernel(const __grid_constant__ Params p) {
+conv_sm90_kernel(const __grid_constant__ ParamsOf<F> p) {
+  static_assert(R == 2 || R == 3, "2 or 3 output rows a warpgroup");
   constexpr bool kStage = (P & PHASE_STAGE) != 0;
   constexpr bool kGemm = (P & PHASE_GEMM) != 0;
+  constexpr int E = op_bytes(F);
+  constexpr int G = 16 / E;  // operand elements in 16 bytes
+  using TI = InOf<F>;
+  using TO = OpOf<F>;
+  using Acc = std::conditional_t<F == FORM_BF16, float, int>;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout(p.ks, p.cin_pad, p.raw_pitch, p.nwg, p.ws, NS);
+  const Layout L =
+      layout(p.ks, p.cin_pad, p.raw_pitch, p.nwg, p.ws, NS, R, E);
   const int consumers = 128 * p.nwg;
   const int cwarps = 4 * p.nwg;
   uint64_t* full_raw = reinterpret_cast<uint64_t*>(smem + L.bars);
@@ -546,38 +728,58 @@ conv_sm90_kernel(const __grid_constant__ Params p) {
   __syncthreads();
 
   if (threadIdx.x >= consumers) {
-    if (threadIdx.x == consumers) produce(p, L, smem, NS);
+    if (threadIdx.x == consumers) produce<F, R>(p, L, smem, NS);
     return;
   }
 
-  const int ph = tile_h(p.nwg) + p.ks - 1, pw = TW + p.ks - 1;
-  const int gs = group_stride(p.ks, p.nwg);
-  const uint32_t lbo_a = gs * 16;  // next 8 channels of s_pad
+  const int ph = tile_h(p.nwg, R) + p.ks - 1, pw = TW + p.ks - 1;
+  const int gs = group_stride(p.ks, p.nwg, R);
+  const uint32_t lbo_a = gs * 16;  // the next 16 bytes of K of s_pad
   const int halo = (p.ks - 1) / 2;
   const int taps = p.ks * p.ks;
-  const int nks = p.cin_pad / 16;
+  const int nks = p.cin_pad / (2 * G);  // k16 (bf16) or k32 (s8) steps
   const int tiles = p.tiles_w * p.tiles_h * p.n;
-  const int wbytes = wblock_bytes(NS, p.cin_pad);
-  __nv_bfloat16* s_pad = reinterpret_cast<__nv_bfloat16*>(smem + L.pad);
+  const int wbytes = wblock_bytes(NS, p.cin_pad, E);
+  TO* s_pad = reinterpret_cast<TO*>(smem + L.pad);
   const unsigned char* s_w = smem + L.wgt;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2, wq = warp & 3;
   const int g = lane >> 2, tq = lane & 3;
 
-  // a lane repacks input channels 2 lane + 64c and the next; its
-  // prologue affine
-  float in_mul[2][2], in_add[2][2];
+  // FORM_S8's repack: a lane copies four codes, input channels k4 + 64c,
+  // and keeps those below Cin (a 32-bit mask)
+  const int k4 = 4 * (lane & 15);
+  [[maybe_unused]] uint32_t keep[2];
+  if constexpr (F == FORM_S8) {
 #pragma unroll
-  for (int c = 0; c < 2; ++c) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int k = 2 * lane + 64 * c + e;
-      const bool aff = p.in_scale != nullptr && k < p.cin;
-      in_mul[c][e] = aff ? p.in_scale[k] + 1.0f : 1.0f;
-      in_add[c][e] = aff ? p.in_shift[k] : 0.0f;
+    for (int c = 0; c < 2; ++c) {
+      const int left = p.cin - k4 - 64 * c;
+      keep[c] = left >= 4 ? ~0u : left <= 0 ? 0u : (1u << (8 * left)) - 1;
     }
   }
+
+  // a lane repacks input channels 2 lane + 64c and the next; its
+  // prologue affine, and in FORM_S8Q its quantisation multiplier: loaded
+  // once in bf16, per tile in int8, so that they hold no registers beside
+  // the int8 form's accumulators (3 rows a warpgroup)
+  float in_mul[2][2], in_add[2][2];
+  [[maybe_unused]] float in_inv[2][2];
+  auto prologue = [&]() {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = 2 * lane + 64 * c + e;
+        const bool aff = p.in_scale != nullptr && k < p.cin;
+        in_mul[c][e] = aff ? p.in_scale[k] + 1.0f : 1.0f;
+        in_add[c][e] = aff ? p.in_shift[k] : 0.0f;
+        if constexpr (F == FORM_S8Q)
+          in_inv[c][e] = k < p.cin ? p.in_inv[k] : 0.0f;
+      }
+    }
+  };
+  if constexpr (F == FORM_BF16) prologue();
 
   if constexpr (!kStage) {  // probe: one zero operand tile, never repacked
     for (int i = threadIdx.x; i < L.raw / 16; i += consumers)
@@ -588,38 +790,88 @@ conv_sm90_kernel(const __grid_constant__ Params p) {
   Ring wr;
   uint32_t raw_phase = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const TileAt t = tile_at(p, tile);
+    const TileAt t = tile_at<R>(p, tile);
     const int xs = max(t.tx0 - halo, 0);
 
     // 1. repack the raw rows into s_pad, prologue on in-image taps only
     bar_wait(full_raw, raw_phase);
+    if constexpr (F != FORM_BF16) prologue();
     consumer_sync(consumers);  // the previous tile's GEMM is done with s_pad
     const unsigned char* rbuf = smem + L.raw;
     for (int r = 0; r < (kStage ? ph : 0); ++r) {
       const int iy = t.ty0 - halo + r;
       const bool row_in = iy >= 0 && iy < p.h;
       // element of pixel ix of this row: row + ix * cin
-      const __nv_bfloat16* row =
-          reinterpret_cast<const __nv_bfloat16*>(rbuf + r * p.raw_pitch) +
-          (row_in ? row_span(p, t.b, iy, xs, xs).mis : 0) - xs * p.cin;
-      for (int c = warp; c < pw; c += cwarps) {
-        const int ix = t.tx0 - halo + c;
-        const bool inside = row_in && ix >= 0 && ix < p.w;
-        const __nv_bfloat16* src = row + ix * p.cin;
-        __nv_bfloat16* dst = s_pad + (r * pw + c) * 8;
+      const TI* row =
+          reinterpret_cast<const TI*>(rbuf + r * p.raw_pitch) +
+          (row_in ? row_span<TI>(p, t.b, iy, xs, xs).mis : 0) - xs * p.cin;
+      if constexpr (F == FORM_S8) {
+        // codes: 16 lanes a pixel, four codes a lane from two aligned
+        // 32-bit loads of the raw row, one 32-bit store; a warp's halves
+        // take pixels four apart, whose 16-byte groups lie in distinct
+        // bank quads
+        for (int q = warp; q < (pw + 7) / 8 * 4; q += cwarps) {
+          const int c = (q >> 2) * 8 + (q & 3) + 4 * (lane >> 4);
+          const int ix = t.tx0 - halo + c;
+          const bool inside = row_in && ix >= 0 && ix < p.w;
+          if (c >= pw) continue;
+          TO* dst = s_pad + (r * pw + c) * G;
 #pragma unroll
-        for (int cc = 0; cc < 2; ++cc) {
-          const int k = 2 * lane + 64 * cc;
-          if (k < p.cin_pad) {
-            float v0 = 0.0f, v1 = 0.0f;
-            if (inside && k < p.cin)
-              v0 = __bfloat162float(src[k]) * in_mul[cc][0] + in_add[cc][0];
-            if (inside && k + 1 < p.cin)
-              v1 = __bfloat162float(src[k + 1]) * in_mul[cc][1] +
-                   in_add[cc][1];
-            *reinterpret_cast<__nv_bfloat162*>(
-                dst + (k >> 3) * gs * 8 + (k & 7)) =
-                __floats2bfloat162_rn(v0, v1);
+          for (int cc = 0; cc < 2; ++cc) {
+            const int k = k4 + 64 * cc;
+            if (k >= p.cin_pad) continue;
+            uint32_t v = 0;
+            if (inside && keep[cc]) {
+              const uintptr_t a =
+                  reinterpret_cast<uintptr_t>(row + ix * p.cin + k);
+              const uint32_t* w =
+                  reinterpret_cast<const uint32_t*>(a & ~uintptr_t(3));
+              v = __funnelshift_r(w[0], w[1], (a & 3) * 8) & keep[cc];
+            }
+            *reinterpret_cast<uint32_t*>(dst + (k >> 4) * gs * 16 +
+                                         (k & 15)) = v;
+          }
+        }
+      } else {
+        for (int c = warp; c < pw; c += cwarps) {
+          const int ix = t.tx0 - halo + c;
+          const bool inside = row_in && ix >= 0 && ix < p.w;
+          const TI* src = row + ix * p.cin;
+          TO* dst = s_pad + (r * pw + c) * G;
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int k = 2 * lane + 64 * cc;
+            if (k >= p.cin_pad) continue;
+            if constexpr (F == FORM_BF16) {
+              float v0 = 0.0f, v1 = 0.0f;
+              if (inside && k < p.cin)
+                v0 = __bfloat162float(src[k]) * in_mul[cc][0] +
+                     in_add[cc][0];
+              if (inside && k + 1 < p.cin)
+                v1 = __bfloat162float(src[k + 1]) * in_mul[cc][1] +
+                     in_add[cc][1];
+              *reinterpret_cast<__nv_bfloat162*>(
+                  dst + (k >> 3) * gs * 8 + (k & 7)) =
+                  __floats2bfloat162_rn(v0, v1);
+            } else {
+              // S8Q: the affine then quant_act's quantisation; code 0
+              // beyond Cin and outside the image
+              uint32_t q[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                int8_t code = 0;
+                if (inside && k + e < p.cin) {
+                  const float v = __bfloat162float(src[k + e]);
+                  code = quant(__fadd_rn(__fmul_rn(v, in_mul[cc][e]),
+                                         in_add[cc][e]),
+                               in_inv[cc][e]);
+                }
+                q[e] = static_cast<uint8_t>(code);
+              }
+              *reinterpret_cast<uint16_t*>(dst + (k >> 4) * gs * 16 +
+                                           (k & 15)) =
+                  static_cast<uint16_t>(q[0] | (q[1] << 8));
+            }
           }
         }
       }
@@ -632,11 +884,11 @@ conv_sm90_kernel(const __grid_constant__ Params p) {
 
     // 2. per N slice: implicit GEMM over the taps, then the epilogue
     for (int s = 0; s < p.nslices; ++s) {
-      float acc[2][NS / 2];
+      Acc acc[R][NS / 2];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < R; ++mt)
 #pragma unroll
-        for (int i = 0; i < NS / 2; ++i) acc[mt][i] = 0.0f;
+        for (int i = 0; i < NS / 2; ++i) acc[mt][i] = 0;
 
       int held = -1;  // the streamed weight slot the last tap read
       for (int tap = 0; tap < taps; ++tap) {
@@ -654,14 +906,17 @@ conv_sm90_kernel(const __grid_constant__ Params p) {
         }
         if constexpr (kGemm) {
           const int dy = tap / p.ks, dx = tap - dy * p.ks;
-          const __nv_bfloat16* a0 =
-              s_pad + ((wg * ROWS_PER_WG + dy) * pw + dx) * 8;
+          const TO* a0 = s_pad + ((wg * R + dy) * pw + dx) * G;
           wgmma_fence();
           for (int k = 0; k < nks; ++k) {
             const uint64_t db = desc(wblk + k * NS * 32, 128, 256);
-            const __nv_bfloat16* ak = a0 + 2 * k * gs * 8;
-            wgmma_ss<NS>(acc[0], desc(ak, lbo_a, 128), db);
-            wgmma_ss<NS>(acc[1], desc(ak + pw * 8, lbo_a, 128), db);
+            const TO* ak = a0 + 2 * k * gs * G;
+            // one m64 tile a row; written out, not as a loop over the
+            // rows, which changed the bf16 instances' code
+            wgmma<F, NS>(acc[0], desc(ak, lbo_a, 128), db);
+            wgmma<F, NS>(acc[1], desc(ak + pw * G, lbo_a, 128), db);
+            if constexpr (R == 3)
+              wgmma<F, NS>(acc[2], desc(ak + 2 * pw * G, lbo_a, 128), db);
           }
           wgmma_commit();
           if (slot >= 0) {
@@ -677,7 +932,7 @@ conv_sm90_kernel(const __grid_constant__ Params p) {
       if constexpr (kGemm) wgmma_wait<0>();
       if (held >= 0 && lane == 0) bar_arrive(&empty_w[held]);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < R; ++mt)
 #pragma unroll
         for (int i = 0; i < NS / 2; ++i) fence_reg(acc[mt][i]);
 
@@ -687,19 +942,22 @@ conv_sm90_kernel(const __grid_constant__ Params p) {
       float* s_acc = reinterpret_cast<float*>(smem + L.stage) +
                      wg * TW * (NS + 4);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int oy = t.ty0 + wg * ROWS_PER_WG + mt;
+      for (int mt = 0; mt < R; ++mt) {
+        const int oy = t.ty0 + wg * R + mt;
         if (oy >= p.h) continue;  // uniform over the warpgroup
 #pragma unroll
         for (int i = 0; i < NS / 2; i += 2) {
           const int j = i >> 2, e = i & 3;
           const int px = wq * 16 + g + (e >> 1) * 8;
+          // an int32 sum converts to the nearest float, as the plain
+          // version's exact sum does
           *reinterpret_cast<float2*>(s_acc + px * (NS + 4) + j * 8 +
                                      tq * 2) =
-              make_float2(acc[mt][i], acc[mt][i + 1]);
+              make_float2(static_cast<float>(acc[mt][i]),
+                          static_cast<float>(acc[mt][i + 1]));
         }
         wg_sync(wg);
-        epilogue_row<NS, P>(p, s_acc, t.b, oy, t.tx0, n0, wq, lane);
+        epilogue_row<NS, P, F>(p, s_acc, t.b, oy, t.tx0, n0, wq, lane);
         wg_sync(wg);
       }
     }
@@ -708,21 +966,29 @@ conv_sm90_kernel(const __grid_constant__ Params p) {
 
 // ------------------------------------------------------------- host ---
 
-// Bytes of one raw row slot: the widest row span plus its 16-byte
-// widening, rounded up to 16.
-inline int raw_pitch(int ks, int cin) {
-  return ((TW + ks - 1) * cin * 2 + 30 + 15) / 16 * 16;
+// Bytes of one raw row slot: the widest row span of an input of ei-byte
+// elements plus its 16-byte widening, rounded up to 16.
+inline int raw_pitch(int ks, int cin, int ei = 2) {
+  return ((TW + ks - 1) * cin * ei + 30 + 15) / 16 * 16;
 }
 
-// The shared-memory plan of a launch: warpgroups (2, else 1) and the
-// weight ring (every block resident, else the deepest ring up to MAX_WS
-// that fits, at least 2).  Fills p and returns the bytes, or -1 where
-// nothing fits.
-inline int fit(Params& p, int ns) {
+// Output rows a consumer warpgroup of a launch at N slice ns in form f
+// (conv_sm90.py::rows_at mirrors it).
+inline int rows_of(int ns, int f) {
+  return f != FORM_BF16 && ns == 64 ? ROWS_S8_64 : ROWS_PER_WG;
+}
+
+// The shared-memory plan of a launch of form f: warpgroups (2, else 1) and
+// the weight ring (every block resident, else the deepest ring up to
+// MAX_WS that fits, at least 2).  Fills p and returns the bytes, or -1
+// where nothing fits.
+inline int fit(Params& p, int ns, int f = FORM_BF16) {
+  const int rows = rows_of(ns, f);
   const int kblocks = p.nslices * p.ks * p.ks;
   for (int nwg = 2; nwg >= 1; --nwg) {
     for (int ws = kblocks; ws >= 1;) {
-      const Layout l = layout(p.ks, p.cin_pad, p.raw_pitch, nwg, ws, ns);
+      const Layout l = layout(p.ks, p.cin_pad, p.raw_pitch, nwg, ws, ns,
+                              rows, op_bytes(f));
       if (l.total <= MAX_SMEM) {
         p.nwg = nwg;
         p.ws = ws;
@@ -736,20 +1002,25 @@ inline int fit(Params& p, int ns) {
   return -1;
 }
 
-inline bool valid_ns(int ns) {
-  return ns == 8 || ns == 56 || ns == 64 || ns == 80;
+// The N slices with an instance: 8, 56, 64, 80 in bf16; 8, 64, 80 in
+// int8 (the integer wgmma shapes have no N 56).
+inline bool valid_ns(int ns, int f = FORM_BF16) {
+  return ns == 8 || ns == 64 || ns == 80 || (f == FORM_BF16 && ns == 56);
 }
 
-// Fills the shape fields of p; false for a shape the kernel does not take.
-inline bool shape(Params& p, int cin, int cout, int ks, int ns) {
+// Fills the shape fields of p; false for a shape the kernel does not
+// take.  Cin is padded to whole K steps: 16 channels in bf16, 32 in int8.
+inline bool shape(Params& p, int cin, int cout, int ks, int ns,
+                  int f = FORM_BF16) {
+  const int kstep = 32 / op_bytes(f);
   p.cin = cin;
   p.cout = cout;
   p.ks = ks;
-  p.cin_pad = (cin + 15) / 16 * 16;
+  p.cin_pad = (cin + kstep - 1) / kstep * kstep;
   p.nslices = (cout + ns - 1) / ns;
-  p.raw_pitch = raw_pitch(ks, cin);
+  p.raw_pitch = raw_pitch(ks, cin, in_bytes(f));
   return (ks == 1 || ks == 3 || ks == 5) && cin >= 1 && cout >= 1 &&
-         p.cin_pad <= MAX_CIN_PAD && valid_ns(ns);
+         p.cin_pad <= MAX_CIN_PAD && valid_ns(ns, f);
 }
 
 // Fills p from a C entry point's arguments and plans its shared memory:
@@ -759,7 +1030,8 @@ inline int prepare(Params& p, const void* x, const void* wpk,
                    const void* in_shift, const void* out_scale,
                    const void* out_shift, const void* residual,
                    const void* out_inv, void* out, int n, int h, int w,
-                   int cin, int cout, int act, int shuffle, int ks, int ns) {
+                   int cin, int cout, int act, int shuffle, int ks, int ns,
+                   int f = FORM_BF16) {
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.wpk = static_cast<const __nv_bfloat16*>(wpk);
   p.bias = static_cast<const __nv_bfloat16*>(bias);
@@ -775,19 +1047,21 @@ inline int prepare(Params& p, const void* x, const void* wpk,
   p.w = w;
   p.act = act;
   p.shuffle = shuffle;
-  if (!shape(p, cin, cout, ks, ns) || n < 1 || h < 1 || w < 1 ||
+  if (!shape(p, cin, cout, ks, ns, f) || n < 1 || h < 1 || w < 1 ||
       (shuffle && cout % 4 != 0) || act < ACT_NONE || act > ACT_OUTIMG ||
       (reinterpret_cast<uintptr_t>(wpk) & 15) != 0)
     return -1;
-  const int smem = fit(p, ns);
+  const int smem = fit(p, ns, f);
+  const int rows = rows_of(ns, f);
   p.tiles_w = (w + TW - 1) / TW;
-  p.tiles_h = smem < 0 ? 0 : (h + tile_h(p.nwg) - 1) / tile_h(p.nwg);
+  p.tiles_h =
+      smem < 0 ? 0 : (h + tile_h(p.nwg, rows) - 1) / tile_h(p.nwg, rows);
   return smem;
 }
 
-template <int NS, int P>
-int launch(const Params& p, int smem, cudaStream_t s) {
-  auto kernel = conv_sm90_kernel<NS, P>;
+template <int NS, int P, int F = FORM_BF16, int R = ROWS_PER_WG>
+int launch(const ParamsOf<F>& p, int smem, cudaStream_t s) {
+  auto kernel = conv_sm90_kernel<NS, P, F, R>;
   static bool attr = false;
   if (!attr) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -810,18 +1084,26 @@ int launch(const Params& p, int smem, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// The knockout instance <NS, mask> of a probe launch (K5); mask is one of
-// PROBE_MASKS.
+// An int8-form launch of form f (FORM_S8 or FORM_S8Q).
+template <int NS, int P = PHASE_ALL, int R = ROWS_PER_WG>
+int launch_s8(const ParamsS8& p, int smem, int f, cudaStream_t s) {
+  return f == FORM_S8 ? launch<NS, P, FORM_S8, R>(p, smem, s)
+                      : launch<NS, P, FORM_S8Q, R>(p, smem, s);
+}
+
+// The knockout instance <NS, mask, F, R> of a probe launch (K5); mask is
+// one of PROBE_MASKS.
 constexpr int PROBE_MASKS[] = {
     PHASE_ALL, PHASE_ALL & ~PHASE_STAGE, PHASE_ALL & ~PHASE_GEMM,
     PHASE_ALL & ~PHASE_EPI, PHASE_ALL & ~PHASE_STORE};
 
-template <int NS, int I = 0>
-int launch_masked(int phases, const Params& p, int smem, cudaStream_t s) {
+template <int NS, int F = FORM_BF16, int R = ROWS_PER_WG, int I = 0>
+int launch_masked(int phases, const ParamsOf<F>& p, int smem,
+                  cudaStream_t s) {
   if constexpr (I < 5) {
     if (phases == PROBE_MASKS[I])
-      return launch<NS, PROBE_MASKS[I]>(p, smem, s);
-    return launch_masked<NS, I + 1>(phases, p, smem, s);
+      return launch<NS, PROBE_MASKS[I], F, R>(p, smem, s);
+    return launch_masked<NS, F, R, I + 1>(phases, p, smem, s);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -836,5 +1118,25 @@ int launch_probe_8(const Params& p, int smem, int phases, cudaStream_t s);
 int launch_probe_56(const Params& p, int smem, int phases, cudaStream_t s);
 int launch_probe_64(const Params& p, int smem, int phases, cudaStream_t s);
 int launch_probe_80(const Params& p, int smem, int phases, cudaStream_t s);
+
+// The same (K5) on the int8 form's instances that the W8A8 stages' chains
+// launch: N 8 codes in (the head), N 64 codes in and bf16 in (ROWS_S8_64
+// rows a warpgroup), N 80 codes in (stage 6's upconv), each defined by
+// its own probe unit (conv_sm90_i8_probe*.cu).
+int launch_probe_s8_8(const ParamsS8& p, int smem, int phases,
+                      cudaStream_t s);
+int launch_probe_s8_64(const ParamsS8& p, int smem, int phases,
+                       cudaStream_t s);
+int launch_probe_s8_64q(const ParamsS8& p, int smem, int phases,
+                        cudaStream_t s);
+int launch_probe_s8_80(const ParamsS8& p, int smem, int phases,
+                       cudaStream_t s);
+
+// The int8 form's production launches (form f) at N slice 8, 64 (at
+// ROWS_S8_64 rows a warpgroup) and 80, each N defined by its own unit
+// (conv_sm90_i8*.cu), so that their instances compile in parallel.
+int launch_s8_8(const ParamsS8& p, int smem, int f, cudaStream_t s);
+int launch_s8_64(const ParamsS8& p, int smem, int f, cudaStream_t s);
+int launch_s8_80(const ParamsS8& p, int smem, int f, cudaStream_t s);
 
 }  // namespace sm90

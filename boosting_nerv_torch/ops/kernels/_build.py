@@ -106,6 +106,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bnt_conv_sm90.argtypes = [vp] * 10 + [ci] * 9 + [vp]
     lib.bnt_conv_sm90_smem.restype = ci
     lib.bnt_conv_sm90_smem.argtypes = [ci] * 4
+    lib.bnt_conv_sm90_i8.restype = ci
+    lib.bnt_conv_sm90_i8.argtypes = [vp] * 12 + [ci] * 9 + [vp]
+    lib.bnt_conv_sm90_i8_smem.restype = ci
+    lib.bnt_conv_sm90_i8_smem.argtypes = [ci] * 5
     lib.bnt_error_string.restype = ctypes.c_char_p
     lib.bnt_error_string.argtypes = [ci]
     # the probes (ops/kernels/probes.py)
@@ -126,6 +130,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bnt_stage_build_probe.argtypes = [vp] * 6 + [ci] * 6 + [vp]
     lib.bnt_conv_sm90_probe.restype = ci
     lib.bnt_conv_sm90_probe.argtypes = [vp] * 10 + [ci] * 10 + [vp]
+    lib.bnt_conv_sm90_i8_probe.restype = ci
+    lib.bnt_conv_sm90_i8_probe.argtypes = [vp] * 12 + [ci] * 10 + [vp]
     lib.bnt_stage_build_probe_smem.restype = ci
     lib.bnt_stage_build_probe_smem.argtypes = [ci] * 2
     return lib

@@ -1,34 +1,47 @@
-"""Host side of the Hopper bf16 conv kernel (``ops/csrc/conv_sm90.cu``),
-which serves ``tile_conv.conv_tile``, ``tile_conv.resblock_sft_tile_v3``,
-``planar.fused_upconv_rsft`` and ``planar.fused_conv_rsft`` (bf16).
+"""Host side of the Hopper conv kernel (``ops/csrc/conv_sm90.cuh``): its
+bf16 form (``conv_sm90.cu``), which serves ``tile_conv.conv_tile``,
+``tile_conv.resblock_sft_tile_v3``, ``planar.fused_upconv_rsft`` and
+``planar.fused_conv_rsft``, and its int8 form (``conv_sm90_i8.cu``), which
+serves ``planar.fused_upconv_rsft_i8`` and ``planar.fused_conv_rsft_i8``.
 
-What the kernel needs from Python is plain torch and lives here:
+A launch's operand form follows from its tensors: bf16 weights give the
+bf16 form (``BF16``); int8 weight codes give the int8 form, repacking int8
+input codes (``S8``) or quantising a bf16 input at ``in_inv`` (``S8Q``),
+with the int32 sums dequantised by the per-output-channel ``scale`` and a
+float32 bias.  What the kernel needs from Python is plain torch and lives
+here:
 
-- the N-slice plan: ``slice_width(cout)`` picks the wgmma N (one of
-  ``NS_CHOICES``, the kernel's instances) that wastes the fewest padded
-  channels, counting 16 channels of overhead per slice (51 -> 56,
-  61 -> 64, 73 -> 80, 204 -> 3 x 80, 244 -> 4 x 64, 3 -> 8); ``plan``
-  takes the first width in that order whose launch fits the shared memory
-  (a 5 x 5 conv of 128 channels to 80 fits only at N 8); ``fit`` mirrors
-  the library's shared-memory plan (warpgroups, weight ring, bytes) for
-  the CPU tests, and chip_smoke.py holds the two equal;
+- the N-slice plan: ``slice_width(cout, form)`` picks the wgmma N (one of
+  ``ns_choices(form)``, the kernel's instances: the integer wgmma shapes
+  have no N 56) that wastes the fewest padded channels, counting 16
+  channels of overhead per slice (bf16: 51 -> 56, 61 -> 64, 73 -> 80,
+  204 -> 3 x 80, 244 -> 4 x 64, 3 -> 8; int8: 51, 61 -> 64, 204 -> 3 x
+  80, 3 -> 8); ``plan`` takes the first width in that order whose launch
+  fits the shared memory (a 5 x 5 conv of 128 channels to 80 fits only at
+  N 8); ``fit`` mirrors the library's shared-memory plan (warpgroups,
+  weight ring, bytes) for the CPU tests, and chip_smoke.py holds the two
+  equal;
 - the weight packing: ``pack_weight`` turns an OHWI weight into the
-  kernel's B layout, one block per (N slice, tap), each k16 step of a
-  block NS x 16 as 8 x 8 core matrices ([NS/8][2][8][8], no swizzle), the
-  layout its wgmma descriptor reads (``b_offsets``); ``packed`` caches it
-  per weight tensor;
+  kernel's B layout, one block per (N slice, tap), each K step of a block
+  (k16 of bf16, k32 of int8: 32 bytes) NS x 32 bytes as 8 x 16-byte core
+  matrices ([NS/8][2][8][16 bytes], no swizzle), the layout its wgmma
+  descriptor reads (``b_offsets``); ``packed`` caches it per weight
+  tensor;
 - ``emulate``: the kernel's function computed the kernel's way, for the
   CPU tests: each 4 x 64 output tile's input rows staged as 16-byte-widened
-  flat spans and repacked (prologue on in-image taps only) into the
-  operand tile [8-channel group][pixel][8] (``group_stride`` pixels per
-  group), the GEMM's A read from it through ``a_offsets`` at each tap's
-  pixel shift and its B from the packed blocks through ``b_offsets``, then
-  the epilogue.
+  flat spans and repacked (prologue on in-image taps only; in ``S8Q`` then
+  quantised) into the operand tile [16-byte channel group][pixel][16
+  bytes] (``group_stride`` pixels per group), the GEMM's A read from it
+  through ``a_offsets`` at each tap's pixel shift and its B from the
+  packed blocks through ``b_offsets`` (int8 sums exact), then the
+  epilogue (int8: dequantised first).
 
 ``launch`` is one kernel launch; ``rsft`` the two launches of a
 ResBlockSFT, ``upconv_rsft`` and ``conv_rsft`` the three (four with the
 head) of the stride-2 and stride-1 stages, each with a launch
-(``cuda_conv``) or ``emulate`` (``emulated_conv``) as its conv.
+(``cuda_conv``) or ``emulate`` (``emulated_conv``) as its conv, on bf16
+``StageWeights`` or on W8A8 ``StageWeightsI8``, whose convs take their
+dequant scales and input multipliers from the weights' fields.
 """
 
 from __future__ import annotations
@@ -41,45 +54,89 @@ import torch.nn.functional as F
 
 from . import _build, quant
 
-NS_CHOICES = (8, 56, 64, 80)       # the kernel's instances (conv_sm90.cu)
+BF16, S8, S8Q = 0, 1, 2            # operand forms (conv_sm90.cuh::Form)
+NS_CHOICES = (8, 56, 64, 80)       # the bf16 form's instances (N slices)
+NS_CHOICES_S8 = (8, 64, 80)        # the int8 form's: integer wgmma, no 56
 TH, TW = 4, 64                     # output tile (rows, columns)
 ACT_CODES = {"none": 0, "sin": 1, "gelu": 2, "outimg": 3}
 MAX_SMEM = 232448                  # the card's opt-in shared memory a block
 MAX_CIN_PAD, MAX_WS = 128, 8
+ROWS_S8_64 = 3                     # int8 rows a warpgroup at N 64
 
-def slice_widths(cout: int) -> list:
+
+def form_of(x: torch.Tensor, w: torch.Tensor) -> int:
+    """The operand form of a launch on input x with weight w."""
+    if w.dtype != torch.int8:
+        return BF16
+    return S8 if x.dtype == torch.int8 else S8Q
+
+
+def op_bytes(form: int) -> int:
+    """Bytes of one operand element (conv_sm90.cuh::op_bytes)."""
+    return 2 if form == BF16 else 1
+
+
+def in_bytes(form: int) -> int:
+    """Bytes of one input element (conv_sm90.cuh::in_bytes)."""
+    return 1 if form == S8 else 2
+
+
+def rows_at(ns: int, form: int) -> int:
+    """Output rows a consumer warpgroup of a launch at N ``ns``
+    (conv_sm90.cuh::rows_of): ``ROWS_S8_64`` at the int8 form's N 64,
+    else 2."""
+    return ROWS_S8_64 if form != BF16 and ns == 64 else 2
+
+
+def ns_choices(form: int) -> tuple:
+    """The N slice widths with an instance in form ``form``."""
+    return NS_CHOICES if form == BF16 else NS_CHOICES_S8
+
+
+def slice_widths(cout: int, form: int = BF16) -> list:
     """The N slice widths for ``cout`` channels, best first."""
-    return sorted(NS_CHOICES, key=lambda ns: (-(-cout // ns) * (ns + 16), -ns))
+    return sorted(ns_choices(form),
+                  key=lambda ns: (-(-cout // ns) * (ns + 16), -ns))
 
 
-def slice_width(cout: int) -> int:
+def slice_width(cout: int, form: int = BF16) -> int:
     """Output channels per N slice for ``cout`` channels."""
-    return slice_widths(cout)[0]
+    return slice_widths(cout, form)[0]
 
 
 @functools.lru_cache(maxsize=None)
-def plan(lib, cin: int, cout: int, ks: int) -> Tuple[int, int]:
+def plan(lib, cin: int, cout: int, ks: int, form: int = BF16
+         ) -> Tuple[int, int]:
     """(slice width, shared-memory bytes) of a launch: the first width of
-    ``slice_widths(cout)`` whose launch fits, or (0, -1) where none does."""
-    for ns in slice_widths(cout):
-        smem = lib.bnt_conv_sm90_smem(cin, cout, ks, ns)
+    ``slice_widths(cout, form)`` whose launch fits, or (0, -1) where none
+    does."""
+    for ns in slice_widths(cout, form):
+        if form == BF16:
+            smem = lib.bnt_conv_sm90_smem(cin, cout, ks, ns)
+        else:
+            smem = lib.bnt_conv_sm90_i8_smem(cin, cout, ks, ns, form)
         if smem >= 0:
             return ns, smem
     return 0, -1
 
 
-def cin_pad(cin: int) -> int:
-    return -(-cin // 16) * 16
+def cin_pad(cin: int, form: int = BF16) -> int:
+    """Cin padded to whole K steps: 16 channels of bf16, 32 of int8."""
+    kstep = 32 // op_bytes(form)
+    return -(-cin // kstep) * kstep
 
 
 def pack_weight(w: torch.Tensor, ns: int) -> torch.Tensor:
-    """OHWI [Cout, k, k, Cin] -> the flat packed B operand:
-    [slice][tap][k16 step][NS/8][2][8][8], zero beyond Cout and Cin."""
+    """OHWI [Cout, k, k, Cin] -> the flat packed B operand, in w's dtype:
+    [slice][tap][K step][NS/8][2][8][16 bytes] (int8 codes: 16 elements,
+    bf16 or any other weight: 8), zero beyond Cout and Cin."""
     cout, k, _, cin = w.shape
-    nsl, cp = -(-cout // ns), cin_pad(cin)
+    form = S8 if w.dtype == torch.int8 else BF16
+    kstep, chunk = 32 // op_bytes(form), 16 // op_bytes(form)
+    nsl, cp = -(-cout // ns), cin_pad(cin, form)
     wp = torch.zeros((nsl * ns, k * k, cp), dtype=w.dtype, device=w.device)
     wp[:cout, :, :cin] = w.reshape(cout, k * k, cin)
-    wp = wp.reshape(nsl, ns // 8, 8, k * k, cp // 16, 2, 8)
+    wp = wp.reshape(nsl, ns // 8, 8, k * k, cp // kstep, 2, chunk)
     return wp.permute(0, 3, 4, 1, 5, 2, 6).contiguous().reshape(-1)
 
 
@@ -93,55 +150,62 @@ def packed(w: torch.Tensor, ns: int) -> torch.Tensor:
     return hit[2]
 
 
-def b_offsets(ns: int) -> torch.Tensor:
-    """[ns, 16] element offsets, within one k16 step of a packed block, of
-    B[n, k]: core matrix (n // 8, k // 8) at (n // 8) * 256 + (k // 8) *
-    128 bytes (the descriptor's stride and leading byte offsets), row n % 8
-    at 16 bytes, element k % 8 at 2."""
+def b_offsets(ns: int, e: int = 2) -> torch.Tensor:
+    """[ns, 32 / e] element offsets, within one K step of a block packed in
+    e-byte elements, of B[n, k]: core matrix (n // 8, k // (16 / e)) at
+    (n // 8) * 256 + (k // (16 / e)) * 128 bytes (the descriptor's stride
+    and leading byte offsets), row n % 8 at 16 bytes, element k % (16 / e)
+    at e."""
+    chunk = 16 // e
     n = torch.arange(ns)[:, None]
-    q = torch.arange(16)[None, :]
-    return (n // 8) * 128 + (q // 8) * 64 + (n % 8) * 8 + q % 8
+    q = torch.arange(2 * chunk)[None, :]
+    return ((n // 8) * 256 + (q // chunk) * 128 + (n % 8) * 16) // e \
+        + q % chunk
 
 
 def group_stride(k: int, th: int = TH) -> int:
-    """Pixels between 8-channel groups of the operand tile of th rows: its
-    pixel count rounded to 1 modulo 8 (conv_sm90.cuh::group_stride)."""
+    """Pixels between 16-byte channel groups of the operand tile of th
+    rows: its pixel count rounded to 1 modulo 8
+    (conv_sm90.cuh::group_stride)."""
     return (th + k - 1) * (TW + k - 1) // 8 * 8 + 9
 
 
-def a_offsets(gs: int) -> torch.Tensor:
-    """[64, 16] element offsets, from an m64 tile's first pixel within one
-    k16 step of the operand tile, of A[i, k]: core matrix (i // 8, k // 8)
-    at (i // 8) * 128 + (k // 8) * gs * 16 bytes (the descriptor's stride
-    and leading byte offsets), pixel i % 8 at 16 bytes, element k % 8 at
-    2."""
+def a_offsets(gs: int, e: int = 2) -> torch.Tensor:
+    """[64, 32 / e] element offsets, from an m64 tile's first pixel within
+    one K step of the operand tile of e-byte elements, of A[i, k]: core
+    matrix (i // 8, k // (16 / e)) at (i // 8) * 128 + (k // (16 / e)) *
+    gs * 16 bytes (the descriptor's stride and leading byte offsets),
+    pixel i % 8 at 16 bytes, element k % (16 / e) at e."""
+    chunk = 16 // e
     i = torch.arange(64)[:, None]
-    q = torch.arange(16)[None, :]
-    return (i // 8) * 64 + (q // 8) * gs * 8 + (i % 8) * 8 + q % 8
+    q = torch.arange(2 * chunk)[None, :]
+    return ((i // 8) * 128 + (q // chunk) * gs * 16 + (i % 8) * 16) // e \
+        + q % chunk
 
 
-def _smem_bytes(cp, k, raw, ns, nwg, ws) -> int:
+def _smem_bytes(kbytes, k, raw, ns, nwg, ws, rows=2) -> int:
     """conv_sm90.cuh::layout's total bytes."""
-    th = 2 * nwg
-    pad = -(-(cp // 8 * group_stride(k, th) * 16) // 128) * 128
-    return (pad + (th + k - 1) * raw + ws * ns * cp * 2
+    th = rows * nwg
+    pad = -(-(kbytes // 16 * group_stride(k, th) * 16) // 128) * 128
+    return (pad + (th + k - 1) * raw + ws * ns * kbytes
             + nwg * TW * (ns + 4) * 4 + 2 * (1 + ws) * 8)
 
 
-def fit(cin: int, cout: int, k: int, ns: int):
+def fit(cin: int, cout: int, k: int, ns: int, form: int = BF16):
     """The kernel's shared-memory plan of a launch (conv_sm90.cuh::fit,
     which chip_smoke.py holds this to): (consumer warpgroups, weight ring
     depth, resident, bytes), or None for a shape it does not take."""
-    cp = cin_pad(cin)
+    cp = cin_pad(cin, form)
     if (k not in (1, 3, 5) or cin < 1 or cout < 1 or cp > MAX_CIN_PAD
-            or ns not in NS_CHOICES):
+            or ns not in ns_choices(form)):
         return None
     kblocks = -(-cout // ns) * k * k
-    raw = ((TW + k - 1) * cin * 2 + 30 + 15) // 16 * 16
+    raw = ((TW + k - 1) * cin * in_bytes(form) + 30 + 15) // 16 * 16
     for nwg in (2, 1):
         ws = kblocks
         while True:
-            total = _smem_bytes(cp, k, raw, ns, nwg, ws)
+            total = _smem_bytes(cp * op_bytes(form), k, raw, ns, nwg, ws,
+                                rows_at(ns, form))
             if total <= MAX_SMEM:
                 return nwg, ws, ws == kblocks, total
             ws = min(kblocks - 1, MAX_WS) if ws == kblocks else ws - 1
@@ -150,9 +214,9 @@ def fit(cin: int, cout: int, k: int, ns: int):
     return None
 
 
-def smem(lib, cin: int, cout: int, ks: int) -> int:
+def smem(lib, cin: int, cout: int, ks: int, form: int = BF16) -> int:
     """Shared memory of one launch, or -1 for a shape it does not take."""
-    return plan(lib, cin, cout, ks)[1]
+    return plan(lib, cin, cout, ks, form)[1]
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -160,84 +224,120 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def launch(lib, x, w, b, out, *, act="none", shuffle=False, in_affine=None,
-           out_affine=None, residual=None, out_inv=None) -> None:
-    """One launch: a same-padded k x k conv of NHWC bf16 x with the OHWI
-    weight w [Cout, k, k, Cin] into ``out`` (see conv_sm90.cu)."""
+           out_affine=None, residual=None, out_inv=None, scale=None,
+           in_inv=None) -> None:
+    """One launch: a same-padded k x k conv of NHWC x with the OHWI weight
+    w [Cout, k, k, Cin] into ``out`` (see conv_sm90.cu); with int8 weight
+    codes w, the int8 form (conv_sm90_i8.cu): ``scale`` and b are the
+    float32 dequant scale and bias, a bf16 x is quantised at ``in_inv``
+    (int8 codes x are taken as they are)."""
     n, h, wd, cin = x.shape
-    ns = plan(lib, cin, w.shape[0], w.shape[1])[0]
+    form = form_of(x, w)
+    ns = plan(lib, cin, w.shape[0], w.shape[1], form)[0]
     s_in, h_in = in_affine if in_affine is not None else (None, None)
     s_out, h_out = out_affine if out_affine is not None else (None, None)
-    err = lib.bnt_conv_sm90(
-        _ptr(x), _ptr(packed(w, ns)), _ptr(b), _ptr(s_in), _ptr(h_in),
-        _ptr(s_out), _ptr(h_out), _ptr(residual), _ptr(out_inv), _ptr(out),
-        n, h, wd, cin, w.shape[0], ACT_CODES[act], int(shuffle), w.shape[1],
-        ns, torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if form == BF16:
+        err = lib.bnt_conv_sm90(
+            _ptr(x), _ptr(packed(w, ns)), _ptr(b), _ptr(s_in), _ptr(h_in),
+            _ptr(s_out), _ptr(h_out), _ptr(residual), _ptr(out_inv),
+            _ptr(out), n, h, wd, cin, w.shape[0], ACT_CODES[act],
+            int(shuffle), w.shape[1], ns, stream)
+    else:
+        err = lib.bnt_conv_sm90_i8(
+            _ptr(x), _ptr(packed(w, ns)), _ptr(scale), _ptr(b),
+            _ptr(in_inv) if form == S8Q else None, _ptr(s_in), _ptr(h_in),
+            _ptr(s_out), _ptr(h_out), _ptr(residual), _ptr(out_inv),
+            _ptr(out), n, h, wd, cin, w.shape[0], ACT_CODES[act],
+            int(shuffle), w.shape[1], ns, stream)
     _build.check(err, "conv_sm90 launch")
 
 
-def _stage_tile(virt, base, shape, b, ty0, tx0, k, in_mul, in_add):
-    """The flat operand tile [cin_pad / 8][group_stride(k)][8] (bf16
-    values) of the output tile at (ty0, tx0) of image b, staged from the
-    16-byte-widened flat span of each in-image row of ``virt`` (x flat,
-    ``base`` elements after a 16-byte boundary, NaN elsewhere)."""
+def _stage_tile(virt, base, shape, b, ty0, tx0, k, in_mul, in_add,
+                form=BF16, in_inv=None):
+    """The flat operand tile [cin_pad * e / 16][group_stride(k)][16 / e]
+    (e = op_bytes(form): bf16 values, or int8 codes) of the output tile at
+    (ty0, tx0) of image b, staged from the 16-byte-widened flat span of
+    each in-image row of ``virt`` (x flat, ``base`` elements after a
+    16-byte boundary, NaN elsewhere); in ``S8Q`` quantised at ``in_inv``
+    after the prologue."""
     _, h, w, c = shape
     halo, ph, pw = (k - 1) // 2, TH + k - 1, TW + k - 1
+    per16 = 16 // in_bytes(form)         # input elements in 16 bytes
+    chunk = 16 // op_bytes(form)
+    cp = cin_pad(c, form)
     xs, xe = max(tx0 - halo, 0), min(tx0 - halo + pw, w)
-    tile = torch.zeros((ph, pw, cin_pad(c)))
+    tile = torch.zeros((ph, pw, cp))
     for r in range(ph):
         iy = ty0 - halo + r
         if not 0 <= iy < h:
             continue
         row = (b * h + iy) * w
         a0, a1 = base + (row + xs) * c, base + (row + xe) * c
-        lo, hi = a0 // 8 * 8, -(-a1 // 8) * 8
+        lo, hi = a0 // per16 * per16, -(-a1 // per16) * per16
         raw = virt[lo:hi]
         span = raw[a0 - lo:a0 - lo + (xe - xs) * c].reshape(xe - xs, c)
+        v = span * in_mul + in_add
+        if form == S8Q:
+            v = quant.quant_act(v, in_inv).float()
         col = xs - (tx0 - halo)
-        tile[r, col:col + xe - xs, :c] = span * in_mul + in_add
-    flat = torch.zeros((cin_pad(c) // 8, group_stride(k), 8))
-    flat[:, :ph * pw] = tile.reshape(ph * pw, -1, 8).transpose(0, 1)
-    return flat.to(torch.bfloat16).float().reshape(-1)
+        tile[r, col:col + xe - xs, :c] = v
+    flat = torch.zeros((cp // chunk, group_stride(k), chunk))
+    flat[:, :ph * pw] = tile.reshape(ph * pw, -1, chunk).transpose(0, 1)
+    if form == BF16:
+        flat = flat.to(torch.bfloat16).float()
+    return flat.reshape(-1)
 
 
 def emulate(x: torch.Tensor, wpk: torch.Tensor, b: torch.Tensor, *,
             cout: int, k: int, act: str = "none", shuffle: bool = False,
-            in_affine=None, out_affine=None, residual=None, out_inv=None
-            ) -> torch.Tensor:
+            in_affine=None, out_affine=None, residual=None, out_inv=None,
+            scale=None, in_inv=None) -> torch.Tensor:
     """The kernel's output for NHWC x and the packed weight ``wpk``
-    (``pack_weight(w, slice_width(cout))``), computed as the kernel does
-    on a CPU tensor: bf16, or int8 codes at ``out_inv``."""
+    (``pack_weight(w, slice_width(cout, form))``), computed as the kernel
+    does on a CPU tensor: bf16, or int8 codes at ``out_inv``.  Int8 codes
+    ``wpk`` give the int8 form: x int8 codes, or bf16 quantised at
+    ``in_inv``; the exact int32 sums dequantised by ``scale`` and b."""
     from .planar import ACTS
 
     n, h, w, c = x.shape
-    ns, cp, pw, gs = slice_width(cout), cin_pad(c), TW + k - 1, group_stride(k)
+    form = form_of(x, wpk)
+    e = op_bytes(form)
+    ns, cp, pw, gs = (slice_width(cout, form), cin_pad(c, form), TW + k - 1,
+                      group_stride(k))
+    kstep, chunk = 32 // e, 16 // e
     nsl = -(-cout // ns)
-    base = (x.data_ptr() % 16) // 2
-    virt = torch.full((base + x.numel() + 8,), float("nan"))
+    base = (x.data_ptr() % 16) // x.element_size()
+    virt = torch.full((base + x.numel() + 16,), float("nan"))
     virt[base:base + x.numel()] = x.reshape(-1).float()
     if in_affine is not None:
         in_mul, in_add = in_affine[0].float() + 1, in_affine[1].float()
     else:
         in_mul, in_add = torch.ones(c), torch.zeros(c)
-    wf, a_offs, b_offs = wpk.float(), a_offsets(gs), b_offsets(ns)
-    acc = torch.zeros((n, -(-h // TH) * TH, -(-w // TW) * TW, nsl * ns))
+    dtype = torch.float32 if form == BF16 else torch.float64
+    wf, a_offs, b_offs = wpk.to(dtype), a_offsets(gs, e), b_offsets(ns, e)
+    acc = torch.zeros((n, -(-h // TH) * TH, -(-w // TW) * TW, nsl * ns),
+                      dtype=dtype)
     for bi in range(n):
         for ty0 in range(0, h, TH):
             for tx0 in range(0, w, TW):
                 tile = _stage_tile(virt, base, x.shape, bi, ty0, tx0, k,
-                                   in_mul, in_add)
+                                   in_mul, in_add, form, in_inv).to(dtype)
                 for s in range(nsl):
                     for tap in range(k * k):
                         dy, dx = divmod(tap, k)
                         blk = (s * k * k + tap) * ns * cp
-                        for kk in range(cp // 16):
-                            bmat = wf[blk + kk * ns * 16 + b_offs]
+                        for kk in range(cp // kstep):
+                            bmat = wf[blk + kk * ns * kstep + b_offs]
                             for r in range(TH):  # one m64 tile a row
                                 p0 = (r + dy) * pw + dx
-                                a = tile[(p0 + 2 * kk * gs) * 8 + a_offs]
+                                a = tile[(p0 + 2 * kk * gs) * chunk + a_offs]
                                 acc[bi, ty0 + r, tx0:tx0 + TW,
                                     s * ns:(s + 1) * ns] += a @ bmat.T
-    v = ACTS[act](acc[:, :h, :w, :cout] + b.float())
+    acc = acc[:, :h, :w, :cout].float()
+    if form != BF16:
+        acc = acc * scale.float()
+    v = ACTS[act](acc + b.float())
     if out_affine is not None:
         v = v * (out_affine[0].float() + 1) + out_affine[1].float()
     if shuffle:
@@ -265,20 +365,33 @@ def cuda_conv(lib) -> Conv:
 
 def emulated_conv(x, w, b, shape, **kw) -> torch.Tensor:
     """A conv of the chains' form computed by ``emulate``."""
-    return emulate(x, pack_weight(w, slice_width(w.shape[0])), b,
-                   cout=w.shape[0], k=w.shape[1], **kw)
+    ns = slice_width(w.shape[0], form_of(x, w))
+    return emulate(x, pack_weight(w, ns), b, cout=w.shape[0], k=w.shape[1],
+                   **kw)
+
+
+def _w8a8(weights, **fields) -> dict:
+    """The launch options of one conv of a W8A8 stage (``StageWeightsI8``):
+    option -> the weights' field of that name (dequant scale, input
+    multiplier, int8 output multiplier); {} for bf16 weights."""
+    if not hasattr(weights, "scale0"):
+        return {}
+    return {opt: getattr(weights, f) for opt, f in fields.items()}
 
 
 def rsft(conv: Conv, y, weights, sft, out_inv=None) -> torch.Tensor:
     """ResBlockSFT of NHWC y as two convs: t = SFT1(gelu(conv0(SFT0(y)) +
     b0)); y + conv1(t) + b1, stored bf16 or as int8 codes at ``out_inv``.
     ``weights``: (w0, b0, w1, b1) OHWI, or a stage's weights with those
-    fields."""
+    fields; in W8A8 t is int8 codes at ``inv_t1``."""
     w0, b0, w1, b1 = (weights if isinstance(weights, tuple) else
                       (weights.w0, weights.b0, weights.w1, weights.b1))
     t = conv(y, w0, b0, y.shape, act="gelu", in_affine=(sft[0], sft[1]),
-             out_affine=(sft[2], sft[3]))
-    return conv(t, w1, b1, y.shape, residual=y, out_inv=out_inv)
+             out_affine=(sft[2], sft[3]),
+             **_w8a8(weights, scale="scale0", in_inv="inv_t0",
+                     out_inv="inv_t1"))
+    return conv(t, w1, b1, y.shape, residual=y, out_inv=out_inv,
+                **_w8a8(weights, scale="scale1"))
 
 
 def upconv_rsft(conv: Conv, x, weights, sft, out_inv=None) -> torch.Tensor:
@@ -287,7 +400,8 @@ def upconv_rsft(conv: Conv, x, weights, sft, out_inv=None) -> torch.Tensor:
     n, h, wd, _ = x.shape
     c = weights.w0.shape[0]
     y = conv(x, weights.conv_w, weights.conv_b, (n, 2 * h, 2 * wd, c),
-             act="sin", shuffle=True)
+             act="sin", shuffle=True,
+             **_w8a8(weights, scale="conv_scale", in_inv="inv_x"))
     return rsft(conv, y, weights, sft, out_inv)
 
 
@@ -295,12 +409,15 @@ def conv_rsft(conv: Conv, x, weights, sft, head=False, out_inv=None
               ) -> torch.Tensor:
     """The stride-1 stage as three convs, four with the head: y =
     sin(conv(x) + b), then ``rsft(y)``; with ``head`` the 3x3 conv to 3
-    channels with act outimg (tanh(v) * 0.5 + 0.5) on it (N slice 8)."""
+    channels with act outimg (tanh(v) * 0.5 + 0.5) on it (N slice 8), whose
+    input is, in W8A8, int8 codes at ``inv_h``."""
     c = weights.w0.shape[0]
     y = conv(x, weights.conv_w, weights.conv_b, x.shape[:3] + (c,),
-             act="sin")
+             act="sin", **_w8a8(weights, scale="conv_scale", in_inv="inv_x"))
+    if head:  # in W8A8 the head's input: int8 codes at inv_h
+        out_inv = getattr(weights, "inv_h", None)
     out = rsft(conv, y, weights, sft, out_inv)
     if head:
         out = conv(out, weights.head_w, weights.head_b, x.shape[:3] + (3,),
-                   act="outimg")
+                   act="outimg", **_w8a8(weights, scale="head_scale"))
     return out

@@ -25,13 +25,16 @@ stage's input bound) instead of bf16.
 The stage wrappers' tensors are NHWC on the fine grid: the TPU's
 subpixel-planar layout served Mosaic and is not part of their contract.
 Each wrapper runs its plain PyTorch version for a tensor on the CPU and its
-CUDA kernel (three or four launches of one fused 3x3 convolution:
-``ops/csrc/conv_sm90.cu`` for both bf16 wrappers, the chains
-``conv_sm90.upconv_rsft`` / ``conv_rsft``; ``ops/csrc/stage_conv_i8.cu``
-for W8A8) for a tensor on the card; on a CUDA tensor it launches or
-raises, it never falls back.  ``LAUNCHES`` (shared with ``tile_conv``,
-``conv_chw`` and ``fused_sft``) counts the wrapper calls that launched a
-CUDA kernel.
+CUDA kernel for a tensor on the card: three or four launches of one fused
+3x3 convolution, the chains ``conv_sm90.upconv_rsft`` / ``conv_rsft`` on
+the Hopper kernel, in its bf16 form (``ops/csrc/conv_sm90.cu``) for the
+bf16 wrappers and its int8 form (``ops/csrc/conv_sm90_i8.cu``) for the
+W8A8 ones.  On a CUDA tensor it launches or raises, it never falls back.
+The W8A8 stage kernel ``ops/csrc/stage_conv_i8.cu``, which served the
+W8A8 wrappers before, serves no wrapper: it stays built for the K2 probes
+and the same-call A/B (``probes.conv_rsft_i8_stage``).  ``LAUNCHES``
+(shared with ``tile_conv``, ``conv_chw`` and ``fused_sft``) counts the
+wrapper calls that launched a CUDA kernel.
 
 The standalone planar entry points of the same Pallas module keep the
 planar layout, because it is their own input and output contract:
@@ -324,21 +327,6 @@ def launch_conv(lib, x, w, b, out, *, act="none", shuffle=False,
     _build.check(err, "stage_conv launch")
 
 
-def _conv3x3_i8(lib, x, codes, scale, bias, out, *, act="none",
-                shuffle=False, in_inv=None, in_affine=None, out_affine=None,
-                residual=None, out_inv=None):
-    n, h, wd, cin = x.shape
-    s_in, h_in = in_affine if in_affine is not None else (None, None)
-    s_out, h_out = out_affine if out_affine is not None else (None, None)
-    err = lib.bnt_stage_conv3x3_i8(
-        _ptr(x), _ptr(codes), _ptr(scale), _ptr(bias),
-        None if x.dtype == torch.int8 else _ptr(in_inv), _ptr(s_in),
-        _ptr(h_in), _ptr(s_out), _ptr(h_out), _ptr(residual), _ptr(out_inv),
-        _ptr(out), n, h, wd, cin, codes.shape[0], _ACT[act], int(shuffle),
-        int(x.dtype == torch.int8), _stream(x))
-    _build.check(err, "stage_conv3x3_i8 launch")
-
-
 def _check_inputs(x, sft, out_inv, c_in, c, head, tensors, x_dtypes,
                   smem_fn, convs):
     """A stage's inputs: ``check_tensors`` with the SFT vectors and the
@@ -401,8 +389,10 @@ def stage_smem(lib):
 
 
 def sm90_smem(lib):
-    """The shared-memory fit of the Hopper kernel (``conv_sm90.cu``)."""
-    return lambda cin, cout, ks: conv_sm90.smem(lib, cin, cout, ks)
+    """The shared-memory fit of the Hopper kernel (``conv_sm90.cu``, or
+    with a form the int8 ``conv_sm90_i8.cu``)."""
+    return lambda cin, cout, ks, form=conv_sm90.BF16: conv_sm90.smem(
+        lib, cin, cout, ks, form)
 
 
 def _check_conv(x, w, b, k, ks, act, smem_fn=stage_smem):
@@ -452,10 +442,10 @@ def _check_rsft(x, w0, b0, w1, b1, sft, smem_fn=stage_smem):
     return check_tensors(x, c, tensors, (bf,), smem_fn, [(c, c, 3)])
 
 
-def _stage_convs(c_in, c, up, head, *ks):
-    """(Cin, Cout, *ks) of each conv of a stage."""
-    return [(c_in, 4 * c if up else c, *ks), (c, c, *ks)] + (
-        [(c, 3, *ks)] if head else [])
+def _stage_convs(c_in, c, up, head):
+    """(Cin, Cout, 3) of each conv of a stage."""
+    return [(c_in, 4 * c if up else c, 3), (c, c, 3)] + (
+        [(c, 3, 3)] if head else [])
 
 
 def _check_bf16(x, w: StageWeights, sft, out_inv, c_in, c, head, up):
@@ -472,10 +462,13 @@ def _check_bf16(x, w: StageWeights, sft, out_inv, c_in, c, head, up):
         tensors += [("weights.head_w", w.head_w, (3, 3, 3, c), bf),
                     ("weights.head_b", w.head_b, (3,), bf)]
     return _check_inputs(x, sft, out_inv, c_in, c, head, tensors, (bf,),
-                         sm90_smem, _stage_convs(c_in, c, up, head, 3))
+                         sm90_smem, _stage_convs(c_in, c, up, head))
 
 
 def _check_i8(x, w: StageWeightsI8, sft, out_inv, c_in, c, head, up):
+    """``_check_inputs`` for a W8A8 stage, its convs fitted by the int8
+    Hopper kernel: the stage conv in its input's form, conv0 quantising
+    bf16 y, conv1 and the head on int8 codes."""
     i8, f32 = torch.int8, torch.float32
     cout = 4 * c if up else c
     tensors = [("w.conv_w", w.conv_w, (cout, 3, 3, c_in), i8),
@@ -492,10 +485,11 @@ def _check_i8(x, w: StageWeightsI8, sft, out_inv, c_in, c, head, up):
                     ("w.head_scale", w.head_scale, (3,), f32),
                     ("w.head_b", w.head_b, (3,), f32),
                     ("w.inv_h", w.inv_h, (c,), f32)]
+    s8, s8q = conv_sm90.S8, conv_sm90.S8Q
+    convs = [(c_in, cout, 3, s8 if x.dtype == i8 else s8q), (c, c, 3, s8q),
+             (c, c, 3, s8)] + ([(c, 3, 3, s8)] if head else [])
     return _check_inputs(x, sft, out_inv, c_in, c, head, tensors,
-                         (torch.int8, torch.bfloat16),
-                         lambda lib: lib.bnt_stage_conv3x3_i8_smem,
-                         _stage_convs(c_in, c, up, head))
+                         (torch.int8, torch.bfloat16), sm90_smem, convs)
 
 
 def _channels(conv_w, up):
@@ -575,17 +569,6 @@ def fused_conv_rsft(x: torch.Tensor, weights: StageWeights,
     return out
 
 
-def _rsft_i8_cuda(lib, y, w: StageWeightsI8, sft, out_inv):
-    t = torch.empty(y.shape, dtype=torch.int8, device=y.device)
-    _conv3x3_i8(lib, y, w.w0, w.scale0, w.b0, t, act="gelu", in_inv=w.inv_t0,
-                in_affine=(sft[0], sft[1]), out_affine=(sft[2], sft[3]),
-                out_inv=w.inv_t1)
-    out = _out(y, y.shape, out_inv)
-    _conv3x3_i8(lib, t, w.w1, w.scale1, w.b1, out, residual=y,
-                out_inv=out_inv)
-    return out
-
-
 def fused_upconv_rsft_i8(x: torch.Tensor, w: StageWeightsI8,
                          sft: torch.Tensor,
                          out_inv: Optional[torch.Tensor] = None
@@ -595,13 +578,8 @@ def fused_upconv_rsft_i8(x: torch.Tensor, w: StageWeightsI8,
     c_in, c = _channels(w.conv_w, up=True)
     if not _check_i8(x, w, sft, out_inv, c_in, c, False, True):
         return fused_upconv_rsft_i8_plain(x, w, sft, out_inv)
-    lib = _build.load_library()
-    n, h, wd, _ = x.shape
-    y = torch.empty((n, 2 * h, 2 * wd, c), dtype=torch.bfloat16,
-                    device=x.device)
-    _conv3x3_i8(lib, x, w.conv_w, w.conv_scale, w.conv_b, y, act="sin",
-                shuffle=True, in_inv=w.inv_x)
-    out = _rsft_i8_cuda(lib, y, w, sft, out_inv)
+    out = conv_sm90.upconv_rsft(conv_sm90.cuda_conv(_build.load_library()),
+                                x, w, sft, out_inv)
     LAUNCHES["fused_upconv_rsft_i8"] += 1
     return out
 
@@ -617,19 +595,8 @@ def fused_conv_rsft_i8(x: torch.Tensor, w: StageWeightsI8,
     if not _check_i8(x, w, sft, out_inv, c_in, c, head, False):
         return fused_conv_rsft_i8_plain(x, w, sft, head=head,
                                         out_inv=out_inv)
-    lib = _build.load_library()
-    y = torch.empty(x.shape[:3] + (c,), dtype=torch.bfloat16,
-                    device=x.device)
-    _conv3x3_i8(lib, x, w.conv_w, w.conv_scale, w.conv_b, y, act="sin",
-                in_inv=w.inv_x)
-    if head:
-        hq = _rsft_i8_cuda(lib, y, w, sft, w.inv_h)
-        out = torch.empty(x.shape[:3] + (3,), dtype=torch.bfloat16,
-                          device=x.device)
-        _conv3x3_i8(lib, hq, w.head_w, w.head_scale, w.head_b, out,
-                    act="outimg")
-    else:
-        out = _rsft_i8_cuda(lib, y, w, sft, out_inv)
+    out = conv_sm90.conv_rsft(conv_sm90.cuda_conv(_build.load_library()),
+                              x, w, sft, head, out_inv)
     LAUNCHES["fused_conv_rsft_i8"] += 1
     return out
 

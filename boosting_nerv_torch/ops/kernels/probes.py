@@ -21,7 +21,11 @@ its own CUDA units of ``ops/csrc``, each beside its plain PyTorch version:
 - ``conv_sm90_probe`` (K5, ``conv_sm90_probe.cu`` and the per-N units
   ``conv_sm90_probe_56.cu``, ``_64.cu``, ``_80.cu``): one 3x3 launch of
   the Hopper kernel ``conv_sm90.cu`` with a probe's ``phases``, where
-  "nostage" knocks out the consumers' repack into the operand tile.
+  "nostage" knocks out the consumers' repack into the operand tile; with
+  int8 weight codes the same on its int8 form (``conv_sm90_i8.cu``'s
+  instances: ``conv_sm90_i8_probe.cu`` and ``_64.cu``, ``_64q.cu``,
+  ``_80.cu``), which the int8 stage chains ``conv_rsft_i8_probe`` /
+  ``upconv_rsft_i8_probe`` take with ``sm90``.
 
 What each knockout computes, so that it is checked and not only timed:
 no STAGE stages zeros and no GEMM multiplies by zero weights (both give
@@ -35,7 +39,8 @@ chain the launches of a stride-1 stage, with the same probe mode on every
 launch; with "all" they equal, bit for bit, the same chain on the
 production instances: ``conv_rsft_stage`` (the stage kernel, K1),
 ``planar.fused_conv_rsft`` (the Hopper kernel, K5) and
-``planar.fused_conv_rsft_i8``.
+``conv_rsft_i8_stage`` (the W8A8 stage kernel, K2; the chain the W8A8
+wrappers ran before they moved onto ``conv_sm90_i8.cu``).
 
 Each wrapper runs its plain version for a tensor on the CPU and launches
 its kernel for one on the card, or raises ValueError; it never falls back.
@@ -222,6 +227,77 @@ def conv_rsft_stage(x: torch.Tensor, weights: StageWeights,
     return out
 
 
+def _conv3x3_i8(lib, x, codes, scale, bias, out, *, act="none",
+                shuffle=False, in_inv=None, in_affine=None, out_affine=None,
+                residual=None, out_inv=None):
+    """One launch of the W8A8 stage kernel's production instance
+    (``stage_conv_i8.cu``): x int8 codes, or bf16 quantised at
+    ``in_inv``."""
+    n, h, wd, cin = x.shape
+    s_in, h_in = in_affine if in_affine is not None else (None, None)
+    s_out, h_out = out_affine if out_affine is not None else (None, None)
+    err = lib.bnt_stage_conv3x3_i8(
+        _ptr(x), _ptr(codes), _ptr(scale), _ptr(bias),
+        None if x.dtype == torch.int8 else _ptr(in_inv), _ptr(s_in),
+        _ptr(h_in), _ptr(s_out), _ptr(h_out), _ptr(residual), _ptr(out_inv),
+        _ptr(out), n, h, wd, cin, codes.shape[0], _ACT[act], int(shuffle),
+        int(x.dtype == torch.int8), _stream(x))
+    _build.check(err, "stage_conv3x3_i8 launch")
+
+
+def _rsft_i8_stage(lib, y, w: StageWeightsI8, sft, out_inv):
+    t = torch.empty(y.shape, dtype=torch.int8, device=y.device)
+    _conv3x3_i8(lib, y, w.w0, w.scale0, w.b0, t, act="gelu", in_inv=w.inv_t0,
+                in_affine=(sft[0], sft[1]), out_affine=(sft[2], sft[3]),
+                out_inv=w.inv_t1)
+    out = torch.empty(y.shape, dtype=torch.int8 if out_inv is not None
+                      else torch.bfloat16, device=y.device)
+    _conv3x3_i8(lib, t, w.w1, w.scale1, w.b1, out, residual=y,
+                out_inv=out_inv)
+    return out
+
+
+def upconv_rsft_i8_stage(x: torch.Tensor, w: StageWeightsI8,
+                         sft: torch.Tensor,
+                         out_inv: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """The W8A8 stride-2 stage on the W8A8 stage kernel's production
+    instances (``stage_conv_i8.cu``: the chain ``planar.
+    fused_upconv_rsft_i8`` ran before it moved onto ``conv_sm90_i8.cu``),
+    on the card: the old chain of chip_smoke.py's same-call A/B.  It
+    counts no launch: no wrapper serves it."""
+    lib = _build.load_library()
+    n, h, wd, _ = x.shape
+    y = torch.empty((n, 2 * h, 2 * wd, w.w0.shape[0]), dtype=torch.bfloat16,
+                    device=x.device)
+    _conv3x3_i8(lib, x, w.conv_w, w.conv_scale, w.conv_b, y, act="sin",
+                shuffle=True, in_inv=w.inv_x)
+    return _rsft_i8_stage(lib, y, w, sft, out_inv)
+
+
+def conv_rsft_i8_stage(x: torch.Tensor, w: StageWeightsI8,
+                       sft: torch.Tensor, head: bool = False,
+                       out_inv: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The W8A8 stride-1 stage on the W8A8 stage kernel's production
+    instances (``planar.fused_conv_rsft_i8``'s chain before it moved onto
+    ``conv_sm90_i8.cu``), on the card: K2's exact reference and the old
+    chain of chip_smoke.py's same-call A/B.  It counts no launch."""
+    lib = _build.load_library()
+    y = torch.empty(x.shape[:3] + (w.w0.shape[0],), dtype=torch.bfloat16,
+                    device=x.device)
+    _conv3x3_i8(lib, x, w.conv_w, w.conv_scale, w.conv_b, y, act="sin",
+                in_inv=w.inv_x)
+    if not head:
+        return _rsft_i8_stage(lib, y, w, sft, out_inv)
+    hq = _rsft_i8_stage(lib, y, w, sft, w.inv_h)
+    out = torch.empty(x.shape[:3] + (3,), dtype=torch.bfloat16,
+                      device=x.device)
+    _conv3x3_i8(lib, hq, w.head_w, w.head_scale, w.head_b, out,
+                act="outimg")
+    return out
+
+
 def conv_rsft_probe(x: torch.Tensor, weights: StageWeights, sft: torch.Tensor,
                     *, head: bool = False, phases: str = "all",
                     staging: str = "smem", bufs: Optional[Sequence] = None,
@@ -260,12 +336,28 @@ def conv_sm90_probe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                     out_affine: Optional[Tuple[torch.Tensor, ...]] = None,
                     residual: Optional[torch.Tensor] = None,
                     phases: str = "all", staging: str = "smem",
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out: Optional[torch.Tensor] = None,
+                    scale: Optional[torch.Tensor] = None,
+                    in_inv: Optional[torch.Tensor] = None,
+                    out_inv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One 3x3 launch of the Hopper kernel (``conv_sm90.launch``'s
     function, bf16 store) with a probe's phases; "nostage" knocks out the
     repack (the operand tile is zeroed once and never restaged).
     Arguments as ``stage_conv_probe``'s (Cin <= 128 on the card, staging
-    "smem" only); its plain version is ``stage_conv_probe_plain``."""
+    "smem" only); its plain version is ``stage_conv_probe_plain``.  With
+    int8 weight codes w, its int8 form (``conv_sm90_i8_probe*.cu``):
+    ``scale`` and b the float32 dequant scale and bias, x int8 codes or
+    bf16 quantised at ``in_inv``, the output bf16 or int8 codes at
+    ``out_inv``; its plain version is then ``stage_conv_i8_probe_plain``
+    (the knockouts compute what K2's do)."""
+    if w.dtype == torch.int8:
+        return _conv_sm90_i8_probe(
+            x, w, scale, b, act=act, shuffle=shuffle, in_inv=in_inv,
+            in_affine=in_affine, out_affine=out_affine, residual=residual,
+            out_inv=out_inv, phases=phases, staging=staging, out=out)
+    if out_inv is not None:
+        raise ValueError("the bf16 probe stores bf16: out_inv is for int8 "
+                         "weight codes")
     mask = _mask(phases, staging, {"smem": 0})
     kw = {"act": act, "shuffle": shuffle, "in_affine": in_affine,
           "out_affine": out_affine, "residual": residual, "out": out}
@@ -285,6 +377,44 @@ def conv_sm90_probe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     _build.check(err, "conv_sm90_probe launch")
     LAUNCHES["conv_sm90_probe"] += 1
     return out
+
+
+def _conv_sm90_i8_probe(x, codes, scale, bias, *, act, shuffle, in_inv,
+                        in_affine, out_affine, residual, out_inv, phases,
+                        staging, out):
+    """``conv_sm90_probe``'s int8 form."""
+    mask = _mask(phases, staging, {"smem": 0})
+    tensors, shape, dtype = _i8_tensors(x, codes, scale, bias, act, shuffle,
+                                        in_inv, in_affine, out_affine,
+                                        residual, out_inv, out)
+    cout, cin = codes.shape[0], codes.shape[3]
+    form = conv_sm90.S8 if x.dtype == torch.int8 else conv_sm90.S8Q
+    if not check_tensors(x, cin, tensors, (torch.int8, torch.bfloat16),
+                         sm90_smem, [(cin, cout, 3, form)]):
+        return stage_conv_i8_probe_plain(
+            x, codes, scale, bias, act=act, shuffle=shuffle, in_inv=in_inv,
+            in_affine=in_affine, out_affine=out_affine, residual=residual,
+            out_inv=out_inv, phases=phases, out=out)
+    out = _out(x, shape, dtype, mask, out)
+    s_in, h_in = in_affine if in_affine is not None else (None, None)
+    s_out, h_out = out_affine if out_affine is not None else (None, None)
+    lib = _build.load_library()
+    ns = conv_sm90.plan(lib, cin, cout, 3, form)[0]
+    err = lib.bnt_conv_sm90_i8_probe(
+        _ptr(x), _ptr(conv_sm90.packed(codes, ns)), _ptr(scale), _ptr(bias),
+        _ptr(in_inv) if form == conv_sm90.S8Q else None, _ptr(s_in),
+        _ptr(h_in), _ptr(s_out), _ptr(h_out), _ptr(residual), _ptr(out_inv),
+        _ptr(out), *x.shape[:3], cin, cout, _ACT[act], int(shuffle), 3, ns,
+        mask, _stream(x))
+    _build.check(err, "conv_sm90_probe launch")
+    LAUNCHES["conv_sm90_probe"] += 1
+    return out
+
+
+def _sm90_i8_launch(x, codes, scale, bias, **kw):
+    """``conv_sm90_probe``'s int8 form with ``stage_conv_i8_probe``'s
+    argument order, for the int8 stage chains."""
+    return conv_sm90_probe(x, codes, bias, scale=scale, **kw)
 
 
 # --------------------------------------------------------------------- #
@@ -333,29 +463,16 @@ def stage_conv_i8_probe_plain(x: torch.Tensor, codes: torch.Tensor,
                      else quant.quant_act(v, out_inv))
 
 
-def stage_conv_i8_probe(x: torch.Tensor, codes: torch.Tensor,
-                        scale: torch.Tensor, bias: torch.Tensor, *,
-                        act: str = "none", shuffle: bool = False,
-                        in_inv: Optional[torch.Tensor] = None,
-                        in_affine: Optional[Tuple[torch.Tensor, ...]] = None,
-                        out_affine: Optional[Tuple[torch.Tensor, ...]] = None,
-                        residual: Optional[torch.Tensor] = None,
-                        out_inv: Optional[torch.Tensor] = None,
-                        phases: str = "all", staging: str = "smem",
-                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One 3x3 launch of the W8A8 kernel with a probe's phases and staging:
-    x int8 codes or bf16 (quantised at ``in_inv``) [N, H, W, Cin], 33 <= Cin
-    <= 64 on the card ("async": int8 codes with their channels padded to
-    64), int8 OHWI ``codes`` with float32 ``scale`` and ``bias`` [Cout];
-    the output is int8 codes at ``out_inv`` or bf16."""
-    mask = _mask(phases, staging, STAGING_I8)
+def _i8_tensors(x, codes, scale, bias, act, shuffle, in_inv, in_affine,
+                out_affine, residual, out_inv, out):
+    """(``check_tensors``'s tensors, output shape, output dtype) of one
+    int8 probe launch; raises for an act or a weight it does not take."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {tuple(ACTS)}, got {act!r}")
     if codes.dim() != 4 or tuple(codes.shape[1:3]) != (3, 3):
         raise ValueError(f"codes must be OHWI [Cout, 3, 3, Cin], got "
                          f"{tuple(codes.shape)}")
     cout, cin = codes.shape[0], codes.shape[3]
-    x_c = (cin + 31) // 32 * 32 if staging == "async" else cin
     shape = _out_shape(x, cout, shuffle)
     f32 = torch.float32
     dtype = torch.bfloat16 if out_inv is None else torch.int8
@@ -372,6 +489,30 @@ def stage_conv_i8_probe(x: torch.Tensor, codes: torch.Tensor,
         tensors.append(("residual", residual, shape, torch.bfloat16))
     if out is not None:
         tensors.append(("out", out, shape, dtype))
+    return tensors, shape, dtype
+
+
+def stage_conv_i8_probe(x: torch.Tensor, codes: torch.Tensor,
+                        scale: torch.Tensor, bias: torch.Tensor, *,
+                        act: str = "none", shuffle: bool = False,
+                        in_inv: Optional[torch.Tensor] = None,
+                        in_affine: Optional[Tuple[torch.Tensor, ...]] = None,
+                        out_affine: Optional[Tuple[torch.Tensor, ...]] = None,
+                        residual: Optional[torch.Tensor] = None,
+                        out_inv: Optional[torch.Tensor] = None,
+                        phases: str = "all", staging: str = "smem",
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One 3x3 launch of the W8A8 kernel with a probe's phases and staging:
+    x int8 codes or bf16 (quantised at ``in_inv``) [N, H, W, Cin], 33 <= Cin
+    <= 64 on the card ("async": int8 codes with their channels padded to
+    64), int8 OHWI ``codes`` with float32 ``scale`` and ``bias`` [Cout];
+    the output is int8 codes at ``out_inv`` or bf16."""
+    mask = _mask(phases, staging, STAGING_I8)
+    tensors, shape, dtype = _i8_tensors(x, codes, scale, bias, act, shuffle,
+                                        in_inv, in_affine, out_affine,
+                                        residual, out_inv, out)
+    cout, cin = codes.shape[0], codes.shape[3]
+    x_c = (cin + 31) // 32 * 32 if staging == "async" else cin
     x_dtypes = (torch.int8,) if staging == "async" else (torch.int8,
                                                          torch.bfloat16)
     if not check_tensors(x, x_c, tensors, x_dtypes,
@@ -401,18 +542,17 @@ def stage_conv_i8_probe(x: torch.Tensor, codes: torch.Tensor,
     return out
 
 
-def conv_rsft_i8_probe(x: torch.Tensor, w: StageWeightsI8, sft: torch.Tensor,
-                       *, head: bool = False,
-                       out_inv: Optional[torch.Tensor] = None,
-                       phases: str = "all", staging: str = "smem",
-                       bufs: Optional[Sequence] = None,
-                       plain: bool = False) -> torch.Tensor:
-    """A W8A8 stride-1 stage (``planar.fused_conv_rsft_i8``'s launches),
-    every launch with the same probe mode; x int8 codes or bf16."""
-    launch = stage_conv_i8_probe_plain if plain else stage_conv_i8_probe
+def _i8_stage_probe(x, w: StageWeightsI8, sft, *, up, head, out_inv,
+                    phases, staging, bufs, plain, sm90):
+    """A W8A8 stage's launches (the stage conv, the ResBlockSFT pair, the
+    optional head), every launch with the same probe mode, on the W8A8
+    stage kernel (K2) or with ``sm90`` on the int8 form of the Hopper
+    kernel (K5); x int8 codes or bf16."""
+    launch = (stage_conv_i8_probe_plain if plain else
+              _sm90_i8_launch if sm90 else stage_conv_i8_probe)
     bufs = list(bufs) if bufs is not None else [None] * 4
     mode = {"phases": phases, "staging": staging}
-    y = launch(x, w.conv_w, w.conv_scale, w.conv_b, act="sin",
+    y = launch(x, w.conv_w, w.conv_scale, w.conv_b, act="sin", shuffle=up,
                in_inv=None if x.dtype == torch.int8 else w.inv_x,
                out=bufs[0], **mode)
     t = launch(y, w.w0, w.scale0, w.b0, act="gelu", in_inv=w.inv_t0,
@@ -424,6 +564,36 @@ def conv_rsft_i8_probe(x: torch.Tensor, w: StageWeightsI8, sft: torch.Tensor,
         out = launch(out, w.head_w, w.head_scale, w.head_b, act="outimg",
                      out=bufs[3], **mode)
     return out
+
+
+def conv_rsft_i8_probe(x: torch.Tensor, w: StageWeightsI8, sft: torch.Tensor,
+                       *, head: bool = False,
+                       out_inv: Optional[torch.Tensor] = None,
+                       phases: str = "all", staging: str = "smem",
+                       bufs: Optional[Sequence] = None,
+                       plain: bool = False, sm90: bool = False
+                       ) -> torch.Tensor:
+    """A W8A8 stride-1 stage (``planar.fused_conv_rsft_i8``'s launches),
+    every launch with the same probe mode, on the W8A8 stage kernel or
+    with ``sm90`` on the int8 form of the Hopper kernel; x int8 codes or
+    bf16."""
+    return _i8_stage_probe(x, w, sft, up=False, head=head, out_inv=out_inv,
+                           phases=phases, staging=staging, bufs=bufs,
+                           plain=plain, sm90=sm90)
+
+
+def upconv_rsft_i8_probe(x: torch.Tensor, w: StageWeightsI8,
+                         sft: torch.Tensor, *,
+                         out_inv: Optional[torch.Tensor] = None,
+                         phases: str = "all", staging: str = "smem",
+                         bufs: Optional[Sequence] = None,
+                         plain: bool = False, sm90: bool = False
+                         ) -> torch.Tensor:
+    """A W8A8 stride-2 stage (``planar.fused_upconv_rsft_i8``'s launches),
+    as ``conv_rsft_i8_probe``."""
+    return _i8_stage_probe(x, w, sft, up=True, head=False, out_inv=out_inv,
+                           phases=phases, staging=staging, bufs=bufs,
+                           plain=plain, sm90=sm90)
 
 
 # --------------------------------------------------------------------- #

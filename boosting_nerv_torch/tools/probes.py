@@ -22,7 +22,9 @@ port's kernels (``VARIANTS``; the wrappers are ``ops/kernels/probes.py``):
 - K5 ``conv_sm90_probe``: the Hopper kernel ``conv_sm90.cu`` with one
   phase knocked out (the repack into the operand tile, the wgmma GEMM, the
   epilogue, the store), at the stage chains and the conv_tile call that K1
-  probes, the counterpart of K1 on the kernel that now serves them.
+  probes, the counterpart of K1 on the kernel that now serves them; and
+  its int8 form (``conv_sm90_i8.cu``) at the W8A8 stage 7 + head and
+  stage 6, the counterpart of K2.
 
 Mosaic's tactics (K-buffers, lane rolls, VMEM slots, compiler-crash
 bisects on a deviceless TPU) have no counterpart; where a TPU variant
@@ -43,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 import re
 import shutil
@@ -69,6 +72,7 @@ SHAPES = {
     "s5": ((540, 960, 61, 61), (9, 50, 36, 36)),
     "s3": ((270, 480, 73, 73), (9, 50, 70, 70)),
     "ct6": ((540, 960, 61, 204), (9, 50, 36, 44)),
+    "s6": ((540, 960, 61, 51), (9, 50, 24, 40)),   # stride 2: out 2H x 2W
 }
 FAMILIES = {  # family: (wrapper, source, the variant of its headline)
     "K1": ("stage_conv_probe",
@@ -85,7 +89,8 @@ FAMILIES = {  # family: (wrapper, source, the variant of its headline)
 }
 PROBE_SOURCES = tuple(os.path.basename(src) for _, src, _ in
                       FAMILIES.values()) + tuple(
-    f"conv_sm90_probe_{ns}.cu" for ns in (56, 64, 80))
+    f"conv_sm90_probe_{ns}.cu" for ns in (56, 64, 80)) + tuple(
+    f"conv_sm90_i8_probe{u}.cu" for u in ("", "_64", "_64q", "_80"))
 NO_GEMM = kp.PHASES["nogemm"]
 # K5 knocks out the repack, its kernel's STAGE phase
 LABELS = {"K5": {"nostage": "norepack"}}
@@ -378,9 +383,10 @@ def _k5_conv(name, phases):
 # K2: the W8A8 stage kernel
 # --------------------------------------------------------------------- #
 
-def _stage_i8(ctx, name, head):
-    """A codes-in W8A8 stride-1 stage: int8 x, folded weights and random
-    bounds; codes out (``out_inv``) without the head."""
+def _stage_i8(ctx, name, head, up=False):
+    """A codes-in W8A8 stage, stride 1 or with ``up`` stride 2 (an upconv
+    Cin -> 4C, shuffled): int8 x, folded weights and random bounds; codes
+    out (``out_inv``) without the head."""
     def make():
         h, w, cin, c = ctx.shape(name)
 
@@ -394,12 +400,53 @@ def _stage_i8(ctx, name, head):
 
         bounds = {"x": bnd(cin), "t0": bnd(c), "t1": bnd(c), "h": bnd(c)}
         ws = planar.StageWeightsI8.from_oihw(
-            conv(cin, c), conv(c, c), conv(c, c),
+            conv(cin, 4 * c if up else c), conv(c, c), conv(c, c),
             conv(c, 3) if head else None, bounds=bounds)
         out_inv = None if head else quant.inv_from_bound(bnd(c)).to(
             ctx.device)
         return ctx.codes(1, h, w, cin), ws, _sft(ctx, c), out_inv
-    return ctx.once(("i8", name, head), make)
+    return ctx.once(("i8", name, head, up), make)
+
+
+def _k5_i8(name, head, up, phases):
+    """A W8A8 stage chain on the int8 form of conv_sm90.cu (codes in;
+    stride 2 with ``up``), "all"'s exact reference its production
+    wrapper ``planar.fused_(up)conv_rsft_i8``."""
+    def make(ctx):
+        x, ws, sft, out_inv = _stage_i8(ctx, name, head, up)
+        _, h, w, cin = x.shape
+        c = ws.w0.shape[0]
+        hf, wf = (2 * h, 2 * w) if up else (h, w)
+        store = phases != "nostore"
+        bufs = [_buf((1, hf, wf, c), BF16, store, x.device),
+                _buf((1, hf, wf, c), I8, store, x.device),
+                _buf((1, hf, wf, c), I8 if head or out_inv is not None
+                     else BF16, store, x.device),
+                _buf((1, hf, wf, 3), BF16, store, x.device) if head
+                else None]
+        chain = kp.upconv_rsft_i8_probe if up else functools.partial(
+            kp.conv_rsft_i8_probe, head=head)
+        mode = {"out_inv": out_inv, "phases": phases}
+
+        def run():
+            return chain(x, ws, sft, bufs=bufs, sm90=True, **mode)
+
+        def plain():
+            return chain(x, ws, sft, plain=True, **mode)
+
+        if up:
+            ref = (lambda: planar.fused_upconv_rsft_i8(x, ws, sft, out_inv))
+            ops = 2 * 9 * (h * w * cin * 4 * c + 2 * hf * wf * c * c)
+        else:
+            ref = (lambda: planar.fused_conv_rsft_i8(x, ws, sft, head=head,
+                                                     out_inv=out_inv))
+            ops = _stage_ops(h, w, cin, c, head)
+        return Call(run, ops, _nbytes(x, bufs[3] if head else bufs[2], sft,
+                                      *vars(ws).values()), kind="int8",
+                    check=_checks(run, plain, ref if phases == "all"
+                                  else None, phases),
+                    out_inv=out_inv, plain=plain)
+    return make
 
 
 def _k2_stage(name, head, phases, staging="smem"):
@@ -422,8 +469,8 @@ def _k2_stage(name, head, phases, staging="smem"):
         def plain():
             return kp.conv_rsft_i8_probe(x, ws, sft, plain=True, **mode)
 
-        ref = ((lambda: planar.fused_conv_rsft_i8(x, ws, sft, head=head,
-                                                  out_inv=out_inv))
+        ref = ((lambda: kp.conv_rsft_i8_stage(x, ws, sft, head=head,
+                                              out_inv=out_inv))
                if phases == "all" else None)
         return Call(run, _stage_ops(h, w, cin, c, head),
                     _nbytes(x, bufs[3] if head else bufs[2], sft,
@@ -598,6 +645,16 @@ def _variants() -> Dict[str, Variant]:
         for ph in KNOCKOUTS:
             v[f"{key}.{ph}"] = Variant("K5", f"{what}, {_label('K5', ph)}",
                                        _k5_stage(name, head, ph))
+    for key, name, head, up, what in (
+            ("s7.sm90i8", "s7", True, False, "fused_conv_rsft_i8 + head on "
+             "conv_sm90_i8.cu, codes in, 4 launches, 1080x1920x51 (stage "
+             "7)"),
+            ("s6.sm90i8", "s6", False, True, "fused_upconv_rsft_i8 on "
+             "conv_sm90_i8.cu, codes in and out, 3 launches, 540x960x61 -> "
+             "1080x1920x51 (stage 6)")):
+        for ph in KNOCKOUTS:
+            v[f"{key}.{ph}"] = Variant("K5", f"{what}, {_label('K5', ph)}",
+                                       _k5_i8(name, head, up, ph))
     for ph in KNOCKOUTS:
         v[f"ct6.sm90.{ph}"] = Variant(
             "K5", f"conv 61->204 + bias on conv_sm90.cu, 540x960 (v2 "
@@ -770,8 +827,10 @@ PROBES: Dict[str, Site] = {
         "2 * 9 * H * W * 51 * 51 operations"),
     "tools/r4_int8_probe.py:168": Site(
         "int8 B+head@540 without the K-buffer builds (noprolog)",
-        ("s7.i8.nostage", "s7.i8.all"),
-        "K2 no STAGE on fused_conv_rsft_i8 + head at 1080x1920x51",
+        ("s7.i8.nostage", "s7.i8.all", "s7.sm90i8.nostage",
+         "s7.sm90i8.all"),
+        "K2 no STAGE on fused_conv_rsft_i8 + head at 1080x1920x51, on the "
+        "W8A8 stage kernel; K5 no repack, the same on conv_sm90_i8.cu",
         _STAGE_BOUND),
     "tools/r4_int8_probe.py:225": Site(
         "the int8 K-buffer build (quantise, roll, int8 stores)",
@@ -790,9 +849,9 @@ PROBES: Dict[str, Site] = {
         "pieces) from the copy path"),
     "tools/r4_i8_build_probe.py:202": Site(
         "int8 B+head@540 without the dots (nodots)",
-        ("s7.i8.nogemm", "s7.i8.all"),
-        "K2 no GEMM on fused_conv_rsft_i8 + head at 1080x1920x51",
-        _STAGE_BOUND),
+        ("s7.i8.nogemm", "s7.i8.all", "s7.sm90i8.nogemm", "s7.sm90i8.all"),
+        "K2 no GEMM on fused_conv_rsft_i8 + head at 1080x1920x51, on the "
+        "W8A8 stage kernel; K5 the same on conv_sm90_i8.cu", _STAGE_BOUND),
     "tools/r4_i8_build_probe.py:299": Site(
         "K-buffer build strategies bf16 / i8_f32 / i8_i8roll / i8_pack, "
         "timed", ("build.f32", "build.i8", "build.i8_pack"),
@@ -833,6 +892,8 @@ BREAKDOWNS = (
     ("stage 5, bf16 on conv_sm90.cu (K5)", "s5.sm90"),
     ("stage 3, bf16 on conv_sm90.cu (K5)", "s3.sm90"),
     ("conv_tile stage 6, v2, on conv_sm90.cu (K5)", "ct6.sm90"),
+    ("stage 7 + head, int8 on conv_sm90_i8.cu (K5)", "s7.sm90i8"),
+    ("stage 6, int8 on conv_sm90_i8.cu (K5)", "s6.sm90i8"),
 )
 
 
@@ -1006,7 +1067,8 @@ def source_of(name: str) -> Optional[str]:
 
 def ptxas_instances(log_path: str) -> List[dict]:
     """Per kernel instance in ptxas's report (``_build``'s log): source,
-    name, registers, spill bytes."""
+    name, registers, spill bytes (its own and those of the non-inlined
+    functions reported after it)."""
     out, source, cur = [], None, None
     for line in open(log_path):
         if line.startswith("# "):
@@ -1018,8 +1080,8 @@ def ptxas_instances(log_path: str) -> List[dict]:
             out.append(cur)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m and cur is not None:
-            cur["spills"] = int(m.group(1)) + int(m.group(2))
+        if m and cur is not None:  # the entry's and its callees' spills
+            cur["spills"] += int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
@@ -1027,8 +1089,9 @@ def ptxas_instances(log_path: str) -> List[dict]:
 
 
 def sass_mma_counts(lib_path: str) -> Dict[str, int]:
-    """Tensor-core instructions (HMMA, IMMA, and wgmma's HGMMA) per kernel
-    instance (mangled name) in the library's SASS (``cuobjdump -sass``)."""
+    """Tensor-core instructions (HMMA, IMMA, and wgmma's HGMMA and IGMMA)
+    per kernel instance (mangled name) in the library's SASS
+    (``cuobjdump -sass``)."""
     tool = next((c for c in (
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                      "cuobjdump"), shutil.which("cuobjdump"))
@@ -1044,7 +1107,7 @@ def sass_mma_counts(lib_path: str) -> Dict[str, int]:
         if m:
             name = m.group(1)
             counts[name] = 0
-        elif name is not None and re.search(r"\b(?:[HI]|HG)MMA\b", line):
+        elif name is not None and re.search(r"\b[HI]G?MMA\b", line):
             counts[name] += 1
     return counts
 
@@ -1061,7 +1124,7 @@ def mma_rule_failures(counts) -> List[str]:
         family, args = d
         want_zero = family == "K4" or args.get("P") == NO_GEMM
         if want_zero != (n == 0):
-            bad.append(f"{name}: {n} HMMA/IMMA")
+            bad.append(f"{name}: {n} HMMA/IMMA/HGMMA/IGMMA")
     return bad
 
 

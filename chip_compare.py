@@ -22,7 +22,11 @@ serving config with seeded random weights and times, with CUDA events:
   ``conv_sm90.cuda_conv`` launches for the v5
   stride-1 stages 3, 5 and 7 + head (conv + sin, the ResBlockSFT pair,
   the head) and for the ResBlockSFT pair alone at 540x960x61 and
-  1080x1920x51.
+  1080x1920x51;
+- the W8A8 stage calls, in ms per call: ``planar.fused_conv_rsft_i8`` at
+  stages 5 and 7 + head and ``planar.fused_upconv_rsft_i8`` at stage 6 of
+  the W8A8 decode, int8 codes in, as that decode calls them (each tree's
+  own kernel: the stage kernel before the int8 form of ``conv_sm90.cu``).
 
 ``--no-decodes`` times the calls only (a quicker look at a kernel change).
 
@@ -78,10 +82,10 @@ def worker(tree: str, decodes: bool = True) -> dict:
               for v in np.linspace(0.01, 1.0, N_FRAMES)]
         calib = [(embed, torch.tensor([v], device="cuda")) for v in CALIB_TS]
         serving = build_serving_decode(cfg, model)
+        w8a8 = build_serving_decode(cfg, model, w8a8_calib=calib)
         decodes = {} if not decodes else {
             "decode v5 bf16": serving,
-            "decode w8a8": build_serving_decode(cfg, model,
-                                                w8a8_calib=calib),
+            "decode w8a8": w8a8,
             "decode v3": build_fast_decode_v3(cfg, model, tile_from_h=45),
             "decode hybrid": build_fast_decode_v5(cfg, model,
                                                   fine_from_h=1000)}
@@ -129,6 +133,21 @@ def worker(tree: str, decodes: bool = True) -> dict:
                 calls[f"rsft pair {tuple(y.shape)}"] = (
                     lambda y=y, ws=ws, sft=sft:
                     rsft(y, ws.w0, ws.b0, ws.w1, ws.b1, sft))
+        t8 = w8a8.time_embed(torch.tensor([0.5], device="cuda"))
+        for st in w8a8.tail:
+            if not st.kernel.endswith("_i8"):
+                continue
+            x = torch.randint(-127, 128, st.in_shape, generator=gen,
+                              device="cuda", dtype=torch.int8)
+            a = (x, st.weights, st.sft(t8))
+            if st.kernel == "fused_upconv_rsft_i8":
+                fn = (lambda a=a, oi=st.out_inv:
+                      planar.fused_upconv_rsft_i8(*a, oi))
+            else:
+                fn = (lambda a=a, hd=st.head, oi=st.out_inv:
+                      planar.fused_conv_rsft_i8(*a, hd, oi))
+            calls[f"{st.kernel} stage {st.index}"
+                  + (" + head" if st.head else "")] = fn
         v2 = build_fast_decode_v2(cfg, model, tile_from_h=45).fine
         convs = [(f"stage {st.index}", st.conv_w, st.conv_b,
                   (st.out_hw[0] // st.strd, st.out_hw[1] // st.strd))

@@ -9,10 +9,12 @@ warms both up, and traces ``--frames`` frames of each with torch.profiler.
 For each decode it prints the wall time per frame, the device's busy time
 per frame (the union of its kernels' intervals) and idle share, and the
 device time per frame and launches per frame of its largest kernels.  The
-template arguments in a stage kernel's name say which launch it is:
-``stage_conv_kernel<KS, CK, Q>`` (bf16, KS x KS taps; Q: int8-code
-output) and
-``stage_conv3x3_i8_kernel<IK, OK, CK>`` (IK/OK: 0 int8 codes, 1 bf16).
+template arguments in a kernel's name say which launch it is:
+``conv_sm90_kernel<NS, P, F, R>`` (the Hopper kernel at N slice NS; F: 0
+bf16, 1 int8 codes in, 2 bf16 in quantised to int8; R rows a
+warpgroup), ``stage_conv_kernel<KS, CK, Q>`` (bf16, KS x KS taps; Q:
+int8-code output) and ``stage_conv3x3_i8_kernel<IK, OK, CK>`` (IK/OK:
+0 int8 codes, 1 bf16).
 Each line carries the card's name and power limit.  Exits non-zero
 without CUDA.
 """

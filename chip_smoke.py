@@ -8,7 +8,11 @@ Phases, one line of output each (or one line per shape):
 1. requires CUDA (exits non-zero before anything else without it) and
    prints the card's name and power limit as nvidia-smi reports them;
 2. builds the hand-written kernels from ``boosting_nerv_torch/ops/csrc``
-   and prints ptxas's register and spill report of every kernel instance;
+   and prints ptxas's register and spill report of every kernel instance,
+   then one line per instance of the int8 form of the Hopper kernel
+   (``conv_sm90_i8*.cu``): registers, spill bytes and its wgmma
+   instructions in ``cuobjdump -sass`` (each instance must have some, and
+   no spills);
 3. builds HNeRV-Boost at the UVG-1080p serving config of bench.py with
    seeded random weights, encodes one synthetic 1080x1920 frame, and builds
    the decodes: the bf16 serving decode (v5) and the W8A8 one (calibrated
@@ -30,8 +34,10 @@ Phases, one line of output each (or one line per shape):
    for conv_tile, also at 128 -> 80 channels, which the Hopper kernel
    takes only at its narrowest N slice; wc_real 50 for the planar ones;
    conv_tile, resblock_sft_tile_v3 and the bf16 fused_upconv_rsft and
-   fused_conv_rsft on the Hopper kernel conv_sm90.cu, the others on the
-   stage kernels): max abs error within
+   fused_conv_rsft on the Hopper kernel conv_sm90.cu, the W8A8
+   fused_upconv_rsft_i8 and fused_conv_rsft_i8 on its int8 form
+   conv_sm90_i8.cu, the others on the stage kernels): max abs error
+   within
    2e-2 * max(|plain|, 1), int8 codes compared after dequantising with
    1/inv; prints the share of codes that differ; times both with CUDA
    events, and F.conv2d for conv_tile; then checks that a conv with more
@@ -41,9 +47,11 @@ Phases, one line of output each (or one line per shape):
    turns (old, new, new, old) at conv_tile's v2 stage-6 call, at
    fused_upconv_rsft's bf16 stages 2, 4 and 6, at fused_conv_rsft's
    stages 3, 5 and 7 + head and at every resblock_sft_tile_v3 call of
-   the v3 decode (the same-call A/B), after checking conv_sm90.cu's
-   shared-memory plan of every conv shape it serves against its Python
-   mirror and printing the plan;
+   the v3 decode, and the W8A8 stage kernel's chain (stage_conv_i8.cu)
+   beside conv_sm90_i8.cu at the W8A8 stages 5, 6 and 7 + head (the
+   same-call A/B), after checking conv_sm90.cu's and
+   conv_sm90_i8.cu's shared-memory plan of every conv shape they serve
+   against the Python mirror and printing the plan;
 5. the bf16 slice: serves 8 frame indices through ``build_serving_decode``;
    checks the frames (shape, finite, [0, 1], max abs error <= 1e-2 against
    the fp32 plain decode with TF32 off) and the launch counts; times the
@@ -72,19 +80,21 @@ Phases, one line of output each (or one line per shape):
    the head as conv_planar (sin), rsft_planar and conv_planar (outimg);
    the frames must match the v1 slice's and the fp32 decode's, and the
    launches must be conv_planar 2 and rsft_planar 1 a frame, no other;
-10. the probe phase, the path of the four probe wrappers
+10. the probe phase, the path of the five probe wrappers
    (``boosting_nerv_torch/tools/probes.py``, the counterparts of the TPU
    probes in ``tools/``): prints each probe instance's registers, spills
-   and HMMA/IMMA count from ``cuobjdump -sass`` (a no-GEMM instance must
-   have none, every other K1-K3 instance some, the staging kernels none);
+   and tensor-core instruction count (HMMA, IMMA, HGMMA, IGMMA) from
+   ``cuobjdump -sass`` (a no-GEMM instance must have none, every other
+   K1-K3 and K5 instance some, the staging kernels none);
    holds every probe variant against its plain version at full size and
    at a small ragged one (2e-2 * max(|plain|, 1), or exact where the
    variant computes the production launch's function: "all" against the
    production wrapper, DIRECT, PACK and ASYNC, the staging modes against
    their plain staging, no STORE against its untouched output); then times
    every variant through the entry point and prints one line per TPU site
-   and the phase breakdown of each stage (K1 on the stage kernel, K5 on
-   conv_sm90.cu).
+   and the phase breakdown of each stage (K1 on the stage kernel, K2 on
+   the W8A8 stage kernel, K5 on conv_sm90.cu and on its int8 form
+   conv_sm90_i8.cu at the W8A8 stage 7 + head and stage 6).
 
 The launch counts are set to 0 just before each slice's frames (the
 planar phase's stage-7 calls, the probe phase's timed run) and read just
@@ -122,12 +132,13 @@ TILE = "boosting_nerv_tpu/ops/pallas/tile_conv.py"
 CHW = "boosting_nerv_tpu/ops/pallas/conv_chw.py"
 STAGE_CU = "boosting_nerv_torch/ops/csrc/stage_conv.cu"
 SM90_CU = "boosting_nerv_torch/ops/csrc/conv_sm90.cu"
+SM90_I8_CU = "boosting_nerv_torch/ops/csrc/conv_sm90_i8.cu"
 KERNELS = {  # wrapper: (source, replaces)
     "fused_upconv_rsft": (SM90_CU, f"{PLANAR}:1308"),
     "fused_conv_rsft": (SM90_CU, f"{PLANAR}:1541"),
-    "fused_upconv_rsft_i8": ("boosting_nerv_torch/ops/csrc/stage_conv_i8.cu",
+    "fused_upconv_rsft_i8": (SM90_I8_CU,
                              f"{PLANAR}:1308 (W8A8 prep {PLANAR}:707)"),
-    "fused_conv_rsft_i8": ("boosting_nerv_torch/ops/csrc/stage_conv_i8.cu",
+    "fused_conv_rsft_i8": (SM90_I8_CU,
                            f"{PLANAR}:1541 (W8A8 prep {PLANAR}:673)"),
     "conv_tile": (SM90_CU, f"{TILE}:144"),
     "conv_tile_v3": (STAGE_CU, f"{TILE}:473"),
@@ -554,15 +565,17 @@ def check_kernels(cases, device_line):
     return summary
 
 
-def run_ab(decode, v2, v3, gen, device_line):
+def run_ab(decode, decode_i8, v2, v3, gen, device_line):
     """The same-call old/new comparison of the wrappers moved onto
     conv_sm90.cu: the stage kernel's chain (stage_conv.cu, as they were
     served before) against the wrapper, timed in turns old, new, new, old,
     at conv_tile's v2 stage-6 call (61 -> 204), at the bf16 v5 stages 2, 4
     and 6 of fused_upconv_rsft and 3, 5 and 7 + head of fused_conv_rsft,
     and at every resblock_sft_tile_v3 call of the v3 decode (45x80 to
-    1080x1920).  Measurement only: no decode path chooses by it, and the
-    old chain counts no launch."""
+    1080x1920); and of the W8A8 wrappers moved onto conv_sm90_i8.cu: the
+    W8A8 stage kernel's chain (stage_conv_i8.cu) against the wrapper at
+    the W8A8 stages 5, 6 and 7 + head.  Measurement only: no decode path
+    chooses by it, and the old chains count no launch."""
     from boosting_nerv_torch.ops.kernels import (_build, planar, probes,
                                                  tile_conv)
 
@@ -576,6 +589,7 @@ def run_ab(decode, v2, v3, gen, device_line):
     cases = [("conv_tile v2 stage 6", tuple(x.shape),
               lambda: planar.launch_conv(lib, x, wt, b, out),
               lambda: tile_conv.conv_tile(x, wt, b, k=wt.shape[1]))]
+    names = ("stage_conv.cu", "conv_sm90.cu")
     t_embed = decode.time_embed(torch.tensor([0.5], device="cuda"))
     for st in decode.tail:
         if st.kernel != "fused_upconv_rsft":
@@ -615,18 +629,44 @@ def run_ab(decode, v2, v3, gen, device_line):
                       planar.rsft_cuda(lib, xs, rw, sft),
                       lambda xs=xs, sft=sft, rw=st.rsft:
                       tile_conv.resblock_sft_tile_v3(xs, *rw, sft)))
-    for label, shape, old, new in cases:
+    cases = [c + names for c in cases]
+    t8 = decode_i8.time_embed(torch.tensor([0.5], device="cuda"))
+    zc = set(decode_i8.w8a8_zc)
+    for st in decode_i8.tail:
+        if not st.kernel.endswith("_i8"):
+            continue
+        xs = (rnd_codes(gen, *st.in_shape) if st.index in zc
+              else rnd(gen, *st.in_shape))
+        a = (xs, st.weights, st.sft(t8))
+        label = f"{st.kernel} stage {st.index}" + (
+            " + head" if st.head else "")
+        if st.kernel == "fused_upconv_rsft_i8":
+            def old(a=a, oi=st.out_inv):
+                return probes.upconv_rsft_i8_stage(*a, oi)
+
+            def new(a=a, oi=st.out_inv):
+                return planar.fused_upconv_rsft_i8(*a, oi)
+        else:
+            def old(a=a, hd=st.head, oi=st.out_inv):
+                return probes.conv_rsft_i8_stage(*a, hd, oi)
+
+            def new(a=a, hd=st.head, oi=st.out_inv):
+                return planar.fused_conv_rsft_i8(*a, hd, oi)
+        cases.append((label, tuple(xs.shape), old, new, "stage_conv_i8.cu",
+                      "conv_sm90_i8.cu"))
+    for label, shape, old, new, old_name, new_name in cases:
         o1, n1 = cuda_ms(old), cuda_ms(new)
         n2, o2 = cuda_ms(new), cuda_ms(old)
-        print(f"a/b {label} in {shape}: stage_conv.cu {(o1 + o2) / 2:.4f} "
-              f"ms ({o1:.4f}, {o2:.4f}), conv_sm90.cu {(n1 + n2) / 2:.4f} "
+        print(f"a/b {label} in {shape}: {old_name} {(o1 + o2) / 2:.4f} "
+              f"ms ({o1:.4f}, {o2:.4f}), {new_name} {(n1 + n2) / 2:.4f} "
               f"ms ({n1:.4f}, {n2:.4f}) [{device_line}]", flush=True)
 
 
-def check_plans(decode, v2, v3, device_line):
-    """Every conv shape that conv_sm90.cu serves in the decodes: the
-    library's shared-memory fit equals its mirror ``conv_sm90.fit`` (which
-    the CPU tests use), and the plan each launch gets is printed."""
+def check_plans(decode, decode_i8, v2, v3, device_line):
+    """Every conv shape that conv_sm90.cu serves in the decodes and every
+    one that conv_sm90_i8.cu serves in the W8A8 decode: the library's
+    shared-memory fit equals its mirror ``conv_sm90.fit`` (which the CPU
+    tests use), and the plan each launch gets is printed."""
     from boosting_nerv_torch.ops.kernels import _build, conv_sm90
 
     shapes = set()
@@ -642,16 +682,30 @@ def check_plans(decode, v2, v3, device_line):
     shapes.add(tuple(v2.fine.head_w.shape[i] for i in (3, 0, 1)))
     shapes |= {(st.rsft[0].shape[0], st.rsft[0].shape[0], 3)
                for st in v3.fine.stages}
+    s8, s8q = conv_sm90.S8, conv_sm90.S8Q
+    shapes = {s + (conv_sm90.BF16,) for s in shapes}
+    for st in decode_i8.tail:
+        if not st.kernel.endswith("_i8"):
+            continue
+        w, c = st.weights, st.weights.w0.shape[0]
+        form = s8 if st.index in decode_i8.w8a8_zc else s8q
+        convs = [(w.conv_w.shape[3], w.conv_w.shape[0], 3, form),
+                 (c, c, 3, s8q), (c, c, 3, s8)] + (
+                     [(c, 3, 3, s8)] if st.head else [])
+        shapes |= set(convs)
     lib = _build.load_library()
-    for cin, cout, k in sorted(shapes):
-        ns, smem = conv_sm90.plan(lib, cin, cout, k)
-        mirror = conv_sm90.fit(cin, cout, k, ns)
+    names = {conv_sm90.BF16: "conv_sm90", s8: "conv_sm90_i8 codes in",
+             s8q: "conv_sm90_i8 bf16 in"}
+    for cin, cout, k, form in sorted(shapes):
+        ns, smem = conv_sm90.plan(lib, cin, cout, k, form)
+        mirror = conv_sm90.fit(cin, cout, k, ns, form)
         if mirror is None or mirror[-1] != smem:
-            raise SmokeFailure(f"conv_sm90 plan of {cin}->{cout} k{k} N "
+            raise SmokeFailure(f"{names[form]} plan of {cin}->{cout} k{k} N "
                                f"{ns}: library {smem} bytes, mirror "
                                f"{mirror}")
-        print(f"plan conv_sm90 {cin}->{cout} k{k}: N {ns} x "
-              f"{-(-cout // ns)}, {mirror[0]} warpgroup(s), "
+        rows = conv_sm90.rows_at(ns, form)
+        print(f"plan {names[form]} {cin}->{cout} k{k}: N {ns} x "
+              f"{-(-cout // ns)}, {rows} rows x {mirror[0]} warpgroup(s), "
               f"{'resident' if mirror[2] else f'ring {mirror[1]}'}, "
               f"{smem} bytes [{device_line}]", flush=True)
 
@@ -908,7 +962,7 @@ def run_probe_phase(device_line):
         reg = regs.get(name, {})
         print(f"probe instance {src} {desc[0]} {desc[1]}: "
               f"{reg.get('registers')} registers, {reg.get('spills')} spill "
-              f"bytes, {n} HMMA/IMMA", flush=True)
+              f"bytes, {n} HMMA/IMMA/HGMMA/IGMMA", flush=True)
     if not any(probes.source_of(n) in probes.PROBE_SOURCES for n in counts):
         raise SmokeFailure("no probe instance in the library's SASS")
     bad = probes.mma_rule_failures(counts)
@@ -977,6 +1031,36 @@ def print_ptxas(log_path):
                   f"{spills} spill bytes", flush=True)
 
 
+def check_s8_instances(device_line):
+    """Phase 2's lines of the int8 form of the Hopper kernel: each
+    production instance (conv_sm90_i8.cu, _64.cu, _80.cu; its K5 probe
+    units are phase 10's) with its registers, spill bytes and wgmma
+    (IGMMA) instructions in the library's SASS; fails on a spill or an
+    instance without them."""
+    from boosting_nerv_torch.ops.kernels import _build
+    from boosting_nerv_torch.tools import probes
+
+    lib = _build.library_path()
+    regs = {i["name"]: i for i in probes.ptxas_instances(lib + ".log")
+            if i["source"].startswith("conv_sm90_i8")
+            and i["source"] not in probes.PROBE_SOURCES}
+    counts = probes.sass_mma_counts(lib)
+    if not regs:
+        raise SmokeFailure("no conv_sm90_i8 instance in ptxas's report")
+    for name, r in sorted(regs.items(), key=lambda kv: kv[1]["source"]):
+        m = re.search(r"conv_sm90_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+                      name)
+        what = ("N {} P {} form {} rows {}".format(*m.groups()) if m
+                else name)
+        n = counts.get(name, 0)
+        print(f"ptxas {r['source']} {what}: "
+              f"{r['registers']} registers, {r['spills']} spill bytes, {n} "
+              f"wgmma (SASS) [{device_line}]", flush=True)
+        if r["spills"] or not n:
+            raise SmokeFailure(f"{name}: {r['spills']} spill bytes, {n} "
+                               "wgmma instructions")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
@@ -999,6 +1083,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({_build.library_path()})", flush=True)
     print_ptxas(_build.library_path() + ".log")
+    check_s8_instances(device_line)
 
     cfg = bench_config()
     model = build_model(cfg, seed=0).eval()
@@ -1036,8 +1121,8 @@ def main() -> int:
                             + tile_cases(v3, v2, gen) + chw_cases(v1, gen),
                             device_line)
     check_refusal(gen, device_line)
-    check_plans(decode, v2, v3, device_line)
-    run_ab(decode, v2, v3, gen, device_line)
+    check_plans(decode, decode_i8, v2, v3, device_line)
+    run_ab(decode, decode_i8, v2, v3, gen, device_line)
     runs = [check_frames("bf16", decode, refs, embed, ts)]
     print_turns("bf16", ("plain stages", plain_decode), ("kernels", decode),
                 embed, ts, device_line)
