@@ -10,9 +10,11 @@
 //             clip(rint(v * out_inv), +-127); PixelShuffle(2) folded into
 //             the store addressing.
 //
-// It replaces four Pallas kernels of boosting_nerv_tpu/ops/pallas/:
-// tile_conv.py:144 conv_tile (k x k conv + bias, one launch) and
-// tile_conv.py:788 resblock_sft_tile_v3 (the ResBlockSFT pair: conv0
+// It replaces six Pallas kernels of boosting_nerv_tpu/ops/pallas/:
+// tile_conv.py:144 conv_tile (k x k conv + bias, one launch),
+// tile_conv.py:473 conv_tile_v3 (k in {1, 3}, + none / sin / outimg /
+// gelu in the epilogue, one launch), tile_conv.py:951 resblock_sft_tile
+// and tile_conv.py:788 resblock_sft_tile_v3 (the ResBlockSFT pair: conv0
 // with both affines and gelu, conv1 with the residual; two launches),
 // ops/kernels/tile_conv.py; planar.py:1308 fused_upconv_rsft (the
 // stride-2 stage: upconv with shuffle and sin, then the pair with the
@@ -20,8 +22,8 @@
 // fused_conv_rsft in bf16 (the stride-1 stage: conv and sin, the pair,
 // the optional 51 -> 3 head with outimg; three or four launches),
 // ops/kernels/planar.py through ops/kernels/conv_sm90.py.  Its int8 form
-// (conv_sm90_i8.cu) serves the W8A8 forms of the last two; every other
-// wrapper stays on stage_conv.cu.
+// (conv_sm90_i8.cu) serves the W8A8 forms of the last two; the v1 and
+// planar wrappers stay on stage_conv.cu.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): conv_tile's
 // v2 stage-6 call (540x960, 61 -> 204) is 116 GFLOP, 0.117 ms of tensor
@@ -83,8 +85,85 @@
 // The tile is 4 x 64 output pixels (two consumer warpgroups, each two m64
 // tiles, one a row), or 2 x 64 with one warpgroup where the larger tile
 // does not fit the shared memory.
+//
+// - A launch of few tiles and many N slices left most SMs idle: at the
+//   bench config the fine-grid decodes' 45 x 80 calls (stage 1's conv,
+//   106 -> 792 in ten N 80 slices, 46 tiles; stage 0's ResBlockSFT) ran
+//   one block a tile, each through all its slices in turn.  The slice-
+//   group plan (sm90::groups, at the occupancy of this unit's instances)
+//   splits such a launch's slices into G groups of consecutive slices, a
+//   grid of blocks x G, each block repacking its tiles for its group
+//   alone (the SPLIT instances of conv_sm90_split.cu; a group's weight
+//   blocks resident where they fit), and keeps G = 1, and these
+//   instances' code, wherever the tiles fill the card.
 
 #include "conv_sm90.cuh"
+
+namespace {
+
+// The bf16 launch of p at N slice NS with `groups` slice groups (0: the
+// plan's, sm90::groups at the occupancy of the instance with none); with
+// `info`, the plan alone: {tiles, N slices, SMs, blocks an SM} into info
+// and G returned, nothing launched.
+template <int NS>
+int run(sm90::Params& p, int smem, int groups, cudaStream_t s, int* info) {
+  int g = groups;
+  if (g == 0 || info) {
+    void (*kernel)(sm90::Params) = nullptr;
+    int sms = 0, per_sm = 0;
+    cudaError_t err = sm90::instance<NS, PHASE_ALL, sm90::FORM_BF16,
+                                     sm90::ROWS_PER_WG, false>(kernel);
+    if (err == cudaSuccess)
+      err = sm90::occupancy(kernel, 128 * p.nwg + sm90::PRODUCER, smem, sms,
+                            per_sm);
+    if (err != cudaSuccess) return info ? -1 : err;
+    const int tiles = p.tiles_w * p.tiles_h * p.n;
+    const int planned = sm90::groups(tiles, p.nslices, sms, per_sm);
+    if (info) {
+      info[0] = tiles;
+      info[1] = p.nslices;
+      info[2] = sms;
+      info[3] = per_sm;
+      return planned;
+    }
+    g = planned;
+  }
+  const int per = (p.nslices + g - 1) / g;
+  if (g < 1 || g > p.nslices || (p.nslices + per - 1) / per != g)
+    return cudaErrorInvalidValue;  // a group would be empty
+  if (g == 1) return sm90::launch<NS, PHASE_ALL>(p, smem, s);
+  // a group's weight blocks: resident where they fit, at the same
+  // warpgroups (and so the same tiles)
+  sm90::Params q = p;
+  q.nslices = per;
+  const int gsmem = sm90::fit(q, NS, sm90::FORM_BF16, p.nwg);
+  if (gsmem < 0 || q.nwg != p.nwg) return cudaErrorInvalidValue;
+  q.nslices = p.nslices;
+  return sm90::launch_split(NS, q, gsmem, g, s);
+}
+
+// The launch's plan (prepare) and its run at N slice ns.
+int conv(const void* x, const void* wpk, const void* bias,
+         const void* in_scale, const void* in_shift, const void* out_scale,
+         const void* out_shift, const void* residual, const void* out_inv,
+         void* out, int n, int h, int w, int cin, int cout, int act,
+         int shuffle, int ks, int ns, int groups, int max_nwg,
+         cudaStream_t s, int* info) {
+  sm90::Params p{};
+  const int smem = sm90::prepare(p, x, wpk, bias, in_scale, in_shift,
+                                 out_scale, out_shift, residual, out_inv,
+                                 out, n, h, w, cin, cout, act, shuffle, ks,
+                                 ns, sm90::FORM_BF16, max_nwg);
+  if (smem < 0 || groups < 0) return info ? -1 : cudaErrorInvalidValue;
+  switch (ns) {
+    case 8: return run<8>(p, smem, groups, s, info);
+    case 56: return run<56>(p, smem, groups, s, info);
+    case 64: return run<64>(p, smem, groups, s, info);
+    default: return run<80>(p, smem, groups, s, info);
+  }
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -100,27 +179,45 @@ int bnt_conv_sm90_smem(int cin, int cout, int ks, int ns) {
 
 // One fused ks x ks convolution on the given stream; wpk is the weight
 // packed for ns-channel slices (conv_sm90.py::pack_weight).  Pointers may
-// be null where the comment on sm90::Params allows it.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// be null where the comment on sm90::Params allows it.  The slice groups
+// are the plan's (sm90::groups).  Returns cudaGetLastError() after the
+// launch (0 on success).
 int bnt_conv_sm90(const void* x, const void* wpk, const void* bias,
                   const void* in_scale, const void* in_shift,
                   const void* out_scale, const void* out_shift,
                   const void* residual, const void* out_inv, void* out,
                   int n, int h, int w, int cin, int cout, int act,
                   int shuffle, int ks, int ns, void* stream) {
-  sm90::Params p{};
-  const int smem = sm90::prepare(p, x, wpk, bias, in_scale, in_shift,
-                                 out_scale, out_shift, residual, out_inv,
-                                 out, n, h, w, cin, cout, act, shuffle, ks,
-                                 ns);
-  if (smem < 0) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ns) {
-    case 8: return sm90::launch<8, PHASE_ALL>(p, smem, s);
-    case 56: return sm90::launch<56, PHASE_ALL>(p, smem, s);
-    case 64: return sm90::launch<64, PHASE_ALL>(p, smem, s);
-    default: return sm90::launch<80, PHASE_ALL>(p, smem, s);
-  }
+  return conv(x, wpk, bias, in_scale, in_shift, out_scale, out_shift,
+              residual, out_inv, out, n, h, w, cin, cout, act, shuffle, ks,
+              ns, 0, 2, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The same launch at a schedule the caller gives (for measuring the
+// plan): `groups` slice groups (0: the plan's) and at most `max_nwg`
+// warpgroups (1 or 2).
+int bnt_conv_sm90_at(const void* x, const void* wpk, const void* bias,
+                     const void* in_scale, const void* in_shift,
+                     const void* out_scale, const void* out_shift,
+                     const void* residual, const void* out_inv, void* out,
+                     int n, int h, int w, int cin, int cout, int act,
+                     int shuffle, int ks, int ns, int groups, int max_nwg,
+                     void* stream) {
+  return conv(x, wpk, bias, in_scale, in_shift, out_scale, out_shift,
+              residual, out_inv, out, n, h, w, cin, cout, act, shuffle, ks,
+              ns, groups, max_nwg, static_cast<cudaStream_t>(stream),
+              nullptr);
+}
+
+// The slice-group plan of a launch of n x h x w pixels, cin -> cout, at
+// N slice ns (sm90::groups): G, with info = {tiles, N slices, SMs, blocks
+// an SM}; -1 for a launch the kernel does not take.
+int bnt_conv_sm90_groups(int n, int h, int w, int cin, int cout, int ks,
+                         int ns, int* info) {
+  alignas(16) static const unsigned char wpk[16] = {};  // no weight read
+  return conv(nullptr, wpk, nullptr, nullptr, nullptr, nullptr, nullptr,
+              nullptr, nullptr, nullptr, n, h, w, cin, cout, 0, 0, ks, ns, 0,
+              2, nullptr, info);
 }
 
 }  // extern "C"

@@ -437,9 +437,20 @@ struct Ring {
   }
 };
 
+// The N slices [s0, s1) of a SPLIT instance's block: group blockIdx.y of
+// gridDim.y groups of consecutive slices (conv_sm90.py::group_slices
+// mirrors it).  The other instances take every slice and read p.nslices
+// as they did before SPLIT existed, so that their code stays the same.
+__device__ __forceinline__ void slice_range(const Params& p, int& s0,
+                                            int& s1) {
+  const int per = (p.nslices + gridDim.y - 1) / gridDim.y;
+  s0 = blockIdx.y * per;
+  s1 = min(p.nslices, s0 + per);
+}
+
 // The producer warp's lane 0: raw input rows of every tile of this block,
-// and the weight blocks (once if resident, else per tile).
-template <int F, int R>
+// and the weight blocks of its slices (once if resident, else per tile).
+template <int F, int R, bool SPLIT>
 __device__ __forceinline__ void produce(const Params& p, const Layout& L,
                                         unsigned char* smem, int ns) {
   using TI = InOf<F>;
@@ -447,12 +458,18 @@ __device__ __forceinline__ void produce(const Params& p, const Layout& L,
   const int halo = (p.ks - 1) / 2;
   const int tiles = p.tiles_w * p.tiles_h * p.n;
   const uint32_t wbytes = wblock_bytes(ns, p.cin_pad, op_bytes(F));
-  const int kblocks = p.nslices * p.ks * p.ks;
+  int kblocks = p.nslices * p.ks * p.ks;
   uint64_t* full_raw = reinterpret_cast<uint64_t*>(smem + L.bars);
   uint64_t* empty_raw = full_raw + 1;
   uint64_t* full_w = empty_raw + 1;
   uint64_t* empty_w = full_w + p.ws;
   const unsigned char* wpk = reinterpret_cast<const unsigned char*>(p.wpk);
+  if constexpr (SPLIT) {  // this group's blocks only
+    int s0, s1;
+    slice_range(p, s0, s1);
+    kblocks = (s1 - s0) * p.ks * p.ks;
+    wpk += (size_t)s0 * p.ks * p.ks * wbytes;
+  }
   if (p.resident) {
     for (int kb = 0; kb < kblocks; ++kb) {
       bar_expect(&full_w[kb], wbytes);
@@ -696,9 +713,13 @@ __device__ __noinline__ void epilogue_row(const ParamsOf<F>& p,
 #undef BNT_EPI
 }
 
-template <int NS, int P = PHASE_ALL, int F = FORM_BF16, int R = ROWS_PER_WG>
+// SPLIT: the block takes one group of the launch's N slices (slice_range),
+// in the bf16 form only; the other instances take them all.
+template <int NS, int P = PHASE_ALL, int F = FORM_BF16, int R = ROWS_PER_WG,
+          bool SPLIT = false>
 __global__ void __launch_bounds__(2 * 128 + PRODUCER, 1)
 conv_sm90_kernel(const __grid_constant__ ParamsOf<F> p) {
+  static_assert(!SPLIT || F == FORM_BF16, "slice groups in bf16 only");
   static_assert(R == 2 || R == 3, "2 or 3 output rows a warpgroup");
   constexpr bool kStage = (P & PHASE_STAGE) != 0;
   constexpr bool kGemm = (P & PHASE_GEMM) != 0;
@@ -728,7 +749,7 @@ conv_sm90_kernel(const __grid_constant__ ParamsOf<F> p) {
   __syncthreads();
 
   if (threadIdx.x >= consumers) {
-    if (threadIdx.x == consumers) produce<F, R>(p, L, smem, NS);
+    if (threadIdx.x == consumers) produce<F, R, SPLIT>(p, L, smem, NS);
     return;
   }
 
@@ -742,6 +763,8 @@ conv_sm90_kernel(const __grid_constant__ ParamsOf<F> p) {
   const int wbytes = wblock_bytes(NS, p.cin_pad, E);
   TO* s_pad = reinterpret_cast<TO*>(smem + L.pad);
   const unsigned char* s_w = smem + L.wgt;
+  int s0 = 0, s1 = 0;  // SPLIT: this group's slices
+  if constexpr (SPLIT) slice_range(p, s0, s1);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2, wq = warp & 3;
@@ -883,7 +906,7 @@ conv_sm90_kernel(const __grid_constant__ ParamsOf<F> p) {
     consumer_sync(consumers);  // s_pad is complete
 
     // 2. per N slice: implicit GEMM over the taps, then the epilogue
-    for (int s = 0; s < p.nslices; ++s) {
+    for (int s = s0; s < (SPLIT ? s1 : p.nslices); ++s) {
       Acc acc[R][NS / 2];
 #pragma unroll
       for (int mt = 0; mt < R; ++mt)
@@ -895,7 +918,7 @@ conv_sm90_kernel(const __grid_constant__ ParamsOf<F> p) {
         const unsigned char* wblk;
         int slot = -1;
         if (p.resident) {
-          const int kb = s * taps + tap;
+          const int kb = (SPLIT ? s - s0 : s) * taps + tap;
           bar_wait(&full_w[kb], 0);
           wblk = s_w + kb * wbytes;
         } else {
@@ -978,14 +1001,14 @@ inline int rows_of(int ns, int f) {
   return f != FORM_BF16 && ns == 64 ? ROWS_S8_64 : ROWS_PER_WG;
 }
 
-// The shared-memory plan of a launch of form f: warpgroups (2, else 1) and
-// the weight ring (every block resident, else the deepest ring up to
-// MAX_WS that fits, at least 2).  Fills p and returns the bytes, or -1
-// where nothing fits.
-inline int fit(Params& p, int ns, int f = FORM_BF16) {
+// The shared-memory plan of a launch of form f: warpgroups (2, else 1; at
+// most max_nwg) and the weight ring (every block resident, else the
+// deepest ring up to MAX_WS that fits, at least 2).  Fills p and returns
+// the bytes, or -1 where nothing fits.
+inline int fit(Params& p, int ns, int f = FORM_BF16, int max_nwg = 2) {
   const int rows = rows_of(ns, f);
   const int kblocks = p.nslices * p.ks * p.ks;
-  for (int nwg = 2; nwg >= 1; --nwg) {
+  for (int nwg = max_nwg; nwg >= 1; --nwg) {
     for (int ws = kblocks; ws >= 1;) {
       const Layout l = layout(p.ks, p.cin_pad, p.raw_pitch, nwg, ws, ns,
                               rows, op_bytes(f));
@@ -1023,15 +1046,16 @@ inline bool shape(Params& p, int cin, int cout, int ks, int ns,
          p.cin_pad <= MAX_CIN_PAD && valid_ns(ns, f);
 }
 
-// Fills p from a C entry point's arguments and plans its shared memory:
-// the bytes, or -1 for a launch the kernel does not take.
+// Fills p from a C entry point's arguments and plans its shared memory
+// (at most max_nwg warpgroups): the bytes, or -1 for a launch the kernel
+// does not take.
 inline int prepare(Params& p, const void* x, const void* wpk,
                    const void* bias, const void* in_scale,
                    const void* in_shift, const void* out_scale,
                    const void* out_shift, const void* residual,
                    const void* out_inv, void* out, int n, int h, int w,
                    int cin, int cout, int act, int shuffle, int ks, int ns,
-                   int f = FORM_BF16) {
+                   int f = FORM_BF16, int max_nwg = 2) {
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.wpk = static_cast<const __nv_bfloat16*>(wpk);
   p.bias = static_cast<const __nv_bfloat16*>(bias);
@@ -1051,7 +1075,7 @@ inline int prepare(Params& p, const void* x, const void* wpk,
       (shuffle && cout % 4 != 0) || act < ACT_NONE || act > ACT_OUTIMG ||
       (reinterpret_cast<uintptr_t>(wpk) & 15) != 0)
     return -1;
-  const int smem = fit(p, ns, f);
+  const int smem = max_nwg < 1 || max_nwg > 2 ? -1 : fit(p, ns, f, max_nwg);
   const int rows = rows_of(ns, f);
   p.tiles_w = (w + TW - 1) / TW;
   p.tiles_h =
@@ -1059,9 +1083,61 @@ inline int prepare(Params& p, const void* x, const void* wpk,
   return smem;
 }
 
-template <int NS, int P, int F = FORM_BF16, int R = ROWS_PER_WG>
-int launch(const ParamsOf<F>& p, int smem, cudaStream_t s) {
-  auto kernel = conv_sm90_kernel<NS, P, F, R>;
+// The slice-group plan of a launch of `tiles` output tiles and `nslices` N
+// slices on `sms` SMs holding `per_sm` blocks each (conv_sm90.py::groups
+// mirrors it): G = 1 where the tiles fill FULL_WAVES waves of blocks or
+// more; else the G groups of consecutive slices, none empty, each block
+// taking one group's slices of its tiles (a grid of blocks(tiles, G, ...)
+// x G), that minimise rounds x (REPACK_COST + SLICE_COST x slices a
+// group), rounds being the tiles a block walks (each group repacks its
+// tiles again); the least such G.  The costs are fitted to the times of
+// every G at the bench config's 45 x 80 and 135 x 240 launches on an H100
+// (chip_smoke.py's "schedule" lines), where they order the G as measured.
+constexpr int FULL_WAVES = 4;
+constexpr int REPACK_COST = 1;  // a tile's repack, against
+constexpr int SLICE_COST = 4;   // one slice's GEMM and epilogue
+
+inline int blocks(int tiles, int groups, int sms, int per_sm) {
+  return std::max(1, std::min(tiles, sms * std::max(per_sm, 1) / groups));
+}
+
+inline int groups(int tiles, int nslices, int sms, int per_sm) {
+  if (tiles >= FULL_WAVES * sms * std::max(per_sm, 1)) return 1;
+  int best = 1;
+  long long best_cost = 0;
+  for (int g = 1; g <= nslices; ++g) {
+    const int per = (nslices + g - 1) / g;
+    if ((nslices + per - 1) / per != g) continue;  // a group would be empty
+    const int bx = blocks(tiles, g, sms, per_sm);
+    const long long cost = (long long)((tiles + bx - 1) / bx) *
+                           (REPACK_COST + SLICE_COST * per);
+    if (g == 1 || cost < best_cost) {
+      best = g;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// SMs and the blocks of `kernel` an SM holds at `threads` and `smem`.
+template <typename K>
+cudaError_t occupancy(K kernel, int threads, int smem, int& sms,
+                      int& per_sm) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  return err;
+}
+
+// Instance <NS, P, F, R, SPLIT>, allowed MAX_SMEM bytes of dynamic shared
+// memory (set once), in `kernel`.
+template <int NS, int P, int F, int R, bool SPLIT>
+cudaError_t instance(void (*&kernel)(ParamsOf<F>)) {
+  kernel = conv_sm90_kernel<NS, P, F, R, SPLIT>;
   static bool attr = false;
   if (!attr) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1069,18 +1145,24 @@ int launch(const ParamsOf<F>& p, int smem, cudaStream_t s) {
     if (err != cudaSuccess) return err;
     attr = true;
   }
+  return cudaSuccess;
+}
+
+// One launch of instance <NS, P, F, R, SPLIT>: a grid of blocks(tiles,
+// groups, ...) x groups blocks (groups > 1 only in a SPLIT instance).
+template <int NS, int P, int F = FORM_BF16, int R = ROWS_PER_WG,
+          bool SPLIT = false>
+int launch(const ParamsOf<F>& p, int smem, cudaStream_t s, int groups = 1) {
+  void (*kernel)(ParamsOf<F>) = nullptr;
+  cudaError_t err = instance<NS, P, F, R, SPLIT>(kernel);
   const int threads = 128 * p.nwg + PRODUCER;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int sms = 0, per_sm = 0;
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, smem);
+    err = occupancy(kernel, threads, smem, sms, per_sm);
   if (err != cudaSuccess) return err;
   const int tiles = p.tiles_w * p.tiles_h * p.n;
-  const int blocks = std::max(1, std::min(tiles, sms * std::max(per_sm, 1)));
-  kernel<<<blocks, threads, smem, s>>>(p);
+  kernel<<<dim3(blocks(tiles, groups, sms, per_sm), groups), threads, smem,
+           s>>>(p);
   return cudaGetLastError();
 }
 
@@ -1131,6 +1213,11 @@ int launch_probe_s8_64q(const ParamsS8& p, int smem, int phases,
                         cudaStream_t s);
 int launch_probe_s8_80(const ParamsS8& p, int smem, int phases,
                        cudaStream_t s);
+
+// The bf16 form's launches of one slice group a block (SPLIT instances,
+// groups > 1), defined by conv_sm90_split.cu.
+int launch_split(int ns, const Params& p, int smem, int groups,
+                 cudaStream_t s);
 
 // The int8 form's production launches (form f) at N slice 8, 64 (at
 // ROWS_S8_64 rows a warpgroup) and 80, each N defined by its own unit

@@ -1,6 +1,6 @@
-// Fused KS x KS convolution (KS in {1, 3, 5}) for the HNeRV-Boost decoder
-// tail, NHWC bf16 in and out, fp32 accumulation on the tensor cores
-// (mma.sync m16n8k16).
+// Fused 3x3 convolution (a KS x KS kernel built at KS = 3) for the
+// HNeRV-Boost decoder tail, NHWC bf16 in and out, fp32 accumulation on the
+// tensor cores (mma.sync m16n8k16).
 //
 // Replaces the two Pallas stage kernels of boosting_nerv_tpu/ops/pallas/
 // planar.py: fused_upconv_rsft (stride-2 stage) and fused_conv_rsft
@@ -20,17 +20,16 @@
 // instead of bf16: the zero-convert chain of the W8A8 decode, where a bf16
 // stage hands its output to an int8 stage (planar.py:1297-1301).
 //
-// The same kernel, with the tap count KS a template parameter, replaces the
-// four fine-grid kernels of boosting_nerv_tpu/ops/pallas/tile_conv.py
-// (ops/kernels/tile_conv.py): conv_tile (k x k conv + bias, k in {1, 3, 5}),
-// conv_tile_v3 (k in {1, 3}, + none/sin/outimg/gelu) and the two fused
-// ResBlockSFTs (the rsft 0 / rsft 1 pair above).  KS = 3 is the stage
-// kernels' instance and keeps their code.  Its KS = 3 instances also
-// replace the v1 decode's channels-major kernels (ops/pallas/conv_chw.py's
-// conv3x3_act_chw and head_conv_chw, fused_sft.py's resblock_sft_chw, whose
-// input_sin is the template parameter S: stage_conv_sin.cu) and the
-// standalone planar conv_planar and rsft_planar (ops/kernels/conv_chw.py,
-// fused_sft.py, planar.py).
+// The tap count KS is a template parameter, built at KS = 3 only (the
+// fine-grid tile wrappers that took KS = 1 and 5 launch conv_sm90.cu).
+// Its instances replace the v1 decode's channels-major kernels
+// (ops/pallas/conv_chw.py's conv3x3_act_chw and head_conv_chw,
+// fused_sft.py's resblock_sft_chw, whose input_sin is the template
+// parameter S: stage_conv_sin.cu) and the standalone planar conv_planar
+// and rsft_planar (ops/kernels/conv_chw.py, fused_sft.py, planar.py); the
+// stage and tile wrappers it served before moved to conv_sm90.cu, and
+// their old chains stay callable through planar.launch_conv and
+// planar.rsft_cuda for chip_smoke.py's same-call A/B and the K1 probes.
 //
 // What bounds it on an H100: the 1080p stage-7 tensors are
 // 1080*1920*51*2 B = 211 MB each and the tail costs about 0.9 TFLOP of
@@ -60,9 +59,9 @@ int smem_bytes(int ks, int cin_pad, int nw) {
 
 // Output channels per block: chunk_width(cout), shrunk in whole chunks
 // until the tile and the KS * KS * nw weight rows fit the card's shared
-// memory (KS = 5 at Cin 128 fits nw <= 16); -1 where no multiple of 8 fits.
-// At KS <= 3 every Cin <= MAX_CIN_PAD fits the first width, so the stage
-// kernels keep their chunks.
+// memory; -1 where no multiple of 8 fits.  At KS = 3 every Cin <=
+// MAX_CIN_PAD fits the first width, so the stage kernels keep their
+// chunks.
 int tap_chunk_width(int ks, int cin_pad, int cout) {
   for (int chunks = (cout + BN - 1) / BN;; ++chunks) {
     const int nw = ((cout + chunks - 1) / chunks + 7) / 8 * 8;
@@ -76,20 +75,19 @@ int tap_chunk_width(int ks, int cin_pad, int cout) {
 extern "C" {
 
 // Shared memory of one launch (bytes), or -1 for a shape the kernel does
-// not take: ks not in {1, 3, 5}, more than MAX_CIN_PAD input channels, or
-// no channel chunk that fits the card's shared memory.
+// not take: ks other than 3, more than MAX_CIN_PAD input channels, or no
+// channel chunk that fits the card's shared memory.
 int bnt_stage_conv_smem(int cin, int cout, int ks) {
   const int cin_pad = (cin + 15) / 16 * 16;
-  if ((ks != 1 && ks != 3 && ks != 5) || cin_pad > MAX_CIN_PAD) return -1;
+  if (ks != 3 || cin_pad > MAX_CIN_PAD) return -1;
   const int nw = tap_chunk_width(ks, cin_pad, cout);
   return nw < 0 ? -1 : smem_bytes(ks, cin_pad, nw);
 }
 
-// One fused ks x ks convolution on the given stream.  Pointers may be null
-// where the comment on Params allows it; out_inv (int8-code output) only
-// with ks = 3; sin_mode (bnt::Sin: 1 the staged input, 2 the residual)
-// only with ks = 3 and a bf16 store.  Returns cudaGetLastError() after the
-// launch (0 on success).
+// One fused ks x ks convolution on the given stream, ks = 3.  Pointers may
+// be null where the comment on Params allows it; sin_mode (bnt::Sin: 1 the
+// staged input, 2 the residual) only with a bf16 store.  Returns
+// cudaGetLastError() after the launch (0 on success).
 int bnt_stage_conv(const void* x, const void* w, const void* bias,
                    const void* in_scale, const void* in_shift,
                    const void* out_scale, const void* out_shift,
@@ -119,19 +117,15 @@ int bnt_stage_conv(const void* x, const void* w, const void* bias,
   p.tiles_w = (w_ + TW - 1) / TW;
   p.tiles_h = (h + TH - 1) / TH;
   const int smem = bnt_stage_conv_smem(cin, cout, ks);
-  if (smem < 0 || (shuffle && cout % 4 != 0) || (out_inv && ks != 3) ||
+  if (smem < 0 || (shuffle && cout % 4 != 0) ||
       sin_mode < bnt::SIN_NONE || sin_mode > bnt::SIN_RESIDUAL ||
-      (sin_mode != bnt::SIN_NONE && (ks != 3 || out_inv)))
+      (sin_mode != bnt::SIN_NONE && out_inv))
     return cudaErrorInvalidValue;
   p.nw = tap_chunk_width(ks, p.cin_pad, cout);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sin_mode != bnt::SIN_NONE)
     return bnt::launch_sin(sin_mode, p, smem, s);
-  switch (ks) {
-    case 3: return out_inv ? launch<3, true>(p, smem, s)
-                           : launch<3, false>(p, smem, s);
-    default: return bnt::launch_taps(ks, p, smem, s);
-  }
+  return out_inv ? launch<3, true>(p, smem, s) : launch<3, false>(p, smem, s);
 }
 
 const char* bnt_error_string(int err) {

@@ -1,9 +1,8 @@
 // The bf16 stage-conv kernel, stage_conv_kernel<KS, CK, Q, S>: one fused
 // KS x KS convolution (see stage_conv.cu for what it computes, what bounds
-// it and its C entry points).  Its KS = 3 instances are compiled in
-// stage_conv.cu, its KS = 1 and KS = 5 ones in stage_conv_taps.cu and its
-// sin instances (KS = 3) in stage_conv_sin.cu, so that nvcc builds the
-// three in parallel; launch_taps and launch_sin are the bridges.
+// it and its C entry points), built at KS = 3 only: its instances are
+// compiled in stage_conv.cu and its sin instances in stage_conv_sin.cu,
+// so that nvcc builds the two in parallel; launch_sin is the bridge.
 
 #pragma once
 
@@ -39,9 +38,6 @@ enum Sin { SIN_NONE = 0, SIN_INPUT = 1, SIN_RESIDUAL = 2 };
 // (no s_in tile; launches without an input affine or sine only), and
 // STAGE_UNMASKED applies the input affine to every tap, padding too.
 enum Staging { STAGE_DIRECT = 16, STAGE_UNMASKED = 32 };
-
-// Launches a KS = 1 or KS = 5 instance (stage_conv_taps.cu).
-int launch_taps(int ks, const Params& p, int smem, cudaStream_t s);
 
 // Launches a KS = 3 instance with SIN_INPUT or SIN_RESIDUAL
 // (stage_conv_sin.cu).

@@ -106,6 +106,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bnt_conv_sm90.argtypes = [vp] * 10 + [ci] * 9 + [vp]
     lib.bnt_conv_sm90_smem.restype = ci
     lib.bnt_conv_sm90_smem.argtypes = [ci] * 4
+    lib.bnt_conv_sm90_at.restype = ci
+    lib.bnt_conv_sm90_at.argtypes = [vp] * 10 + [ci] * 11 + [vp]
+    lib.bnt_conv_sm90_groups.restype = ci
+    lib.bnt_conv_sm90_groups.argtypes = [ci] * 7 + [vp]
     lib.bnt_conv_sm90_i8.restype = ci
     lib.bnt_conv_sm90_i8.argtypes = [vp] * 12 + [ci] * 9 + [vp]
     lib.bnt_conv_sm90_i8_smem.restype = ci

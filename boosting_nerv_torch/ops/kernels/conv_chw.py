@@ -44,11 +44,11 @@ def head_conv_chw_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 def conv3x3_act_chw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                     ) -> torch.Tensor:
     """sin(conv3x3(x) + b) of NHWC x: [N, H, W, Cin] -> [N, H, W, Cout]."""
-    return run_conv("conv3x3_act_chw", x, w, b, k=3, ks=(3,), act="sin")
+    return run_conv("conv3x3_act_chw", x, w, b, "sin")
 
 
 def head_conv_chw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                   ) -> torch.Tensor:
     """tanh(conv3x3(x) + b) * 0.5 + 0.5 of NHWC x: [N, H, W, Cin] ->
     [N, H, W, Cout] (Cout = 3 for the RGB head)."""
-    return run_conv("head_conv_chw", x, w, b, k=3, ks=(3,), act="outimg")
+    return run_conv("head_conv_chw", x, w, b, "outimg")

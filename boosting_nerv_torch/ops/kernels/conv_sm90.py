@@ -1,6 +1,8 @@
 """Host side of the Hopper conv kernel (``ops/csrc/conv_sm90.cuh``): its
-bf16 form (``conv_sm90.cu``), which serves ``tile_conv.conv_tile``,
-``tile_conv.resblock_sft_tile_v3``, ``planar.fused_upconv_rsft`` and
+bf16 form (``conv_sm90.cu``, and ``conv_sm90_split.cu`` for launches split
+into slice groups), which serves the four fine-grid wrappers of
+``tile_conv`` (``conv_tile``, ``conv_tile_v3``, ``resblock_sft_tile``,
+``resblock_sft_tile_v3``), ``planar.fused_upconv_rsft`` and
 ``planar.fused_conv_rsft``, and its int8 form (``conv_sm90_i8.cu``), which
 serves ``planar.fused_upconv_rsft_i8`` and ``planar.fused_conv_rsft_i8``.
 
@@ -21,6 +23,11 @@ here:
   N 8); ``fit`` mirrors the library's shared-memory plan (warpgroups,
   weight ring, bytes) for the CPU tests, and chip_smoke.py holds the two
   equal;
+- the slice-group plan of a bf16 launch: ``groups`` (mirroring the
+  library's, which ``launch_plan`` reads and chip_smoke.py holds equal)
+  splits the N slices of a launch whose tiles leave SMs idle into G
+  groups, each block taking one group's slices of its tiles
+  (``group_slices``, ``work_items``); G = 1 where the tiles fill the card;
 - the weight packing: ``pack_weight`` turns an OHWI weight into the
   kernel's B layout, one block per (N slice, tap), each K step of a block
   (k16 of bf16, k32 of int8: 32 bytes) NS x 32 bytes as 8 x 16-byte core
@@ -46,6 +53,7 @@ dequant scales and input multipliers from the weights' fields.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Callable, Optional, Tuple
 
@@ -62,6 +70,8 @@ ACT_CODES = {"none": 0, "sin": 1, "gelu": 2, "outimg": 3}
 MAX_SMEM = 232448                  # the card's opt-in shared memory a block
 MAX_CIN_PAD, MAX_WS = 128, 8
 ROWS_S8_64 = 3                     # int8 rows a warpgroup at N 64
+FULL_WAVES = 4                     # the slice-group plan's (groups)
+REPACK_COST, SLICE_COST = 1, 4
 
 
 def form_of(x: torch.Tensor, w: torch.Tensor) -> int:
@@ -214,6 +224,63 @@ def fit(cin: int, cout: int, k: int, ns: int, form: int = BF16):
     return None
 
 
+def tiles(n: int, h: int, w: int, nwg: int, rows: int = 2) -> int:
+    """Output tiles of a launch: (rows x nwg) x 64 pixels each
+    (conv_sm90.cuh::prepare's tiles_w x tiles_h x n)."""
+    return n * -(-h // (rows * nwg)) * -(-w // TW)
+
+
+def blocks(n_tiles: int, g: int, sms: int, per_sm: int) -> int:
+    """Blocks of one slice group of a launch (conv_sm90.cuh::blocks)."""
+    return max(1, min(n_tiles, sms * max(per_sm, 1) // g))
+
+
+def groups(n_tiles: int, nslices: int, sms: int, per_sm: int) -> int:
+    """The slice-group plan of a bf16 launch (conv_sm90.cuh::groups, which
+    chip_smoke.py holds this to): 1 where the tiles fill ``FULL_WAVES``
+    waves of blocks or more, else the G groups of consecutive N slices,
+    none empty, that minimise rounds x (REPACK_COST + SLICE_COST x slices
+    a group), rounds being the tiles one block walks; the least such G."""
+    if n_tiles >= FULL_WAVES * sms * max(per_sm, 1):
+        return 1
+    best, best_cost = 1, None
+    for g in range(1, nslices + 1):
+        per = -(-nslices // g)
+        if -(-nslices // per) != g:  # a group would be empty
+            continue
+        bx = blocks(n_tiles, g, sms, per_sm)
+        cost = -(-n_tiles // bx) * (REPACK_COST + SLICE_COST * per)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = g, cost
+    return best
+
+
+def group_slices(nslices: int, g: int, group: int) -> Tuple[int, int]:
+    """The N slices [s0, s1) of slice group ``group`` of ``g``
+    (conv_sm90.cuh::slice_range)."""
+    per = -(-nslices // g)
+    return group * per, min(nslices, (group + 1) * per)
+
+
+def work_items(n_tiles: int, nslices: int, g: int) -> list:
+    """The work items of a launch of ``g`` slice groups, (tile, s0, s1):
+    every tile once per group, with the group's slices."""
+    return [(t, *group_slices(nslices, g, grp)) for grp in range(g)
+            for t in range(n_tiles)]
+
+
+def launch_plan(lib, n: int, h: int, w: int, cin: int, cout: int, ks: int
+                ) -> Tuple[int, int, int, int, int]:
+    """The library's slice-group plan of a bf16 launch (G, tiles, N slices,
+    SMs, blocks an SM), from ``bnt_conv_sm90_groups``."""
+    ns = plan(lib, cin, cout, ks)[0]
+    info = (ctypes.c_int * 4)()
+    g = lib.bnt_conv_sm90_groups(n, h, w, cin, cout, ks, ns, info)
+    if g < 1:
+        raise ValueError(f"conv_sm90 takes no {cin}->{cout} k{ks} launch")
+    return (g, *info)
+
+
 def smem(lib, cin: int, cout: int, ks: int, form: int = BF16) -> int:
     """Shared memory of one launch, or -1 for a shape it does not take."""
     return plan(lib, cin, cout, ks, form)[1]
@@ -225,12 +292,14 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def launch(lib, x, w, b, out, *, act="none", shuffle=False, in_affine=None,
            out_affine=None, residual=None, out_inv=None, scale=None,
-           in_inv=None) -> None:
+           in_inv=None, schedule=None) -> None:
     """One launch: a same-padded k x k conv of NHWC x with the OHWI weight
     w [Cout, k, k, Cin] into ``out`` (see conv_sm90.cu); with int8 weight
     codes w, the int8 form (conv_sm90_i8.cu): ``scale`` and b are the
     float32 dequant scale and bias, a bf16 x is quantised at ``in_inv``
-    (int8 codes x are taken as they are)."""
+    (int8 codes x are taken as they are).  ``schedule`` (bf16 only, for
+    measuring the plan): (slice groups, 0 for the plan's; at most that
+    many warpgroups)."""
     n, h, wd, cin = x.shape
     form = form_of(x, w)
     ns = plan(lib, cin, w.shape[0], w.shape[1], form)[0]
@@ -238,11 +307,12 @@ def launch(lib, x, w, b, out, *, act="none", shuffle=False, in_affine=None,
     s_out, h_out = out_affine if out_affine is not None else (None, None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if form == BF16:
-        err = lib.bnt_conv_sm90(
-            _ptr(x), _ptr(packed(w, ns)), _ptr(b), _ptr(s_in), _ptr(h_in),
-            _ptr(s_out), _ptr(h_out), _ptr(residual), _ptr(out_inv),
-            _ptr(out), n, h, wd, cin, w.shape[0], ACT_CODES[act],
-            int(shuffle), w.shape[1], ns, stream)
+        args = (_ptr(x), _ptr(packed(w, ns)), _ptr(b), _ptr(s_in),
+                _ptr(h_in), _ptr(s_out), _ptr(h_out), _ptr(residual),
+                _ptr(out_inv), _ptr(out), n, h, wd, cin, w.shape[0],
+                ACT_CODES[act], int(shuffle), w.shape[1], ns)
+        err = (lib.bnt_conv_sm90(*args, stream) if schedule is None else
+               lib.bnt_conv_sm90_at(*args, *schedule, stream))
     else:
         err = lib.bnt_conv_sm90_i8(
             _ptr(x), _ptr(packed(w, ns)), _ptr(scale), _ptr(b),
@@ -292,19 +362,23 @@ def _stage_tile(virt, base, shape, b, ty0, tx0, k, in_mul, in_add,
 def emulate(x: torch.Tensor, wpk: torch.Tensor, b: torch.Tensor, *,
             cout: int, k: int, act: str = "none", shuffle: bool = False,
             in_affine=None, out_affine=None, residual=None, out_inv=None,
-            scale=None, in_inv=None) -> torch.Tensor:
+            scale=None, in_inv=None, groups: int = 1,
+            ns: Optional[int] = None) -> torch.Tensor:
     """The kernel's output for NHWC x and the packed weight ``wpk``
-    (``pack_weight(w, slice_width(cout, form))``), computed as the kernel
+    (``pack_weight(w, ns)``, ns by default ``slice_width(cout, form)``,
+    the plan's first choice), computed as the kernel
     does on a CPU tensor: bf16, or int8 codes at ``out_inv``.  Int8 codes
     ``wpk`` give the int8 form: x int8 codes, or bf16 quantised at
-    ``in_inv``; the exact int32 sums dequantised by ``scale`` and b."""
+    ``in_inv``; the exact int32 sums dequantised by ``scale`` and b.  It
+    walks the launch's work items (``work_items``) at ``groups`` slice
+    groups: each item stages its tile anew and computes its slices."""
     from .planar import ACTS
 
     n, h, w, c = x.shape
     form = form_of(x, wpk)
     e = op_bytes(form)
-    ns, cp, pw, gs = (slice_width(cout, form), cin_pad(c, form), TW + k - 1,
-                      group_stride(k))
+    ns = slice_width(cout, form) if ns is None else ns
+    cp, pw, gs = cin_pad(c, form), TW + k - 1, group_stride(k)
     kstep, chunk = 32 // e, 16 // e
     nsl = -(-cout // ns)
     base = (x.data_ptr() % 16) // x.element_size()
@@ -318,22 +392,22 @@ def emulate(x: torch.Tensor, wpk: torch.Tensor, b: torch.Tensor, *,
     wf, a_offs, b_offs = wpk.to(dtype), a_offsets(gs, e), b_offsets(ns, e)
     acc = torch.zeros((n, -(-h // TH) * TH, -(-w // TW) * TW, nsl * ns),
                       dtype=dtype)
-    for bi in range(n):
-        for ty0 in range(0, h, TH):
-            for tx0 in range(0, w, TW):
-                tile = _stage_tile(virt, base, x.shape, bi, ty0, tx0, k,
-                                   in_mul, in_add, form, in_inv).to(dtype)
-                for s in range(nsl):
-                    for tap in range(k * k):
-                        dy, dx = divmod(tap, k)
-                        blk = (s * k * k + tap) * ns * cp
-                        for kk in range(cp // kstep):
-                            bmat = wf[blk + kk * ns * kstep + b_offs]
-                            for r in range(TH):  # one m64 tile a row
-                                p0 = (r + dy) * pw + dx
-                                a = tile[(p0 + 2 * kk * gs) * chunk + a_offs]
-                                acc[bi, ty0 + r, tx0:tx0 + TW,
-                                    s * ns:(s + 1) * ns] += a @ bmat.T
+    tw, th = -(-w // TW), -(-h // TH)
+    for t, s0, s1 in work_items(n * th * tw, nsl, groups):
+        bi, ty0, tx0 = t // (th * tw), t // tw % th * TH, t % tw * TW
+        tile = _stage_tile(virt, base, x.shape, bi, ty0, tx0, k, in_mul,
+                           in_add, form, in_inv).to(dtype)
+        for s in range(s0, s1):
+            for tap in range(k * k):
+                dy, dx = divmod(tap, k)
+                blk = (s * k * k + tap) * ns * cp
+                for kk in range(cp // kstep):
+                    bmat = wf[blk + kk * ns * kstep + b_offs]
+                    for r in range(TH):  # one m64 tile a row
+                        p0 = (r + dy) * pw + dx
+                        a = tile[(p0 + 2 * kk * gs) * chunk + a_offs]
+                        acc[bi, ty0 + r, tx0:tx0 + TW,
+                            s * ns:(s + 1) * ns] += a @ bmat.T
     acc = acc[:, :h, :w, :cout].float()
     if form != BF16:
         acc = acc * scale.float()

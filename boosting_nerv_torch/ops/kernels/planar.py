@@ -313,9 +313,9 @@ def launch_conv(lib, x, w, b, out, *, act="none", shuffle=False,
                 in_affine=None, out_affine=None, residual=None, out_inv=None,
                 sin="none"):
     """One launch of the bf16 kernel (``stage_conv.cu``): a same-padded
-    k x k conv of NHWC x with the OHWI weight w [Cout, k, k, Cin].  ``sin``
+    3x3 conv of NHWC x with the OHWI weight w [Cout, 3, 3, Cin].  ``sin``
     "input" stages sin(x) before the input affine, "residual" adds
-    sin(residual) (k = 3 and a bf16 output only: ``stage_conv_sin.cu``)."""
+    sin(residual) (a bf16 output only: ``stage_conv_sin.cu``)."""
     n, h, wd, cin = x.shape
     s_in, h_in = in_affine if in_affine is not None else (None, None)
     s_out, h_out = out_affine if out_affine is not None else (None, None)
@@ -415,13 +415,14 @@ def _check_conv(x, w, b, k, ks, act, smem_fn=stage_smem):
 
 
 def run_conv(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-             *, k: int, ks, act: str = "none") -> torch.Tensor:
-    """The conv wrappers' body: act(k x k conv + bias) of NHWC x with the
-    OHWI weight w, k in ``ks``; for a tensor on the card one launch of the
-    bf16 kernel, counted in ``LAUNCHES[name]``, for one on the CPU the
-    plain version.  Raises ValueError for a k, act or weight it does not
-    take and, on the card, for a shape or type the kernel does not take."""
-    if not _check_conv(x, w, b, k, ks, act):
+             act: str = "none") -> torch.Tensor:
+    """The 3x3 conv wrappers' body on the stage kernel: act(conv3x3 +
+    bias) of NHWC x with the OHWI weight w; for a tensor on the card one
+    launch of ``stage_conv.cu``, counted in ``LAUNCHES[name]``, for one on
+    the CPU the plain version.  Raises ValueError for an act or weight it
+    does not take and, on the card, for a shape or type the kernel does
+    not take."""
+    if not _check_conv(x, w, b, 3, (3,), act):
         return conv_act_plain(x, w, b, act)
     out = torch.empty(x.shape[:3] + (w.shape[0],), dtype=x.dtype,
                       device=x.device)
@@ -686,7 +687,7 @@ def _conv_planar(xp, w, b, c_in, c_out, wc_real, act, plain):
     x = _fine(xp, c_in, hc, wc_real)
     w = _hwio_to_ohwi(w, c_in, c_out)
     y = (conv_act_plain(x, w, b, act) if plain else
-         run_conv("conv_planar", x, w, b, k=3, ks=(3,), act=act))
+         run_conv("conv_planar", x, w, b, act))
     fill = float(ACTS[act](torch.zeros(())))
     out = torch.full((4 * _round16(c_out), hc, xp.shape[2]), fill,
                      dtype=y.dtype, device=y.device)

@@ -23,13 +23,14 @@ Abramowitz-Stegun erf become the kernel's reduced SFU sine and ``erff``.
 
 Each wrapper runs its plain PyTorch version (``*_plain``) for a tensor on
 the CPU, and for a tensor on the card one launch per conv, two per
-ResBlockSFT: ``conv_tile`` and ``resblock_sft_tile_v3`` of the Hopper
-kernel ``ops/csrc/conv_sm90.cu`` (``conv_sm90.launch`` / ``conv_sm90.rsft``),
-``conv_tile_v3`` and ``resblock_sft_tile`` of the bf16 stage kernel
-``ops/csrc/stage_conv.cu`` with KS = k taps (``planar.rsft_cuda``).  On a
-CUDA tensor it launches or raises ValueError (for example for more than
-128 input channels, which no shared-memory tile of either kernel takes);
-it never falls back.  ``LAUNCHES`` counts the wrapper calls that launched.
+ResBlockSFT, of the Hopper kernel ``ops/csrc/conv_sm90.cu``
+(``conv_sm90.launch`` / ``conv_sm90.rsft``), every act through its
+epilogue.  Its launches of few tiles and many N slices (the 45 x 80 and
+135 x 240 calls at the bench config) split the slices over more blocks
+(``conv_sm90.groups``).  On a CUDA tensor a wrapper launches or raises
+ValueError (for example for more than 128 input channels, which no
+shared-memory tile of the kernel takes); it never falls back.
+``LAUNCHES`` counts the wrapper calls that launched.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ import torch
 
 from . import LAUNCHES, _build, conv_sm90
 from .planar import (_check_conv, _check_rsft, conv_act_plain,
-                     rsft_nhwc_plain, run_conv, run_rsft, sm90_smem)
+                     rsft_nhwc_plain, sm90_smem)
 
 
 # --------------------------------------------------------------------- #
@@ -72,33 +73,52 @@ resblock_sft_tile_v3_plain = resblock_sft_tile_plain
 # CUDA wrappers
 # --------------------------------------------------------------------- #
 
+def _conv(name, x, w, b, k, ks, act):
+    """The conv wrappers' body: act(k x k conv + bias), k in ``ks``; on the
+    card one launch of ``conv_sm90.cu``, counted in ``LAUNCHES[name]``."""
+    if not _check_conv(x, w, b, k, ks, act, sm90_smem):
+        return conv_act_plain(x, w, b, act)
+    out = torch.empty(x.shape[:3] + (w.shape[0],), dtype=x.dtype,
+                      device=x.device)
+    conv_sm90.launch(_build.load_library(), x, w, b, out, act=act)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _rsft(name, x, w0, b0, w1, b1, sft):
+    """The ResBlockSFT wrappers' body: on the card the two launches of
+    ``conv_sm90.rsft``, counted once in ``LAUNCHES[name]``."""
+    if not _check_rsft(x, w0, b0, w1, b1, sft, sm90_smem):
+        return rsft_nhwc_plain(x, w0, b0, w1, b1, sft)
+    out = conv_sm90.rsft(conv_sm90.cuda_conv(_build.load_library()), x,
+                         (w0, b0, w1, b1), sft)
+    LAUNCHES[name] += 1
+    return out
+
+
 def conv_tile(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
               k: int) -> torch.Tensor:
     """k x k same-padded conv + bias of NHWC x, k in {1, 3, 5}:
     [N, H, W, Cin] -> [N, H, W, Cout]: one launch of ``conv_sm90.cu`` on
     the card."""
-    if not _check_conv(x, w, b, k, (1, 3, 5), "none", sm90_smem):
-        return conv_tile_plain(x, w, b, k=k)
-    out = torch.empty(x.shape[:3] + (w.shape[0],), dtype=x.dtype,
-                      device=x.device)
-    conv_sm90.launch(_build.load_library(), x, w, b, out)
-    LAUNCHES["conv_tile"] += 1
-    return out
+    return _conv("conv_tile", x, w, b, k, (1, 3, 5), "none")
 
 
 def conv_tile_v3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                  k: int, act: str = "none") -> torch.Tensor:
     """act(k x k same-padded conv + bias) of NHWC x, k in {1, 3}, act in
-    none / sin / outimg / gelu: [N, H, W, Cin] -> [N, H, W, Cout]."""
-    return run_conv("conv_tile_v3", x, w, b, k=k, ks=(1, 3), act=act)
+    none / sin / outimg / gelu: [N, H, W, Cin] -> [N, H, W, Cout]: one
+    launch of ``conv_sm90.cu`` on the card."""
+    return _conv("conv_tile_v3", x, w, b, k, (1, 3), act)
 
 
 def resblock_sft_tile(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
                       w1: torch.Tensor, b1: torch.Tensor, sft: torch.Tensor
                       ) -> torch.Tensor:
     """ResBlockSFT of NHWC x: [N, H, W, C] -> [N, H, W, C]; w0/w1 OHWI
-    [C, 3, 3, C]; sft [4, C] float32 (the v2 formulation's port)."""
-    return run_rsft("resblock_sft_tile", x, w0, b0, w1, b1, sft)
+    [C, 3, 3, C]; sft [4, C] float32 (the v2 formulation's port): two
+    launches of ``conv_sm90.cu`` on the card."""
+    return _rsft("resblock_sft_tile", x, w0, b0, w1, b1, sft)
 
 
 def resblock_sft_tile_v3(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
@@ -107,9 +127,4 @@ def resblock_sft_tile_v3(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     """The same function as ``resblock_sft_tile`` (the v3 formulation's
     port), counted under its own name: two launches of ``conv_sm90.cu`` on
     the card."""
-    if not _check_rsft(x, w0, b0, w1, b1, sft, sm90_smem):
-        return resblock_sft_tile_v3_plain(x, w0, b0, w1, b1, sft)
-    out = conv_sm90.rsft(conv_sm90.cuda_conv(_build.load_library()), x,
-                         (w0, b0, w1, b1), sft)
-    LAUNCHES["resblock_sft_tile_v3"] += 1
-    return out
+    return _rsft("resblock_sft_tile_v3", x, w0, b0, w1, b1, sft)

@@ -13,8 +13,9 @@ directory).  A worker builds HNeRV-Boost at chip_smoke.py's UVG-1080p
 serving config with seeded random weights and times, with CUDA events:
 
 - the decodes, in ms/frame over 8 frame indices, encoder excluded: v5
-  bf16, W8A8 (calibrated as chip_smoke.py does), v3 (``tile_from_h=45``)
-  and the hybrid (``fine_from_h=1000``);
+  bf16, W8A8 (calibrated as chip_smoke.py does), v3 and v2
+  (``tile_from_h=45``), the hybrid (``fine_from_h=1000``) and v1
+  (``pallas_from_h=512``);
 - the calls of the Hopper kernel ``conv_sm90.cu``, in ms per call,
   through what both trees have: ``planar.fused_upconv_rsft`` at the v5
   stages 2, 4 and 6; ``tile_conv.conv_tile`` at every call of the v2
@@ -23,6 +24,11 @@ serving config with seeded random weights and times, with CUDA events:
   stride-1 stages 3, 5 and 7 + head (conv + sin, the ResBlockSFT pair,
   the head) and for the ResBlockSFT pair alone at 540x960x61 and
   1080x1920x51;
+- the fine-grid wrappers at every call of a frame of their decode:
+  ``tile_conv.conv_tile_v3`` (v3 stages 1-7 and the head),
+  ``tile_conv.resblock_sft_tile_v3`` (v3) and
+  ``tile_conv.resblock_sft_tile`` (v2), each at stages 0-7, whatever
+  kernel each tree runs them on;
 - the W8A8 stage calls, in ms per call: ``planar.fused_conv_rsft_i8`` at
   stages 5 and 7 + head and ``planar.fused_upconv_rsft_i8`` at stage 6 of
   the W8A8 decode, int8 codes in, as that decode calls them (each tree's
@@ -33,26 +39,60 @@ serving config with seeded random weights and times, with CUDA events:
 Every call's output is summed, so that the two trees' results can be
 compared too.  The script prints, beside the card's name and power limit,
 one line per item (each tree's two turns, their means, the change against
-the parent, the output sums) and each tree's ptxas register report of
-``conv_sm90.cu``.  It exits non-zero without CUDA or when a worker fails.
+the parent, the output sums), each tree's ptxas register report of
+``conv_sm90.cu`` and whether each of its kernel instances has the same
+SASS (``cuobjdump -sass``, addresses aside) in both trees.  It exits
+non-zero without CUDA or when a worker fails.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 
 N_FRAMES = 8
 
 
+def sass_digests(lib_path: str) -> dict:
+    """{"N P F R": digest of its SASS instructions} of conv_sm90.cu's kernel
+    instances in the library (``cuobjdump -sass``; each instruction's
+    address dropped)."""
+    tool = next(c for c in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                     "cuobjdump"), shutil.which("cuobjdump"))
+        if c and os.path.exists(c))
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    out, key, lines = {}, None, []
+    for line in text.splitlines() + ["Function : end"]:
+        m = re.search(r"Function\s*:\s*(\S+)", line)
+        if m:
+            if key is not None:
+                out[key] = hashlib.sha256("\n".join(lines).encode()
+                                          ).hexdigest()[:16]
+            name = m.group(1)
+            k = re.search(r"conv_sm90_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi"
+                          r"(\d+)E", name)
+            key = (" ".join(k.groups()) if k and re.search(
+                r"_\d+_conv_sm90_cu_", name) else None)
+            lines = []
+        elif key is not None:
+            i = re.search(r"/\*[0-9a-f]{4,}\*/\s*(.*?;)", line)
+            if i:
+                lines.append(i.group(1))
+    return out
+
+
 def worker(tree: str, decodes: bool = True) -> dict:
     """Times every item with the package of ``tree``; returns
     {"items": {name: [ms, output sum]}, "registers": [conv_sm90.cu's
-    instances], "spill_bytes": n}."""
+    instances], "spill_bytes": n, "sass": sass_digests}."""
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
@@ -61,8 +101,8 @@ def worker(tree: str, decodes: bool = True) -> dict:
     from boosting_nerv_torch.ops.kernels import (_build, conv_sm90, planar,
                                                  tile_conv)
     from boosting_nerv_torch.runtime.fast_decode import (
-        build_fast_decode_v2, build_fast_decode_v3, build_fast_decode_v5,
-        build_serving_decode)
+        build_fast_decode, build_fast_decode_v2, build_fast_decode_v3,
+        build_fast_decode_v5, build_serving_decode)
     from chip_smoke import CALIB_TS, bench_config, cuda_ms
 
     assert os.path.dirname(os.path.abspath(_build.__file__)) == os.path.join(
@@ -87,8 +127,10 @@ def worker(tree: str, decodes: bool = True) -> dict:
             "decode v5 bf16": serving,
             "decode w8a8": w8a8,
             "decode v3": build_fast_decode_v3(cfg, model, tile_from_h=45),
+            "decode v2": build_fast_decode_v2(cfg, model, tile_from_h=45),
             "decode hybrid": build_fast_decode_v5(cfg, model,
-                                                  fine_from_h=1000)}
+                                                  fine_from_h=1000),
+            "decode v1": build_fast_decode(cfg, model, 512)}
         for name, dec in decodes.items():
             ms = cuda_ms(lambda: [dec(embed, t) for t in ts], iters=2,
                          warmup=1) / N_FRAMES
@@ -148,16 +190,32 @@ def worker(tree: str, decodes: bool = True) -> dict:
                       planar.fused_conv_rsft_i8(*a, hd, oi))
             calls[f"{st.kernel} stage {st.index}"
                   + (" + head" if st.head else "")] = fn
-        v2 = build_fast_decode_v2(cfg, model, tile_from_h=45).fine
-        convs = [(f"stage {st.index}", st.conv_w, st.conv_b,
-                  (st.out_hw[0] // st.strd, st.out_hw[1] // st.strd))
-                 for st in v2.stages if st.upconv is None]
-        convs.append(("head", v2.head_w, v2.head_b, v2.stages[-1].out_hw))
-        for label, wt, b, (h, w) in convs:
-            x = rnd(1, h, w, wt.shape[3])
-            calls[f"conv_tile v2 {label}"] = (
-                lambda x=x, wt=wt, b=b:
-                tile_conv.conv_tile(x, wt, b, k=wt.shape[1]))
+        v2 = build_fast_decode_v2(cfg, model, tile_from_h=45)
+        v3 = build_fast_decode_v3(cfg, model, tile_from_h=45)
+        for tag, dec in (("v2", v2), ("v3", v3)):
+            fine = dec.fine
+            tconv = (tile_conv.conv_tile_v3 if fine.v3
+                     else tile_conv.conv_tile)
+            act = {"act": "sin"} if fine.v3 else {}
+            convs = [(f"stage {st.index}", st.conv_w, st.conv_b,
+                      (st.out_hw[0] // st.strd, st.out_hw[1] // st.strd),
+                      act) for st in fine.stages if st.upconv is None]
+            convs.append(("head", fine.head_w, fine.head_b,
+                          fine.stages[-1].out_hw,
+                          {"act": "outimg"} if fine.v3 else {}))
+            for label, wt, b, (h, w), kw in convs:
+                x = rnd(1, h, w, wt.shape[3])
+                calls[f"{tconv.__name__} {tag} {label}"] = (
+                    lambda x=x, wt=wt, b=b, kw=kw, f=tconv:
+                    f(x, wt, b, k=wt.shape[1], **kw))
+            rsft_fn = (tile_conv.resblock_sft_tile_v3 if fine.v3
+                       else tile_conv.resblock_sft_tile)
+            te = dec.time_embed(torch.tensor([0.5], device="cuda"))
+            for st in fine.stages:
+                y = rnd(1, *st.out_hw, st.rsft[0].shape[0])
+                calls[f"{rsft_fn.__name__} {tag} stage {st.index}"] = (
+                    lambda y=y, rw=st.rsft, sft=st.sft(te), f=rsft_fn:
+                    f(y, *rw, sft))
         for name, fn in calls.items():
             items[name] = [cuda_ms(fn), float(fn().float().sum())]
     log = open(_build.library_path() + ".log").read()
@@ -167,7 +225,8 @@ def worker(tree: str, decodes: bool = True) -> dict:
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                         sec)
     return {"items": items, "registers": sorted(map(int, regs)),
-            "spill_bytes": sum(int(a) + int(b) for a, b in spills)}
+            "spill_bytes": sum(int(a) + int(b) for a, b in spills),
+            "sass": sass_digests(_build.library_path())}
 
 
 def run_worker(tree: str, decodes: bool) -> dict:
@@ -214,6 +273,11 @@ def main() -> int:
     for tag, r in (runs[0], runs[1]):
         print(f"ptxas conv_sm90.cu ({tag}): registers {r['registers']}, "
               f"{r['spill_bytes']} spill bytes", flush=True)
+    par, chg = runs[0][1]["sass"], runs[1][1]["sass"]
+    for key in sorted(set(par) | set(chg)):
+        same = "same" if par.get(key) == chg.get(key) else "differs"
+        print(f"sass conv_sm90.cu N P F R {key}: parent {par.get(key)}, "
+              f"change {chg.get(key)}: {same}", flush=True)
     for name in runs[0][1]["items"]:
         par = [r["items"][name] for tag, r in runs if tag == "parent"]
         chg = [r["items"][name] for tag, r in runs if tag == "change"]

@@ -30,28 +30,33 @@ Phases, one line of output each (or one line per shape):
    and head_conv_chw, all at 1080x1920x51; the planar wrappers at the
    planar form of stage 7, C 51 -> Cp 64, Hc 540, wc_real 960, Wd 1024,
    conv_planar with act sin and as the outimg head) and at one small
-   ragged shape each (width 50 and 9 rows; k = 1 for conv_tile_v3, k = 5
-   for conv_tile, also at 128 -> 80 channels, which the Hopper kernel
-   takes only at its narrowest N slice; wc_real 50 for the planar ones;
-   conv_tile, resblock_sft_tile_v3 and the bf16 fused_upconv_rsft and
-   fused_conv_rsft on the Hopper kernel conv_sm90.cu, the W8A8
+   ragged shape each (width 50 and 9 rows; k = 1 with act gelu for
+   conv_tile_v3, k = 5 for conv_tile, also at 128 -> 80 channels, which
+   the Hopper kernel takes only at its narrowest N slice; wc_real 50 for
+   the planar ones; the four tile wrappers and the bf16 fused_upconv_rsft
+   and fused_conv_rsft on the Hopper kernel conv_sm90.cu, the W8A8
    fused_upconv_rsft_i8 and fused_conv_rsft_i8 on its int8 form
-   conv_sm90_i8.cu, the others on the stage kernels): max abs error
-   within
-   2e-2 * max(|plain|, 1), int8 codes compared after dequantising with
-   1/inv; prints the share of codes that differ; times both with CUDA
-   events, and F.conv2d for conv_tile; then checks that a conv with more
-   than 128 input channels, which the kernel does not take, raises
-   ValueError on the card from the tile, v1 and planar wrappers; and
-   times the stage kernel's chain (stage_conv.cu) beside conv_sm90.cu in
-   turns (old, new, new, old) at conv_tile's v2 stage-6 call, at
-   fused_upconv_rsft's bf16 stages 2, 4 and 6, at fused_conv_rsft's
-   stages 3, 5 and 7 + head and at every resblock_sft_tile_v3 call of
-   the v3 decode, and the W8A8 stage kernel's chain (stage_conv_i8.cu)
-   beside conv_sm90_i8.cu at the W8A8 stages 5, 6 and 7 + head (the
-   same-call A/B), after checking conv_sm90.cu's and
-   conv_sm90_i8.cu's shared-memory plan of every conv shape they serve
-   against the Python mirror and printing the plan;
+   conv_sm90_i8.cu, the v1 and planar wrappers on the stage kernels): max
+   abs error within 2e-2 * max(|plain|, 1), int8 codes compared after
+   dequantising with 1/inv; prints the share of codes that differ; times
+   both with CUDA events, F.conv2d for conv_tile and, beside
+   conv_tile_v3, F.conv2d of its conv alone (no act); then checks that a
+   conv with more than 128 input channels, which the kernel does not
+   take, raises ValueError on the card from the tile, v1 and planar
+   wrappers; checks conv_sm90.cu's and conv_sm90_i8.cu's shared-memory
+   plan of every conv shape they serve, and conv_sm90.cu's slice-group
+   plan G at every launch grid, against the Python mirror and prints the
+   plans; times each conv_sm90.cu launch of the v3 decode on a grid of at
+   most 270 rows and the v5 stage 2 upconv at every slice-group count
+   and at one and two warpgroups beside the plan's ("schedule" lines);
+   and times the stage kernel's
+   chain (stage_conv.cu) beside conv_sm90.cu in turns (old, new, new,
+   old) at conv_tile's v2 stage-6 call, at fused_upconv_rsft's bf16
+   stages 2, 4 and 6, at fused_conv_rsft's stages 3, 5 and 7 + head, at
+   every resblock_sft_tile_v3 and conv_tile_v3 call of the v3 decode and
+   at every resblock_sft_tile call of the v2 decode, and the W8A8 stage
+   kernel's chain (stage_conv_i8.cu) beside conv_sm90_i8.cu at the W8A8
+   stages 5, 6 and 7 + head (the same-call A/B);
 5. the bf16 slice: serves 8 frame indices through ``build_serving_decode``;
    checks the frames (shape, finite, [0, 1], max abs error <= 1e-2 against
    the fp32 plain decode with TF32 off) and the launch counts; times the
@@ -141,8 +146,8 @@ KERNELS = {  # wrapper: (source, replaces)
     "fused_conv_rsft_i8": (SM90_I8_CU,
                            f"{PLANAR}:1541 (W8A8 prep {PLANAR}:673)"),
     "conv_tile": (SM90_CU, f"{TILE}:144"),
-    "conv_tile_v3": (STAGE_CU, f"{TILE}:473"),
-    "resblock_sft_tile": (STAGE_CU, f"{TILE}:951"),
+    "conv_tile_v3": (SM90_CU, f"{TILE}:473"),
+    "resblock_sft_tile": (SM90_CU, f"{TILE}:951"),
     "resblock_sft_tile_v3": (SM90_CU, f"{TILE}:788"),
     "conv3x3_act_chw": (STAGE_CU, f"{CHW}:88"),
     "head_conv_chw": (STAGE_CU, f"{CHW}:95"),
@@ -510,7 +515,8 @@ def out_inv(plain, args):
 
 
 def library_ms(args, kw):
-    """F.conv2d (bf16, channels_last) of a conv_tile call."""
+    """F.conv2d (bf16, channels_last) of a conv_tile call, or of a
+    conv_tile_v3 call's conv alone (no act)."""
     x, w, b = args
     xc, wc = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2)
     return cuda_ms(lambda: torch.nn.functional.conv2d(
@@ -525,6 +531,7 @@ def check_kernels(cases, device_line):
                    "bound_ms": 0.0, "bound_by": "operations",
                    "library_ms": 0.0 if k in LIBRARY else None}
                for k in KERNELS}
+    alone = 0.0  # F.conv2d of the conv alone over the v3 frame's calls
     for label, name, args, kw, per_frame in cases:
         kernel, plain = wrapper(name), wrapper(name, plain=True)
         got = kernel(*args, **kw)
@@ -543,9 +550,13 @@ def check_kernels(cases, device_line):
         ms = cuda_ms(lambda: kernel(*args, **kw))
         plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=2, warmup=1)
         lib_ms = library_ms(args, kw) if name in LIBRARY else None
+        conv_ms = library_ms(args, kw) if name == "conv_tile_v3" else None
         b_ms, b_by = bound(name, args, kw, got)
         x = args[0]
         lib = "" if lib_ms is None else f" library_ms {lib_ms:.4f}"
+        if conv_ms is not None:
+            lib = f" conv_alone_ms {conv_ms:.4f} (F.conv2d, no act)"
+            alone += conv_ms if per_frame else 0.0
         print(f"kernel {name} {label} in {tuple(x.shape)} {x.dtype} out "
               f"{tuple(got.shape)} {got.dtype}: max_abs_err {err:.6g} (tol "
               f"{tol:.4g}){codes} ms {ms:.4f} plain_ms {plain_ms:.4f}{lib} "
@@ -562,6 +573,9 @@ def check_kernels(cases, device_line):
                 s["library_ms"] += lib_ms
             if b_by == "bytes":
                 s["bound_by"] = "bytes"
+    print(f"conv_tile_v3 over the v3 frame's calls: "
+          f"{summary['conv_tile_v3']['ms']:.4f} ms, F.conv2d of the conv "
+          f"alone {alone:.4f} ms [{device_line}]", flush=True)
     return summary
 
 
@@ -571,8 +585,10 @@ def run_ab(decode, decode_i8, v2, v3, gen, device_line):
     served before) against the wrapper, timed in turns old, new, new, old,
     at conv_tile's v2 stage-6 call (61 -> 204), at the bf16 v5 stages 2, 4
     and 6 of fused_upconv_rsft and 3, 5 and 7 + head of fused_conv_rsft,
-    and at every resblock_sft_tile_v3 call of the v3 decode (45x80 to
-    1080x1920); and of the W8A8 wrappers moved onto conv_sm90_i8.cu: the
+    at every resblock_sft_tile_v3 and conv_tile_v3 call of the v3 decode
+    (stages 0-7 and 1-7 + head, 45x80 to 1080x1920) and at every
+    resblock_sft_tile call of the v2 decode (stages 0-7); and of the W8A8
+    wrappers moved onto conv_sm90_i8.cu: the
     W8A8 stage kernel's chain (stage_conv_i8.cu) against the wrapper at
     the W8A8 stages 5, 6 and 7 + head.  Measurement only: no decode path
     chooses by it, and the old chains count no launch."""
@@ -629,6 +645,30 @@ def run_ab(decode, decode_i8, v2, v3, gen, device_line):
                       planar.rsft_cuda(lib, xs, rw, sft),
                       lambda xs=xs, sft=sft, rw=st.rsft:
                       tile_conv.resblock_sft_tile_v3(xs, *rw, sft)))
+    convs = [(f"stage {st.index}", st.conv_w, st.conv_b,
+              (st.out_hw[0] // st.strd, st.out_hw[1] // st.strd), "sin")
+             for st in v3.fine.stages if st.upconv is None]
+    convs.append(("head", v3.fine.head_w, v3.fine.head_b,
+                  v3.fine.stages[-1].out_hw, "outimg"))
+    for label, cw, cb, (hh, ww), act in convs:
+        xs = rnd(gen, 1, hh, ww, cw.shape[3])
+        y = torch.empty((1, hh, ww, cw.shape[0]), dtype=xs.dtype,
+                        device="cuda")
+        cases.append((f"conv_tile_v3 v3 {label}", tuple(xs.shape),
+                      lambda xs=xs, cw=cw, cb=cb, y=y, act=act:
+                      planar.launch_conv(lib, xs, cw, cb, y, act=act),
+                      lambda xs=xs, cw=cw, cb=cb, act=act:
+                      tile_conv.conv_tile_v3(xs, cw, cb, k=cw.shape[1],
+                                             act=act)))
+    t2 = v2.time_embed(torch.tensor([0.5], device="cuda"))
+    for st in v2.fine.stages:
+        xs, sft = rnd(gen, 1, *st.out_hw, st.rsft[0].shape[0]), st.sft(t2)
+        cases.append((f"resblock_sft_tile v2 stage {st.index}",
+                      tuple(xs.shape),
+                      lambda xs=xs, sft=sft, rw=st.rsft:
+                      planar.rsft_cuda(lib, xs, rw, sft),
+                      lambda xs=xs, sft=sft, rw=st.rsft:
+                      tile_conv.resblock_sft_tile(xs, *rw, sft)))
     cases = [c + names for c in cases]
     t8 = decode_i8.time_embed(torch.tensor([0.5], device="cuda"))
     zc = set(decode_i8.w8a8_zc)
@@ -663,40 +703,52 @@ def run_ab(decode, decode_i8, v2, v3, gen, device_line):
 
 
 def check_plans(decode, decode_i8, v2, v3, device_line):
-    """Every conv shape that conv_sm90.cu serves in the decodes and every
-    one that conv_sm90_i8.cu serves in the W8A8 decode: the library's
+    """Every conv that conv_sm90.cu serves in the decodes and every one
+    that conv_sm90_i8.cu serves in the W8A8 decode: the library's
     shared-memory fit equals its mirror ``conv_sm90.fit`` (which the CPU
-    tests use), and the plan each launch gets is printed."""
+    tests use), and at each bf16 launch grid the library's slice-group plan
+    (``bnt_conv_sm90_groups``) equals its mirror ``conv_sm90.groups`` at
+    the library's tiles, SMs and blocks an SM; each plan is printed."""
     from boosting_nerv_torch.ops.kernels import _build, conv_sm90
 
-    shapes = set()
+    bf, s8, s8q = conv_sm90.BF16, conv_sm90.S8, conv_sm90.S8Q
+    grids = {}  # (cin, cout, k, form) -> launch grids (n, h, w)
+
+    def add(w, grid, form=bf):
+        grids.setdefault((w.shape[3], w.shape[0], w.shape[1], form),
+                         set()).add(tuple(grid))
+
     for st in decode.tail:
         w = st.weights
-        shapes |= {tuple(w.conv_w.shape[i] for i in (3, 0, 1)),
-                   (w.w0.shape[0], w.w0.shape[0], 3)}
+        n, h, wd, _ = st.in_shape
+        out = (n, 2 * h, 2 * wd) if st.strd == 2 else (n, h, wd)
+        add(w.conv_w, (n, h, wd))
+        add(w.w0, out)
         if st.head:
-            shapes.add((w.w0.shape[0], 3, 3))
-    for st in v2.fine.stages:
-        if st.upconv is None:
-            shapes.add(tuple(st.conv_w.shape[i] for i in (3, 0, 1)))
-    shapes.add(tuple(v2.fine.head_w.shape[i] for i in (3, 0, 1)))
-    shapes |= {(st.rsft[0].shape[0], st.rsft[0].shape[0], 3)
-               for st in v3.fine.stages}
-    s8, s8q = conv_sm90.S8, conv_sm90.S8Q
-    shapes = {s + (conv_sm90.BF16,) for s in shapes}
+            add(w.head_w, out)
+    for fine in (v2.fine, v3.fine):
+        for st in fine.stages:
+            h, wd = st.out_hw
+            if st.upconv is None:
+                add(st.conv_w, (1, h // st.strd, wd // st.strd))
+            add(st.rsft[0], (1, h, wd))
+        add(fine.head_w, (1, *fine.stages[-1].out_hw))
     for st in decode_i8.tail:
         if not st.kernel.endswith("_i8"):
             continue
         w, c = st.weights, st.weights.w0.shape[0]
-        form = s8 if st.index in decode_i8.w8a8_zc else s8q
-        convs = [(w.conv_w.shape[3], w.conv_w.shape[0], 3, form),
-                 (c, c, 3, s8q), (c, c, 3, s8)] + (
-                     [(c, 3, 3, s8)] if st.head else [])
-        shapes |= set(convs)
+        n, h, wd, _ = st.in_shape
+        out = (n, 2 * h, 2 * wd) if st.strd == 2 else (n, h, wd)
+        add(w.conv_w, (n, h, wd), s8 if st.index in decode_i8.w8a8_zc
+            else s8q)
+        add(w.w0, out, s8q)
+        add(w.w1, out, s8)
+        if st.head:
+            add(w.head_w, out, s8)
     lib = _build.load_library()
-    names = {conv_sm90.BF16: "conv_sm90", s8: "conv_sm90_i8 codes in",
+    names = {bf: "conv_sm90", s8: "conv_sm90_i8 codes in",
              s8q: "conv_sm90_i8 bf16 in"}
-    for cin, cout, k, form in sorted(shapes):
+    for (cin, cout, k, form), shapes in sorted(grids.items()):
         ns, smem = conv_sm90.plan(lib, cin, cout, k, form)
         mirror = conv_sm90.fit(cin, cout, k, ns, form)
         if mirror is None or mirror[-1] != smem:
@@ -704,10 +756,82 @@ def check_plans(decode, decode_i8, v2, v3, device_line):
                                f"{ns}: library {smem} bytes, mirror "
                                f"{mirror}")
         rows = conv_sm90.rows_at(ns, form)
-        print(f"plan {names[form]} {cin}->{cout} k{k}: N {ns} x "
-              f"{-(-cout // ns)}, {rows} rows x {mirror[0]} warpgroup(s), "
+        nsl = -(-cout // ns)
+        sched = []
+        for n, h, wd in sorted(shapes):
+            if form != bf:  # the int8 form takes every slice a block
+                continue
+            g, tiles, nslices, sms, per_sm = conv_sm90.launch_plan(
+                lib, n, h, wd, cin, cout, k)
+            want = conv_sm90.groups(tiles, nslices, sms, per_sm)
+            if (g != want or nslices != nsl
+                    or tiles != conv_sm90.tiles(n, h, wd, mirror[0], rows)):
+                raise SmokeFailure(
+                    f"conv_sm90 slice groups of {cin}->{cout} k{k} at "
+                    f"{n}x{h}x{wd}: library G {g} ({tiles} tiles, {nslices} "
+                    f"slices, {sms} SMs x {per_sm}), mirror G {want}")
+            sched.append(f"{h}x{wd}: {tiles} tiles x {per_sm} a SM, G {g}")
+        print(f"plan {names[form]} {cin}->{cout} k{k}: N {ns} x {nsl}, "
+              f"{rows} rows x {mirror[0]} warpgroup(s), "
               f"{'resident' if mirror[2] else f'ring {mirror[1]}'}, "
-              f"{smem} bytes [{device_line}]", flush=True)
+              f"{smem} bytes" + (f"; {'; '.join(sched)}" if sched else "")
+              + f" [{device_line}]", flush=True)
+
+
+def run_schedules(decode, v3, gen, device_line):
+    """The slice-group plan against the schedules it chose from, at every
+    conv_sm90.cu launch of the v3 decode on a grid of at most 270 rows
+    (each conv of its stage 0-3 ResBlockSFTs, its stage 1-4 convs) and at
+    the v5 stage 2 upconv: each launch timed (CUDA events) at every valid
+    slice-group count G and at one and two warpgroups (the 2 x 64 tile
+    against the 4 x 64 one), beside the plan's.  Measurement only: the
+    launches count nowhere."""
+    from boosting_nerv_torch.ops.kernels import _build, conv_sm90
+
+    lib = _build.load_library()
+    t3 = v3.time_embed(torch.tensor([0.5], device="cuda"))
+    calls = []
+    for st in v3.fine.stages:
+        h, w = st.out_hw
+        if st.upconv is None and h // st.strd <= 270:
+            x = rnd(gen, 1, h // st.strd, w // st.strd, st.conv_w.shape[3])
+            calls.append((f"v3 stage {st.index} conv", x, st.conv_w,
+                          st.conv_b, {"act": "sin"}))
+        if h > 270:
+            continue
+        y, sft = rnd(gen, 1, h, w, st.rsft[0].shape[0]), st.sft(t3)
+        w0, b0, w1, b1 = st.rsft
+        calls += [(f"v3 stage {st.index} rsft conv0", y, w0, b0,
+                   {"act": "gelu", "in_affine": (sft[0], sft[1]),
+                    "out_affine": (sft[2], sft[3])}),
+                  (f"v3 stage {st.index} rsft conv1", y, w1, b1,
+                   {"residual": y})]
+    st2 = next(st for st in decode.tail if st.index == 2)
+    calls.append(("v5 stage 2 upconv", rnd(gen, *st2.in_shape),
+                  st2.weights.conv_w, st2.weights.conv_b,
+                  {"act": "sin", "shuffle": True}))
+    for label, x, w, b, kw in calls:
+        n, h, wd, cin = x.shape
+        cout = w.shape[0]
+        shape = (n, 2 * h, 2 * wd, cout // 4) if kw.get("shuffle") else (
+            n, h, wd, cout)
+        out = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+        g, tiles, nsl, sms, per_sm = conv_sm90.launch_plan(
+            lib, n, h, wd, cin, cout, w.shape[1])
+        times = []
+        for nwg in (2, 1):
+            for grp in range(1, nsl + 1):
+                per = -(-nsl // grp)
+                if -(-nsl // per) != grp:
+                    continue
+                ms = cuda_ms(lambda grp=grp, nwg=nwg: conv_sm90.launch(
+                    lib, x, w, b, out, schedule=(grp, nwg), **kw))
+                times.append(f"G {grp} x{nwg}wg {ms:.4f}")
+        ms = cuda_ms(lambda: conv_sm90.launch(lib, x, w, b, out, **kw))
+        print(f"schedule {label} in {tuple(x.shape)} -> {cout} ({nsl} "
+              f"slices, {tiles} tiles, {sms} SMs x {per_sm}): plan G {g} "
+              f"{ms:.4f} ms; " + ", ".join(times) + f" [{device_line}]",
+              flush=True)
 
 
 def check_refusal(gen, device_line):
@@ -726,10 +850,10 @@ def check_refusal(gen, device_line):
             rnd(gen, 1, 9, 50, c), rnd(gen, 8, 5, 5, c), rnd(gen, 8), k=5),
         "conv_tile_v3": lambda: wrapper("conv_tile_v3")(
             rnd(gen, 1, 9, 50, c), rnd(gen, 8, 3, 3, c), rnd(gen, 8), k=3),
+        "resblock_sft_tile": lambda: wrapper("resblock_sft_tile")(
+            rnd(gen, 1, 9, 50, c), *rsft_args()),
         "resblock_sft_tile_v3": lambda: wrapper("resblock_sft_tile_v3")(
-            rnd(gen, 1, 9, 50, c), rnd(gen, c, 3, 3, c), rnd(gen, c),
-            rnd(gen, c, 3, 3, c), rnd(gen, c),
-            torch.zeros((4, c), device="cuda")),
+            rnd(gen, 1, 9, 50, c), *rsft_args()),
         "conv3x3_act_chw": lambda: wrapper("conv3x3_act_chw")(
             rnd(gen, 1, 9, 50, c), rnd(gen, 8, 3, 3, c), rnd(gen, 8)),
         "head_conv_chw": lambda: wrapper("head_conv_chw")(
@@ -1122,6 +1246,7 @@ def main() -> int:
                             device_line)
     check_refusal(gen, device_line)
     check_plans(decode, decode_i8, v2, v3, device_line)
+    run_schedules(decode, v3, gen, device_line)
     run_ab(decode, decode_i8, v2, v3, gen, device_line)
     runs = [check_frames("bf16", decode, refs, embed, ts)]
     print_turns("bf16", ("plain stages", plain_decode), ("kernels", decode),

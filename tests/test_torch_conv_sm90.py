@@ -6,7 +6,10 @@ against the Pallas kernels it replaces in interpret mode:
 ``tile_conv.py:144`` conv_tile at k = 1, 3 and 5, ``planar.py:1308``
 fused_upconv_rsft with and without ``out_inv``, ``planar.py:1541``
 fused_conv_rsft without and with the head and with ``out_inv`` (planar in
-and out), and ``tile_conv.py:788`` resblock_sft_tile_v3 (mode "dy3").
+and out), ``tile_conv.py:788`` resblock_sft_tile_v3 (mode "dy3"),
+``tile_conv.py:473`` conv_tile_v3 (k = 3 with act sin and outimg, k = 1
+with gelu) and ``tile_conv.py:951`` resblock_sft_tile; and the
+slice-group plan of small grids (``groups``, ``work_items``).
 The CUDA kernel runs only on the card: chip_smoke.py holds it against the
 wrappers' plain versions there.
 
@@ -51,19 +54,31 @@ def _chw(x):
         jnp.bfloat16)
 
 
-def _conv_tile_case(r, k, h, w):
+def _conv_tile_case(r, k, h, w, act=None):
+    """``emulate`` against Pallas conv_tile, or with ``act`` conv_tile_v3
+    (the act in the epilogue)."""
     c, co = 6, 7
     x, kern, bias = _rand(r, 1, h, w, c), _rand(r, k, k, c, co, s=0.2), \
         _rand(r, co, s=0.1)
-    want = tk.conv_tile(_chw(x), kern, bias, k=k, w_real=w, interpret=True)
+    if act is None:
+        want = tk.conv_tile(_chw(x), kern, bias, k=k, w_real=w,
+                            interpret=True)
+    else:
+        want = tk.conv_tile_v3(_chw(x), kern, bias, k=k, w_real=w, act=act,
+                               interpret=True)
     want = np.asarray(want[:, :, :w].astype(jnp.float32)).transpose(
         1, 2, 0)[None]
     wt = _ohwi(kern).to(torch.bfloat16)
     got = conv_sm90.emulate(
         torch.from_numpy(x).to(torch.bfloat16),
         conv_sm90.pack_weight(wt, conv_sm90.slice_width(co)),
-        torch.from_numpy(bias).to(torch.bfloat16), cout=co, k=k)
+        torch.from_numpy(bias).to(torch.bfloat16), cout=co, k=k,
+        act=act or "none")
     return got.float().numpy(), want, None
+
+
+def _conv_tile_v3_case(r, k_act, h, w):
+    return _conv_tile_case(r, *k_act[:1], h, w, act=k_act[1])
 
 
 def _upconv_case(r, out_inv, h, w):
@@ -156,15 +171,20 @@ def _conv_rsft_case(r, mode, h, w):
     return got.float().numpy(), want, inv
 
 
-def _rsft_case(r, _, h, w):
-    """``rsft`` on ``emulated_conv`` against the Pallas v3 ResBlockSFT."""
+def _rsft_case(r, v2, h, w):
+    """``rsft`` on ``emulated_conv`` against the Pallas v3 ResBlockSFT, or
+    with ``v2`` the v2 one (resblock_sft_tile)."""
     c = 6
     x = _rand(r, 1, h, w, c)
     w0, w1 = _rand(r, 3, 3, c, c, s=0.2), _rand(r, 3, 3, c, c, s=0.2)
     b0, b1 = _rand(r, c, s=0.1), _rand(r, c, s=0.1)
     sft = [r.normal(size=c).astype(np.float32) * 0.3 for _ in range(4)]
-    want = tk.resblock_sft_tile_v3(_chw(x), w0, b0, w1, b1, *sft, w_real=w,
-                                   mode="dy3", interpret=True)
+    if v2:
+        want = tk.resblock_sft_tile(_chw(x), w0, b0, w1, b1, *sft, w_real=w,
+                                    interpret=True)
+    else:
+        want = tk.resblock_sft_tile_v3(_chw(x), w0, b0, w1, b1, *sft,
+                                       w_real=w, mode="dy3", interpret=True)
     want = np.asarray(want[:, :, :w].astype(jnp.float32)).transpose(
         1, 2, 0)[None]
     bf = torch.bfloat16
@@ -175,9 +195,11 @@ def _rsft_case(r, _, h, w):
     return got.float().numpy(), want, None
 
 
-CASES = {"conv_tile": _conv_tile_case, "fused_upconv_rsft": _upconv_case,
+CASES = {"conv_tile": _conv_tile_case, "conv_tile_v3": _conv_tile_v3_case,
+         "fused_upconv_rsft": _upconv_case,
          "fused_conv_rsft": _conv_rsft_case,
-         "resblock_sft_tile_v3": _rsft_case}
+         "resblock_sft_tile_v3": _rsft_case,
+         "resblock_sft_tile": lambda r, _, h, w: _rsft_case(r, True, h, w)}
 
 
 def _conv_ref(x, k, b):
@@ -199,10 +221,15 @@ def _gelu(v):
     ("fused_upconv_rsft", True, 9, 50), ("fused_conv_rsft", "nohead", 10, 50),
     ("fused_conv_rsft", "head", 10, 50),
     ("fused_conv_rsft", "out_inv", 10, 50),
-    ("resblock_sft_tile_v3", None, 9, 50)],
+    ("resblock_sft_tile_v3", None, 9, 50),
+    ("conv_tile_v3", (3, "sin"), 9, 50),
+    ("conv_tile_v3", (3, "outimg"), 9, 50),
+    ("conv_tile_v3", (1, "gelu"), 9, 70),
+    ("resblock_sft_tile", None, 9, 50)],
     ids=["conv_tile_k1", "conv_tile_k3", "conv_tile_k5", "upconv",
          "upconv_out_inv", "conv_rsft", "conv_rsft_head",
-         "conv_rsft_out_inv", "rsft_v3"])
+         "conv_rsft_out_inv", "rsft_v3", "conv_tile_v3_k3_sin",
+         "conv_tile_v3_k3_outimg", "conv_tile_v3_k1_gelu", "rsft_v2"])
 def test_emulation_matches_pallas(case):
     name, arg, h, w = case
     r = np.random.default_rng(sum(map(ord, str(case))))
@@ -213,6 +240,67 @@ def test_emulation_matches_pallas(case):
         got, want = got * scale, want * scale
     err = float(np.abs(got - want).max())
     assert err < TOL * max(float(np.abs(want).max()), 1.0), err
+
+
+# (h, w, Cin, Cout) of every conv_sm90.cu / conv_sm90_i8.cu launch grid of
+# the v5, W8A8, v3, v2 and hybrid decodes at the bench config
+# (chip_smoke.py::bench_config): the conv input's grid, 3 x 3 convs
+_BENCH_LAUNCHES = {
+    "v3/v2 stage 0 rsft": (45, 80, 106, 106),
+    "v3/v2 stage 1 conv": (45, 80, 106, 792),
+    "v3/v2 stage 1 rsft": (135, 240, 88, 88),
+    "v5 stage 2 upconv, v3/v2 stage 2 conv": (135, 240, 88, 292),
+    "stage 2-3 rsft, stage 3 conv": (270, 480, 73, 73),
+    "v5 stage 4 upconv, v3/v2 stage 4 conv": (270, 480, 73, 244),
+    "stage 4-5 rsft, stage 5 conv": (540, 960, 61, 61),
+    "v5 stage 6 upconv, v3/v2 stage 6 conv": (540, 960, 61, 204),
+    "stage 6-7 rsft, stage 7 conv": (1080, 1920, 51, 51),
+    "head": (1080, 1920, 51, 3),
+}
+
+
+def _bench_plan(h, w, cin, cout, sms=132):
+    """(G, tiles, N slices) of a bf16 launch, at the blocks an SM holds
+    by shared memory alone (228 KB an SM, 1 KB of it reserved a block)."""
+    ns = conv_sm90.slice_width(cout)
+    nwg, _, _, smem = conv_sm90.fit(cin, cout, 3, ns)
+    tiles = conv_sm90.tiles(1, h, w, nwg)
+    nsl = -(-cout // ns)
+    per_sm = 233472 // (smem + 1024)
+    return conv_sm90.groups(tiles, nsl, sms, per_sm), tiles, nsl
+
+
+def test_slice_group_plan():
+    """The work items of every slice-group plan cover each (tile, slice)
+    exactly once; the plan keeps G = 1 at every launch of 270 rows and
+    more at the bench config (whose tiles fill the card's 132 SMs several
+    times over) and splits the 45 x 80 stage-1 conv's ten N slices; and
+    ``emulate`` with G > 1 is ``emulate`` with G = 1, bit for bit."""
+    for n_tiles in (1, 7, 46, 136):
+        for nsl in (1, 2, 4, 10):
+            for sms, per_sm in ((132, 1), (132, 2), (8, 1)):
+                g = conv_sm90.groups(n_tiles, nsl, sms, per_sm)
+                items = conv_sm90.work_items(n_tiles, nsl, g)
+                covered = sorted((t, s) for t, s0, s1 in items
+                                 for s in range(s0, s1))
+                assert covered == [(t, s) for t in range(n_tiles)
+                                   for s in range(nsl)], (n_tiles, nsl, g)
+                assert all(s1 > s0 for _, s0, s1 in items)
+    for name, (h, w, cin, cout) in _BENCH_LAUNCHES.items():
+        g, tiles, nsl = _bench_plan(h, w, cin, cout)
+        if h >= 270:
+            assert g == 1, (name, g, tiles, nsl)
+    assert _bench_plan(45, 80, 106, 792)[0] > 1
+    r = np.random.default_rng(9)
+    x = torch.from_numpy(_rand(r, 1, 9, 70, 5)).to(torch.bfloat16)
+    wt = torch.from_numpy(_rand(r, 20, 3, 3, 5, s=0.2)).to(torch.bfloat16)
+    b = torch.from_numpy(_rand(r, 20, s=0.1)).to(torch.bfloat16)
+    wpk = conv_sm90.pack_weight(wt, 8)   # three N 8 slices
+    one = conv_sm90.emulate(x, wpk, b, cout=20, k=3, act="gelu", ns=8)
+    for g in (2, 3):
+        assert torch.equal(conv_sm90.emulate(x, wpk, b, cout=20, k=3,
+                                             act="gelu", groups=g, ns=8),
+                           one)
 
 
 def test_slice_plan_at_the_bench_shapes():
