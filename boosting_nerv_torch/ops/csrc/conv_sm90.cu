@@ -109,21 +109,12 @@ template <int NS>
 int run(sm90::Params& p, int smem, int groups, cudaStream_t s, int* info) {
   int g = groups;
   if (g == 0 || info) {
-    void (*kernel)(sm90::Params) = nullptr;
-    int sms = 0, per_sm = 0;
-    cudaError_t err = sm90::instance<NS, PHASE_ALL, sm90::FORM_BF16,
-                                     sm90::ROWS_PER_WG, false>(kernel);
-    if (err == cudaSuccess)
-      err = sm90::occupancy(kernel, 128 * p.nwg + sm90::PRODUCER, smem, sms,
-                            per_sm);
+    int plan[4] = {};
+    const cudaError_t err = sm90::plan_info<NS>(p, smem, plan);
     if (err != cudaSuccess) return info ? -1 : err;
-    const int tiles = p.tiles_w * p.tiles_h * p.n;
-    const int planned = sm90::groups(tiles, p.nslices, sms, per_sm);
+    const int planned = sm90::groups(plan[0], plan[1], plan[2], plan[3]);
     if (info) {
-      info[0] = tiles;
-      info[1] = p.nslices;
-      info[2] = sms;
-      info[3] = per_sm;
+      std::copy(plan, plan + 4, info);
       return planned;
     }
     g = planned;

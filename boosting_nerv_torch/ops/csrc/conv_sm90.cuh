@@ -44,8 +44,22 @@
 // producer's copies still run).  The kernel and its helpers live in an
 // anonymous namespace, so that each unit's instances carry its file's name
 // (boosting_nerv_torch/tools/probes.py tells probe instances by it).
+//
+// M is the mode of a bf16 launch (Mode, MODE_NONE by default, which leaves
+// the other instances' code as it was): the sine of the staged input
+// (MODE_SIN_INPUT: sin(x) * (scale + 1) + shift on in-image taps) or of
+// the residual (MODE_SIN_RESIDUAL), the two launches of the ResBlockSFT
+// whose block input is sin(x) (conv_sm90_sin.cu); or the planar layout
+// (MODE_PLANAR_IN: the input is a planar tensor, staged by one 4-D TMA
+// tensor copy a tile; MODE_PLANAR_OUT: the residual is read from and the
+// output stored into planar tensors), the two launches of the planar
+// ResBlockSFT (conv_sm90_planar.cu).  A planar tensor (4 Cp, Hc, Wd) holds
+// the fine (C, 2 hc, 2 wc) one as planar[(2 r1 + r2) Cp + c, y, x] =
+// fine[c, 2 y + r1, 2 x + r2].
 
 #pragma once
+
+#include <cuda.h>
 
 #include <type_traits>
 
@@ -98,8 +112,47 @@ struct ParamsS8 : Params {
   const float* in_inv;             // [Cin] quantisation multiplier (S8Q)
 };
 
-template <int F>
-using ParamsOf = std::conditional_t<F == FORM_BF16, Params, ParamsS8>;
+// The mode of a bf16 launch (the kernel's template parameter M).
+enum Mode {
+  MODE_NONE = 0,
+  MODE_SIN_INPUT = 1,
+  MODE_SIN_RESIDUAL = 2,
+  MODE_PLANAR_IN = 3,
+  MODE_PLANAR_OUT = 4
+};
+
+__host__ __device__ constexpr bool planar_mode(int m) {
+  return m == MODE_PLANAR_IN || m == MODE_PLANAR_OUT;
+}
+
+// A planar launch (3 x 3 only): Params with h x w the fine grid (n = 1),
+// and, in MODE_PLANAR_IN, x the planar input, read only through tmap (the
+// box of one tile: planar_rows(nwg) rows of PBX columns, all Cin channels
+// and 4 planes; zero beyond the real region); in MODE_PLANAR_OUT,
+// residual and out planar tensors of cp channels a plane, hc x wd.
+struct ParamsPlanar : Params {
+  CUtensorMap tmap;                // MODE_PLANAR_IN only
+  int cp, hc, wd;
+};
+
+template <int F, int M = MODE_NONE>
+using ParamsOf = std::conditional_t<
+    F == FORM_BF16, std::conditional_t<planar_mode(M), ParamsPlanar, Params>,
+    ParamsS8>;
+
+// Planar columns of a MODE_PLANAR_IN box: a tile's TW + 2 fine columns
+// span planar columns tx0 / 2 - 1 .. tx0 / 2 + TW / 2; a tensor copy's
+// innermost start must lie on 16 bytes (an H100 faults on an illegal
+// instruction otherwise), so the box starts PBX_LEAD columns earlier, at
+// tx0 / 2 - 8, and spans PBX, a multiple of 16 bytes.
+constexpr int PBX_LEAD = 8;
+constexpr int PBX = 48;
+
+// Planar rows of a MODE_PLANAR_IN box at nwg warpgroups of ROWS_PER_WG
+// rows: the tile's fine rows and their halo, ty0 - 1 .. ty0 + tile rows.
+__host__ __device__ inline int planar_rows(int nwg) {
+  return ROWS_PER_WG * nwg / 2 + 2;
+}
 
 // Shared-memory carve-up of one launch (offsets in bytes).
 struct Layout {
@@ -135,6 +188,25 @@ __host__ __device__ inline Layout layout(int ks, int cin_pad, int raw_pitch,
   l.stage = l.wgt + ws * wblock_bytes(ns, cin_pad, e);
   l.bars = l.stage + nwg * TW * (ns + 4) * 4;
   l.total = l.bars + 2 * (1 + ws) * 8;
+  return l;
+}
+
+// Staged floats of one warpgroup's output row in mode m: [pixel][ns + 4],
+// or in MODE_PLANAR_OUT [channel][TW + 4] (transposed, so that the planar
+// stores' lanes run along the pixels), whichever is larger.
+__host__ __device__ constexpr int stage_floats(int ns, int m) {
+  return m == MODE_PLANAR_OUT && ns * (TW + 4) > TW * (ns + 4)
+             ? ns * (TW + 4)
+             : TW * (ns + 4);
+}
+
+// layout's carve-up with mode m's staging (larger only in MODE_PLANAR_OUT
+// at N 80).
+__host__ __device__ inline Layout mode_layout(Layout l, int m, int nwg,
+                                              int ns) {
+  const int extra = nwg * (stage_floats(ns, m) - TW * (ns + 4)) * 4;
+  l.bars += extra;
+  l.total += extra;
   return l;
 }
 
@@ -184,6 +256,21 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n"
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One TMA tensor copy (cp.async.bulk.tensor) of the 4-D box at (c0, c1,
+// c2, c3) of the tensor map `map` (a __grid_constant__ parameter's
+// address) into shared memory, completing on `bar`; elements outside the
+// tensor are zero.
+__device__ __forceinline__ void tensor_load_4d(void* dst, const void* map,
+                                               int c0, int c1, int c2,
+                                               int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -448,9 +535,10 @@ __device__ __forceinline__ void slice_range(const Params& p, int& s0,
   s1 = min(p.nslices, s0 + per);
 }
 
-// The producer warp's lane 0: raw input rows of every tile of this block,
-// and the weight blocks of its slices (once if resident, else per tile).
-template <int F, int R, bool SPLIT>
+// The producer warp's lane 0: raw input rows of every tile of this block
+// (in MODE_PLANAR_IN its planar box, one tensor copy), and the weight
+// blocks of its slices (once if resident, else per tile).
+template <int F, int R, bool SPLIT, int M = MODE_NONE>
 __device__ __forceinline__ void produce(const Params& p, const Layout& L,
                                         unsigned char* smem, int ns) {
   using TI = InOf<F>;
@@ -481,19 +569,31 @@ __device__ __forceinline__ void produce(const Params& p, const Layout& L,
   uint32_t raw_phase = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const TileAt t = tile_at<R>(p, tile);
-    const int xs = max(t.tx0 - halo, 0), xe = min(t.tx0 - halo + pw, p.w);
-    const int y0 = max(t.ty0 - halo, 0), y1 = min(t.ty0 - halo + ph, p.h);
-    bar_wait(empty_raw, raw_phase ^ 1);
-    uint32_t total = 0;
-    for (int iy = y0; iy < y1; ++iy)
-      total += row_span<TI>(p, t.b, iy, xs, xe).bytes;
-    bar_expect(full_raw, total);
-    for (int iy = y0; iy < y1; ++iy) {
-      const Span s = row_span<TI>(p, t.b, iy, xs, xe);
-      bulk_load(smem + L.raw + (iy - t.ty0 + halo) * p.raw_pitch, s.src,
-                s.bytes, full_raw);
+    if constexpr (M == MODE_PLANAR_IN) {
+      // the box at planar (tx0 / 2 - PBX_LEAD, ty0 / 2 - 1), channel 0,
+      // plane 0: ty0 and tx0 are even, so it holds fine rows ty0 - 1 ..
+      // and columns tx0 - 2 PBX_LEAD ..; the copy counts the whole box
+      const ParamsPlanar& q = static_cast<const ParamsPlanar&>(p);
+      bar_wait(empty_raw, raw_phase ^ 1);
+      bar_expect(full_raw, PBX * planar_rows(p.nwg) * p.cin * 4 * 2);
+      tensor_load_4d(smem + L.raw, &q.tmap, t.tx0 / 2 - PBX_LEAD, t.ty0 / 2 - 1,
+                     0, 0, full_raw);
+      raw_phase ^= 1;
+    } else {
+      const int xs = max(t.tx0 - halo, 0), xe = min(t.tx0 - halo + pw, p.w);
+      const int y0 = max(t.ty0 - halo, 0), y1 = min(t.ty0 - halo + ph, p.h);
+      bar_wait(empty_raw, raw_phase ^ 1);
+      uint32_t total = 0;
+      for (int iy = y0; iy < y1; ++iy)
+        total += row_span<TI>(p, t.b, iy, xs, xe).bytes;
+      bar_expect(full_raw, total);
+      for (int iy = y0; iy < y1; ++iy) {
+        const Span s = row_span<TI>(p, t.b, iy, xs, xe);
+        bulk_load(smem + L.raw + (iy - t.ty0 + halo) * p.raw_pitch, s.src,
+                  s.bytes, full_raw);
+      }
+      raw_phase ^= 1;
     }
-    raw_phase ^= 1;
     if (p.resident) continue;
     for (int kb = 0; kb < kblocks; ++kb) {
       bar_wait(&empty_w[wr.slot], wr.phase ^ 1);
@@ -539,6 +639,17 @@ __device__ __forceinline__ float add_res(float v, float r) {
   }
 }
 
+// A residual element as the epilogue adds it: r, or with SR (the
+// MODE_SIN_RESIDUAL instances) sin(r), the reduced SFU sine of ACT_SIN.
+template <bool SR>
+__device__ __forceinline__ float res_of(float r) {
+  if constexpr (SR) {
+    return sin_reduced(r);
+  } else {
+    return r;
+  }
+}
+
 // The epilogue of one output row segment, element by element: the sums
 // (as floats) of up to 64 pixels (tx0 + px, px < 64) x NS channels (n0 +
 // ch) of row oy, staged in s_acc[px][ch] (pitch NS + 4, so that the
@@ -551,8 +662,9 @@ __device__ __forceinline__ float add_res(float v, float r) {
 // where epilogue_loop below measured a third slower on an H100 (the cause
 // is not resolved).  ACT and Q are compile-time, so that the loop carries
 // one activation's code and one store's.  Without PHASE_STORE in P the
-// stores happen only under probe_store() (never).
-template <int NS, int ACT, bool Q, int P, bool S8>
+// stores happen only under probe_store() (never).  SR: the residual's
+// sine is added (res_of).
+template <int NS, int ACT, bool Q, int P, bool S8, bool SR = false>
 __device__ __forceinline__ void epilogue_loop_elem(
     const float* s_acc, int b, int oy, int tx0, int n0, int wq, int lane,
     int h, int w, int cout, int shuffle, const __nv_bfloat16* residual,
@@ -570,7 +682,8 @@ __device__ __forceinline__ void epilogue_loop_elem(
       float v = activate(
           dequant<S8>(s_acc[px * (NS + 4) + ch], bias[c], dq[c]), ACT);
       v = affine<S8>(v, mul[c], add[c]);
-      if (residual) v = add_res<S8>(v, __bfloat162float(residual[off]));
+      if (residual)
+        v = add_res<S8>(v, res_of<SR>(__bfloat162float(residual[off])));
       if (!store) continue;
       if constexpr (Q) {
         static_cast<int8_t*>(out)[off] =
@@ -589,8 +702,8 @@ __device__ __forceinline__ void epilogue_loop_elem(
 // adds an element (coff[c] < 0 marks a channel beyond NS or Cout).  A
 // warp takes two of its pixels at a time and issues both residual loads
 // before either's arithmetic, so that two independent chains (loads,
-// activation) are in flight and not one.
-template <int NS, int ACT, bool Q, int P, bool S8>
+// activation) are in flight and not one.  SR as epilogue_loop_elem's.
+template <int NS, int ACT, bool Q, int P, bool S8, bool SR = false>
 __device__ __forceinline__ void epilogue_loop(
     const float* s_acc, int npx, int wq, int lane, size_t base,
     size_t pstride, const long long (&coff)[(NS + 31) / 32],
@@ -625,7 +738,7 @@ __device__ __forceinline__ void epilogue_loop(
                                        bias[c], dq[c]),
                            ACT);
         v = affine<S8>(v, mul[c], add[c]);
-        if (residual) v = add_res<S8>(v, res[u][c]);
+        if (residual) v = add_res<S8>(v, res_of<SR>(res[u][c]));
         if (!store) continue;
         if constexpr (Q) {
           static_cast<int8_t*>(out)[off] = quant(v, out_inv[qch[c]]);
@@ -643,12 +756,13 @@ __device__ __forceinline__ void epilogue_loop(
 // (out_offset's arithmetic, PixelShuffle included) once.  Not inlined:
 // one copy of the epilogue's code stays in the instruction cache.
 // Without PHASE_EPI in P it stores the raw sums (no bias, dequant,
-// activation, affine or residual).
-template <int NS, int P, int F>
-__device__ __noinline__ void epilogue_row(const ParamsOf<F>& p,
-                                          const float* s_acc, int b, int oy,
-                                          int tx0, int n0, int wq,
-                                          int lane) {
+// activation, affine or residual).  SR: the residual's sine is added
+// (MODE_SIN_RESIDUAL).  Inlined into epilogue_row / epilogue_row_sin.
+template <int NS, int P, int F, bool SR>
+__device__ __forceinline__ void epilogue_body(const ParamsOf<F>& p,
+                                              const float* s_acc, int b,
+                                              int oy, int tx0, int n0,
+                                              int wq, int lane) {
   constexpr bool kEpi = (P & PHASE_EPI) != 0;
   constexpr bool kS8 = F != FORM_BF16;
   // the fields this uses, read once: the stores could alias p
@@ -687,14 +801,14 @@ __device__ __noinline__ void epilogue_row(const ParamsOf<F>& p,
   const int npx = min(TW, w - tx0);
 #define BNT_EPI(A, Q)                                                      \
   if constexpr (NS == 8)                                                   \
-    epilogue_loop_elem<NS, A, Q, P, kS8>(s_acc, b, oy, tx0, n0, wq, lane,  \
-                                         h, w, cout, shuffle, residual,    \
-                                         out_inv, out, bias, dq, mul,      \
-                                         add);                             \
+    epilogue_loop_elem<NS, A, Q, P, kS8, SR>(s_acc, b, oy, tx0, n0, wq,    \
+                                             lane, h, w, cout, shuffle,    \
+                                             residual, out_inv, out, bias, \
+                                             dq, mul, add);                \
   else                                                                     \
-    epilogue_loop<NS, A, Q, P, kS8>(s_acc, npx, wq, lane, base, pstride,   \
-                                    coff, qch, residual, out_inv, out,     \
-                                    bias, dq, mul, add)
+    epilogue_loop<NS, A, Q, P, kS8, SR>(s_acc, npx, wq, lane, base,        \
+                                        pstride, coff, qch, residual,      \
+                                        out_inv, out, bias, dq, mul, add)
   if (out_inv) {
     switch (act) {
       case ACT_SIN: BNT_EPI(ACT_SIN, true); break;
@@ -713,14 +827,153 @@ __device__ __noinline__ void epilogue_row(const ParamsOf<F>& p,
 #undef BNT_EPI
 }
 
+// The epilogue of one output row (epilogue_body), not inlined: one copy
+// of its code stays in the instruction cache.
+template <int NS, int P, int F>
+__device__ __noinline__ void epilogue_row(const ParamsOf<F>& p,
+                                          const float* s_acc, int b, int oy,
+                                          int tx0, int n0, int wq,
+                                          int lane) {
+  epilogue_body<NS, P, F, false>(p, s_acc, b, oy, tx0, n0, wq, lane);
+}
+
+// The same with the residual's sine added (MODE_SIN_RESIDUAL).
+template <int NS, int P, int F>
+__device__ __noinline__ void epilogue_row_sin(const ParamsOf<F>& p,
+                                              const float* s_acc, int b,
+                                              int oy, int tx0, int n0,
+                                              int wq, int lane) {
+  epilogue_body<NS, P, F, true>(p, s_acc, b, oy, tx0, n0, wq, lane);
+}
+
+// The epilogue of one output row of a MODE_PLANAR_OUT launch: fine row oy,
+// pixels tx0 + px (px < 64) x NS channels (n0 + ch), staged transposed in
+// s_acc[ch][px] (pitch TW + 4: the accumulators' scalar stores hit
+// distinct banks, and a warp's reads of one channel's 32 consecutive
+// pixels too).  + bias, + the planar residual (the mode takes no
+// activation and no output affine: conv1 of a ResBlockSFT), a bf16 store
+// into the planar output: a warp's item is one channel and 32 consecutive
+// pixels, whose even and odd pixels lie in two planes (r2 = 0, 1) at 16
+// consecutive planar columns each, so that its residual loads and its
+// stores are two 32-byte runs.  A warp takes items wq, wq + 4, ..., U at a
+// time, their bias and residual loads issued before any store, so that U
+// loads are in flight and not one.
+template <int NS, int P>
+__device__ __noinline__ void epilogue_planar(const ParamsPlanar& p,
+                                             const float* s_acc, int oy,
+                                             int tx0, int n0, int wq,
+                                             int lane) {
+  constexpr bool kEpi = (P & PHASE_EPI) != 0;
+  constexpr int U = 4;
+  const bool store = (P & PHASE_STORE) != 0 || probe_store();
+  const int w = p.w, cout = p.cout;
+  const __nv_bfloat16* bias = p.bias;
+  const __nv_bfloat16* residual = kEpi ? p.residual : nullptr;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+  const size_t chan = (size_t)p.hc * p.wd;  // elements of one channel
+  // pixel tx0 of row oy in plane 2 r1 (r1 = oy & 1), channel 0
+  const size_t row = (size_t)(2 * (oy & 1)) * p.cp * chan +
+                     (size_t)(oy >> 1) * p.wd + (tx0 >> 1);
+  for (int it0 = wq; it0 < 2 * NS; it0 += 4 * U) {
+    size_t off[U];
+    bool ok[U];
+    float add[U];  // bias + residual
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int it = it0 + 4 * u, n = n0 + (it >> 1);
+      const int px = (it & 1) * 32 + lane;
+      ok[u] = it < 2 * NS && n < cout && tx0 + px < w;
+      off[u] = row + ((px & 1) * p.cp + n) * chan + (px >> 1);
+      add[u] = kEpi && ok[u] ? __bfloat162float(bias[n]) : 0.0f;
+      if (residual && ok[u]) add[u] += __bfloat162float(residual[off[u]]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int it = it0 + 4 * u;
+      if (ok[u] && store)
+        out[off[u]] = __float2bfloat16(
+            s_acc[(it >> 1) * (TW + 4) + (it & 1) * 32 + lane] + add[u]);
+    }
+  }
+}
+
+// An input element as the bf16 repack stages it (before the prologue
+// affine): x, or in MODE_SIN_INPUT sin(x), the reduced SFU sine of ACT_SIN.
+template <int M>
+__device__ __forceinline__ float staged(__nv_bfloat16 x) {
+  if constexpr (M == MODE_SIN_INPUT) {
+    return sin_reduced(__bfloat162float(x));
+  } else {
+    return __bfloat162float(x);
+  }
+}
+
+// MODE_PLANAR_IN's repack of one tile: its planar box in the raw buffer,
+// [plane][Cin][planar_rows(nwg)][PBX], into the operand tile s_pad
+// ([8-channel group][pixel][8]).  Warp w takes the channel groups w, w +
+// cwarps, ..., its lanes consecutive pixels of the halo'd tile (fine row
+// ty0 - 1 + r, column tx0 - 1 + col; r < ph, col < TW + 2), a lane one
+// pixel's 8 channels: eight loads from the box (a warp's even and odd
+// columns read two planes, in the same banks: two-way conflicts), the
+// prologue affine on in-image taps (zero padding after it, as the NHWC
+// repack), one 16-byte store (a warp's 32 stores contiguous).
+__device__ __forceinline__ void repack_planar(
+    const Params& p, const __nv_bfloat16* box, __nv_bfloat16* s_pad, int gs,
+    int ty0, int tx0, int ph, int warp, int cwarps, int lane) {
+  constexpr int pw = TW + 2;
+  const int cstr = planar_rows(p.nwg) * PBX;  // one channel to the next
+  const int pstr = p.cin * cstr;              // one plane to the next
+  for (int grp = warp; grp < p.cin_pad / 8; grp += cwarps) {
+    const int k0 = grp * 8;
+    float mul[8], add[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const bool aff = p.in_scale != nullptr && k0 + e < p.cin;
+      mul[e] = aff ? p.in_scale[k0 + e] + 1.0f : 1.0f;
+      add[e] = aff ? p.in_shift[k0 + e] : 0.0f;
+    }
+    const __nv_bfloat16* gbox = box + k0 * cstr;
+    uint4* dst = reinterpret_cast<uint4*>(s_pad + grp * gs * 8);
+    for (int pix = lane; pix < ph * pw; pix += 32) {
+      const int r = pix / pw, col = pix - r * pw;
+      const int fy = ty0 - 1 + r, fx = tx0 - 1 + col;
+      const bool inside = fy >= 0 && fy < p.h && fx >= 0 && fx < p.w;
+      // ty0 and tx0 are even: fine row fy = 2 y + r1 lies in box row
+      // (r + 1) / 2 with r1 = (r + 1) & 1, and so for the columns, from
+      // box column PBX_LEAD - 1
+      const __nv_bfloat16* src =
+          gbox + (2 * ((r + 1) & 1) + ((col + 1) & 1)) * pstr +
+          ((r + 1) >> 1) * PBX + ((col + 1) >> 1) + PBX_LEAD - 1;
+      uint32_t u[4];
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        float v0 = 0.0f, v1 = 0.0f;
+        if (inside && k0 + e < p.cin)
+          v0 = __bfloat162float(src[e * cstr]) * mul[e] + add[e];
+        if (inside && k0 + e + 1 < p.cin)
+          v1 = __bfloat162float(src[(e + 1) * cstr]) * mul[e + 1] +
+               add[e + 1];
+        const __nv_bfloat162 b2 = __floats2bfloat162_rn(v0, v1);
+        u[e / 2] = *reinterpret_cast<const uint32_t*>(&b2);
+      }
+      dst[pix] = make_uint4(u[0], u[1], u[2], u[3]);
+    }
+  }
+}
+
 // SPLIT: the block takes one group of the launch's N slices (slice_range),
-// in the bf16 form only; the other instances take them all.
+// in the bf16 form only; the other instances take them all.  M: the mode
+// (Mode), in the bf16 form at 2 rows a warpgroup and without SPLIT only;
+// the planar modes 3 x 3 only.
 template <int NS, int P = PHASE_ALL, int F = FORM_BF16, int R = ROWS_PER_WG,
-          bool SPLIT = false>
+          bool SPLIT = false, int M = MODE_NONE>
 __global__ void __launch_bounds__(2 * 128 + PRODUCER, 1)
-conv_sm90_kernel(const __grid_constant__ ParamsOf<F> p) {
+conv_sm90_kernel(const __grid_constant__ ParamsOf<F, M> p) {
   static_assert(!SPLIT || F == FORM_BF16, "slice groups in bf16 only");
   static_assert(R == 2 || R == 3, "2 or 3 output rows a warpgroup");
+  static_assert(M == MODE_NONE ||
+                    (F == FORM_BF16 && R == ROWS_PER_WG && !SPLIT),
+                "modes in bf16, at 2 rows a warpgroup, one slice group");
   constexpr bool kStage = (P & PHASE_STAGE) != 0;
   constexpr bool kGemm = (P & PHASE_GEMM) != 0;
   constexpr int E = op_bytes(F);
@@ -729,8 +982,9 @@ conv_sm90_kernel(const __grid_constant__ ParamsOf<F> p) {
   using TO = OpOf<F>;
   using Acc = std::conditional_t<F == FORM_BF16, float, int>;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L =
-      layout(p.ks, p.cin_pad, p.raw_pitch, p.nwg, p.ws, NS, R, E);
+  const Layout L = mode_layout(
+      layout(p.ks, p.cin_pad, p.raw_pitch, p.nwg, p.ws, NS, R, E), M, p.nwg,
+      NS);
   const int consumers = 128 * p.nwg;
   const int cwarps = 4 * p.nwg;
   uint64_t* full_raw = reinterpret_cast<uint64_t*>(smem + L.bars);
@@ -749,7 +1003,7 @@ conv_sm90_kernel(const __grid_constant__ ParamsOf<F> p) {
   __syncthreads();
 
   if (threadIdx.x >= consumers) {
-    if (threadIdx.x == consumers) produce<F, R, SPLIT>(p, L, smem, NS);
+    if (threadIdx.x == consumers) produce<F, R, SPLIT, M>(p, L, smem, NS);
     return;
   }
 
@@ -821,7 +1075,12 @@ conv_sm90_kernel(const __grid_constant__ ParamsOf<F> p) {
     if constexpr (F != FORM_BF16) prologue();
     consumer_sync(consumers);  // the previous tile's GEMM is done with s_pad
     const unsigned char* rbuf = smem + L.raw;
-    for (int r = 0; r < (kStage ? ph : 0); ++r) {
+    if constexpr (M == MODE_PLANAR_IN) {
+      if (kStage)
+        repack_planar(p, reinterpret_cast<const __nv_bfloat16*>(rbuf), s_pad,
+                      gs, t.ty0, t.tx0, ph, warp, cwarps, lane);
+    }
+    for (int r = 0; r < (kStage && M != MODE_PLANAR_IN ? ph : 0); ++r) {
       const int iy = t.ty0 - halo + r;
       const bool row_in = iy >= 0 && iy < p.h;
       // element of pixel ix of this row: row + ix * cin
@@ -868,11 +1127,9 @@ conv_sm90_kernel(const __grid_constant__ ParamsOf<F> p) {
             if constexpr (F == FORM_BF16) {
               float v0 = 0.0f, v1 = 0.0f;
               if (inside && k < p.cin)
-                v0 = __bfloat162float(src[k]) * in_mul[cc][0] +
-                     in_add[cc][0];
+                v0 = staged<M>(src[k]) * in_mul[cc][0] + in_add[cc][0];
               if (inside && k + 1 < p.cin)
-                v1 = __bfloat162float(src[k + 1]) * in_mul[cc][1] +
-                     in_add[cc][1];
+                v1 = staged<M>(src[k + 1]) * in_mul[cc][1] + in_add[cc][1];
               *reinterpret_cast<__nv_bfloat162*>(
                   dst + (k >> 3) * gs * 8 + (k & 7)) =
                   __floats2bfloat162_rn(v0, v1);
@@ -963,24 +1220,41 @@ conv_sm90_kernel(const __grid_constant__ ParamsOf<F> p) {
       const int n0 = s * NS;
       // each m64 tile (one row) through this warpgroup's staging rows
       float* s_acc = reinterpret_cast<float*>(smem + L.stage) +
-                     wg * TW * (NS + 4);
+                     wg * stage_floats(NS, M);
 #pragma unroll
       for (int mt = 0; mt < R; ++mt) {
         const int oy = t.ty0 + wg * R + mt;
         if (oy >= p.h) continue;  // uniform over the warpgroup
+        if constexpr (M == MODE_PLANAR_OUT) {
+          // transposed, s_acc[ch][px]: lanes (g, tq) store to banks
+          // 8 tq + g, all distinct
 #pragma unroll
-        for (int i = 0; i < NS / 2; i += 2) {
-          const int j = i >> 2, e = i & 3;
-          const int px = wq * 16 + g + (e >> 1) * 8;
-          // an int32 sum converts to the nearest float, as the plain
-          // version's exact sum does
-          *reinterpret_cast<float2*>(s_acc + px * (NS + 4) + j * 8 +
-                                     tq * 2) =
-              make_float2(static_cast<float>(acc[mt][i]),
-                          static_cast<float>(acc[mt][i + 1]));
+          for (int i = 0; i < NS / 2; i += 2) {
+            const int j = i >> 2, e = i & 3;
+            const int px = wq * 16 + g + (e >> 1) * 8, ch = j * 8 + tq * 2;
+            s_acc[ch * (TW + 4) + px] = acc[mt][i];
+            s_acc[(ch + 1) * (TW + 4) + px] = acc[mt][i + 1];
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < NS / 2; i += 2) {
+            const int j = i >> 2, e = i & 3;
+            const int px = wq * 16 + g + (e >> 1) * 8;
+            // an int32 sum converts to the nearest float, as the plain
+            // version's exact sum does
+            *reinterpret_cast<float2*>(s_acc + px * (NS + 4) + j * 8 +
+                                       tq * 2) =
+                make_float2(static_cast<float>(acc[mt][i]),
+                            static_cast<float>(acc[mt][i + 1]));
+          }
         }
         wg_sync(wg);
-        epilogue_row<NS, P, F>(p, s_acc, t.b, oy, t.tx0, n0, wq, lane);
+        if constexpr (M == MODE_PLANAR_OUT)
+          epilogue_planar<NS, P>(p, s_acc, oy, t.tx0, n0, wq, lane);
+        else if constexpr (M == MODE_SIN_RESIDUAL)
+          epilogue_row_sin<NS, P, F>(p, s_acc, t.b, oy, t.tx0, n0, wq, lane);
+        else
+          epilogue_row<NS, P, F>(p, s_acc, t.b, oy, t.tx0, n0, wq, lane);
         wg_sync(wg);
       }
     }
@@ -995,23 +1269,37 @@ inline int raw_pitch(int ks, int cin, int ei = 2) {
   return ((TW + ks - 1) * cin * ei + 30 + 15) / 16 * 16;
 }
 
+// The raw "row" bytes of a MODE_PLANAR_IN launch at nwg warpgroups: its
+// box, PBX x planar_rows(nwg) x cin x 4 planes of bf16, spread over the
+// raw buffer's tile_h + 2 slots (rounded up to 16).
+inline int planar_raw_pitch(int cin, int nwg) {
+  const int box = PBX * planar_rows(nwg) * cin * 4 * 2;
+  const int slots = tile_h(nwg) + 2;
+  return ((box + slots - 1) / slots + 15) / 16 * 16;
+}
+
 // Output rows a consumer warpgroup of a launch at N slice ns in form f
 // (conv_sm90.py::rows_at mirrors it).
 inline int rows_of(int ns, int f) {
   return f != FORM_BF16 && ns == 64 ? ROWS_S8_64 : ROWS_PER_WG;
 }
 
-// The shared-memory plan of a launch of form f: warpgroups (2, else 1; at
-// most max_nwg) and the weight ring (every block resident, else the
-// deepest ring up to MAX_WS that fits, at least 2).  Fills p and returns
-// the bytes, or -1 where nothing fits.
-inline int fit(Params& p, int ns, int f = FORM_BF16, int max_nwg = 2) {
+// The shared-memory plan of a launch of form f in mode m: warpgroups (2,
+// else 1; at most max_nwg) and the weight ring (every block resident, else
+// the deepest ring up to MAX_WS that fits, at least 2); in
+// MODE_PLANAR_IN the raw pitch of the planar box at those warpgroups.
+// Fills p and returns the bytes, or -1 where nothing fits.
+inline int fit(Params& p, int ns, int f = FORM_BF16, int max_nwg = 2,
+               int m = MODE_NONE) {
   const int rows = rows_of(ns, f);
   const int kblocks = p.nslices * p.ks * p.ks;
   for (int nwg = max_nwg; nwg >= 1; --nwg) {
+    if (m == MODE_PLANAR_IN) p.raw_pitch = planar_raw_pitch(p.cin, nwg);
     for (int ws = kblocks; ws >= 1;) {
-      const Layout l = layout(p.ks, p.cin_pad, p.raw_pitch, nwg, ws, ns,
-                              rows, op_bytes(f));
+      const Layout l = mode_layout(
+          layout(p.ks, p.cin_pad, p.raw_pitch, nwg, ws, ns, rows,
+                 op_bytes(f)),
+          m, nwg, ns);
       if (l.total <= MAX_SMEM) {
         p.nwg = nwg;
         p.ws = ws;
@@ -1047,15 +1335,16 @@ inline bool shape(Params& p, int cin, int cout, int ks, int ns,
 }
 
 // Fills p from a C entry point's arguments and plans its shared memory
-// (at most max_nwg warpgroups): the bytes, or -1 for a launch the kernel
-// does not take.
+// (at most max_nwg warpgroups; mode m): the bytes, or -1 for a launch the
+// kernel does not take (a mode takes bf16 only, a planar one 3 x 3 on one
+// image of even height and width, no shuffle and no int8 store).
 inline int prepare(Params& p, const void* x, const void* wpk,
                    const void* bias, const void* in_scale,
                    const void* in_shift, const void* out_scale,
                    const void* out_shift, const void* residual,
                    const void* out_inv, void* out, int n, int h, int w,
                    int cin, int cout, int act, int shuffle, int ks, int ns,
-                   int f = FORM_BF16, int max_nwg = 2) {
+                   int f = FORM_BF16, int max_nwg = 2, int m = MODE_NONE) {
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.wpk = static_cast<const __nv_bfloat16*>(wpk);
   p.bias = static_cast<const __nv_bfloat16*>(bias);
@@ -1073,9 +1362,12 @@ inline int prepare(Params& p, const void* x, const void* wpk,
   p.shuffle = shuffle;
   if (!shape(p, cin, cout, ks, ns, f) || n < 1 || h < 1 || w < 1 ||
       (shuffle && cout % 4 != 0) || act < ACT_NONE || act > ACT_OUTIMG ||
-      (reinterpret_cast<uintptr_t>(wpk) & 15) != 0)
+      (reinterpret_cast<uintptr_t>(wpk) & 15) != 0 ||
+      (m != MODE_NONE && (f != FORM_BF16 || shuffle || out_inv)) ||
+      (planar_mode(m) && (ks != 3 || n != 1 || h % 2 || w % 2)))
     return -1;
-  const int smem = max_nwg < 1 || max_nwg > 2 ? -1 : fit(p, ns, f, max_nwg);
+  const int smem =
+      max_nwg < 1 || max_nwg > 2 ? -1 : fit(p, ns, f, max_nwg, m);
   const int rows = rows_of(ns, f);
   p.tiles_w = (w + TW - 1) / TW;
   p.tiles_h =
@@ -1133,11 +1425,11 @@ cudaError_t occupancy(K kernel, int threads, int smem, int& sms,
   return err;
 }
 
-// Instance <NS, P, F, R, SPLIT>, allowed MAX_SMEM bytes of dynamic shared
-// memory (set once), in `kernel`.
-template <int NS, int P, int F, int R, bool SPLIT>
-cudaError_t instance(void (*&kernel)(ParamsOf<F>)) {
-  kernel = conv_sm90_kernel<NS, P, F, R, SPLIT>;
+// Instance <NS, P, F, R, SPLIT, M>, allowed MAX_SMEM bytes of dynamic
+// shared memory (set once), in `kernel`.
+template <int NS, int P, int F, int R, bool SPLIT, int M = MODE_NONE>
+cudaError_t instance(void (*&kernel)(ParamsOf<F, M>)) {
+  kernel = conv_sm90_kernel<NS, P, F, R, SPLIT, M>;
   static bool attr = false;
   if (!attr) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1148,13 +1440,14 @@ cudaError_t instance(void (*&kernel)(ParamsOf<F>)) {
   return cudaSuccess;
 }
 
-// One launch of instance <NS, P, F, R, SPLIT>: a grid of blocks(tiles,
+// One launch of instance <NS, P, F, R, SPLIT, M>: a grid of blocks(tiles,
 // groups, ...) x groups blocks (groups > 1 only in a SPLIT instance).
 template <int NS, int P, int F = FORM_BF16, int R = ROWS_PER_WG,
-          bool SPLIT = false>
-int launch(const ParamsOf<F>& p, int smem, cudaStream_t s, int groups = 1) {
-  void (*kernel)(ParamsOf<F>) = nullptr;
-  cudaError_t err = instance<NS, P, F, R, SPLIT>(kernel);
+          bool SPLIT = false, int M = MODE_NONE>
+int launch(const ParamsOf<F, M>& p, int smem, cudaStream_t s,
+           int groups = 1) {
+  void (*kernel)(ParamsOf<F, M>) = nullptr;
+  cudaError_t err = instance<NS, P, F, R, SPLIT, M>(kernel);
   const int threads = 128 * p.nwg + PRODUCER;
   int sms = 0, per_sm = 0;
   if (err == cudaSuccess)
@@ -1164,6 +1457,30 @@ int launch(const ParamsOf<F>& p, int smem, cudaStream_t s, int groups = 1) {
   kernel<<<dim3(blocks(tiles, groups, sms, per_sm), groups), threads, smem,
            s>>>(p);
   return cudaGetLastError();
+}
+
+// The inputs of the slice-group plan of a bf16 launch p of the production
+// instance at N slice NS in mode M: {tiles, N slices, SMs, blocks an SM}
+// into info (sm90::groups takes them); the occupancy query's error.
+template <int NS, int M = MODE_NONE>
+cudaError_t plan_info(const ParamsOf<FORM_BF16, M>& p, int smem,
+                      int* info) {
+  void (*kernel)(ParamsOf<FORM_BF16, M>) = nullptr;
+  cudaError_t err =
+      instance<NS, PHASE_ALL, FORM_BF16, ROWS_PER_WG, false, M>(kernel);
+  if (err == cudaSuccess)
+    err = occupancy(kernel, 128 * p.nwg + PRODUCER, smem, info[2], info[3]);
+  info[0] = p.tiles_w * p.tiles_h * p.n;
+  info[1] = p.nslices;
+  return err;
+}
+
+// The slice-group plan of a launch in mode M, which takes one group (no
+// SPLIT instance): its inputs into info and G = 1, or -1 where the
+// occupancy query fails.
+template <int NS, int M>
+int mode_plan(const ParamsOf<FORM_BF16, M>& p, int smem, int* info) {
+  return plan_info<NS, M>(p, smem, info) == cudaSuccess ? 1 : -1;
 }
 
 // An int8-form launch of form f (FORM_S8 or FORM_S8Q).

@@ -110,6 +110,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bnt_conv_sm90_at.argtypes = [vp] * 10 + [ci] * 11 + [vp]
     lib.bnt_conv_sm90_groups.restype = ci
     lib.bnt_conv_sm90_groups.argtypes = [ci] * 7 + [vp]
+    lib.bnt_conv_sm90_sin.restype = ci
+    lib.bnt_conv_sm90_sin.argtypes = [vp] * 9 + [ci] * 9 + [vp] * 2
+    lib.bnt_conv_sm90_planar.restype = ci
+    lib.bnt_conv_sm90_planar.argtypes = [vp] * 9 + [ci] * 10 + [vp] * 2
+    lib.bnt_conv_sm90_planar_smem.restype = ci
+    lib.bnt_conv_sm90_planar_smem.argtypes = [ci] * 4
     lib.bnt_conv_sm90_i8.restype = ci
     lib.bnt_conv_sm90_i8.argtypes = [vp] * 12 + [ci] * 9 + [vp]
     lib.bnt_conv_sm90_i8_smem.restype = ci

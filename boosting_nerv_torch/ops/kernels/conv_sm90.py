@@ -2,8 +2,12 @@
 bf16 form (``conv_sm90.cu``, and ``conv_sm90_split.cu`` for launches split
 into slice groups), which serves the four fine-grid wrappers of
 ``tile_conv`` (``conv_tile``, ``conv_tile_v3``, ``resblock_sft_tile``,
-``resblock_sft_tile_v3``), ``planar.fused_upconv_rsft`` and
-``planar.fused_conv_rsft``, and its int8 form (``conv_sm90_i8.cu``), which
+``resblock_sft_tile_v3``), ``fused_sft.resblock_sft_chw``,
+``planar.fused_upconv_rsft`` and ``planar.fused_conv_rsft``, with its
+modes: the sine of the staged input or of the residual
+(``conv_sm90_sin.cu``, ``resblock_sft_chw`` with ``input_sin``) and the
+planar staging, residual and store (``conv_sm90_planar.cu``,
+``planar.rsft_planar``); and its int8 form (``conv_sm90_i8.cu``), which
 serves ``planar.fused_upconv_rsft_i8`` and ``planar.fused_conv_rsft_i8``.
 
 A launch's operand form follows from its tensors: bf16 weights give the
@@ -36,15 +40,23 @@ here:
   tensor;
 - ``emulate``: the kernel's function computed the kernel's way, for the
   CPU tests: each 4 x 64 output tile's input rows staged as 16-byte-widened
-  flat spans and repacked (prologue on in-image taps only; in ``S8Q`` then
-  quantised) into the operand tile [16-byte channel group][pixel][16
-  bytes] (``group_stride`` pixels per group), the GEMM's A read from it
-  through ``a_offsets`` at each tap's pixel shift and its B from the
-  packed blocks through ``b_offsets`` (int8 sums exact), then the
-  epilogue (int8: dequantised first).
+  flat spans (a planar input: the tile's planar box, zero outside the real
+  region) and repacked (prologue on in-image taps only, after the sine of
+  ``sin="input"``; in ``S8Q`` then quantised) into the operand tile
+  [16-byte channel group][pixel][16 bytes] (``group_stride`` pixels per
+  group), the GEMM's A read from it through ``a_offsets`` at each tap's
+  pixel shift and its B from the packed blocks through ``b_offsets`` (int8
+  sums exact), then the epilogue (int8: dequantised first; the residual's
+  sine with ``sin="residual"``; a planar residual and store at the planar
+  offsets, ``planar_offsets``).
+- the modes (``SIN_INPUT``, ``SIN_RESIDUAL``, ``PLANAR_IN``,
+  ``PLANAR_OUT``; ``mode_of``), bf16 only, one slice group a launch
+  (``groups`` gives 1); ``fit`` mirrors the planar box's raw buffer and
+  the transposed staging of the planar output.
 
 ``launch`` is one kernel launch; ``rsft`` the two launches of a
-ResBlockSFT, ``upconv_rsft`` and ``conv_rsft`` the three (four with the
+ResBlockSFT (of sin(y) with ``input_sin``), ``rsft_planar`` those of the
+planar one, ``upconv_rsft`` and ``conv_rsft`` the three (four with the
 head) of the stride-2 and stride-1 stages, each with a launch
 (``cuda_conv``) or ``emulate`` (``emulated_conv``) as its conv, on bf16
 ``StageWeights`` or on W8A8 ``StageWeightsI8``, whose convs take their
@@ -72,6 +84,19 @@ MAX_CIN_PAD, MAX_WS = 128, 8
 ROWS_S8_64 = 3                     # int8 rows a warpgroup at N 64
 FULL_WAVES = 4                     # the slice-group plan's (groups)
 REPACK_COST, SLICE_COST = 1, 4
+# the modes of a bf16 launch (conv_sm90.cuh::Mode)
+NONE, SIN_INPUT, SIN_RESIDUAL, PLANAR_IN, PLANAR_OUT = range(5)
+PBX, PBX_LEAD = 48, 8              # a PLANAR_IN box: columns, lead
+
+
+def mode_of(sin: Optional[str] = None, planar: Optional[str] = None) -> int:
+    """The mode of a launch with ``sin`` ("input", "residual") or
+    ``planar`` ("in": planar input; "out": planar residual and output)."""
+    if sin is not None and planar is not None:
+        raise ValueError("a launch takes a sin mode or a planar one")
+    if sin is not None:
+        return {"input": SIN_INPUT, "residual": SIN_RESIDUAL}[sin]
+    return {None: NONE, "in": PLANAR_IN, "out": PLANAR_OUT}[planar]
 
 
 def form_of(x: torch.Tensor, w: torch.Tensor) -> int:
@@ -115,13 +140,16 @@ def slice_width(cout: int, form: int = BF16) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(lib, cin: int, cout: int, ks: int, form: int = BF16
-         ) -> Tuple[int, int]:
-    """(slice width, shared-memory bytes) of a launch: the first width of
-    ``slice_widths(cout, form)`` whose launch fits, or (0, -1) where none
-    does."""
+def plan(lib, cin: int, cout: int, ks: int, form: int = BF16,
+         mode: int = NONE) -> Tuple[int, int]:
+    """(slice width, shared-memory bytes) of a launch in ``mode``: the
+    first width of ``slice_widths(cout, form)`` whose launch fits, or
+    (0, -1) where none does.  The sin modes' plan is ``NONE``'s."""
     for ns in slice_widths(cout, form):
-        if form == BF16:
+        if mode in (PLANAR_IN, PLANAR_OUT):
+            smem = (lib.bnt_conv_sm90_planar_smem(cin, cout, ns, mode)
+                    if ks == 3 else -1)
+        elif form == BF16:
             smem = lib.bnt_conv_sm90_smem(cin, cout, ks, ns)
         else:
             smem = lib.bnt_conv_sm90_i8_smem(cin, cout, ks, ns, form)
@@ -193,29 +221,58 @@ def a_offsets(gs: int, e: int = 2) -> torch.Tensor:
         + q % chunk
 
 
-def _smem_bytes(kbytes, k, raw, ns, nwg, ws, rows=2) -> int:
-    """conv_sm90.cuh::layout's total bytes."""
+def stage_floats(ns: int, mode: int = NONE) -> int:
+    """Staged floats of one warpgroup's output row
+    (conv_sm90.cuh::stage_floats): [pixel][ns + 4], or in ``PLANAR_OUT``
+    [channel][TW + 4] where that is larger."""
+    if mode == PLANAR_OUT:
+        return max(ns * (TW + 4), TW * (ns + 4))
+    return TW * (ns + 4)
+
+
+def _smem_bytes(kbytes, k, raw, ns, nwg, ws, rows=2, mode=NONE) -> int:
+    """conv_sm90.cuh::mode_layout's total bytes."""
     th = rows * nwg
     pad = -(-(kbytes // 16 * group_stride(k, th) * 16) // 128) * 128
     return (pad + (th + k - 1) * raw + ws * ns * kbytes
-            + nwg * TW * (ns + 4) * 4 + 2 * (1 + ws) * 8)
+            + nwg * stage_floats(ns, mode) * 4 + 2 * (1 + ws) * 8)
 
 
-def fit(cin: int, cout: int, k: int, ns: int, form: int = BF16):
-    """The kernel's shared-memory plan of a launch (conv_sm90.cuh::fit,
-    which chip_smoke.py holds this to): (consumer warpgroups, weight ring
-    depth, resident, bytes), or None for a shape it does not take."""
+def planar_rows(nwg: int) -> int:
+    """Planar rows of a ``PLANAR_IN`` box (conv_sm90.cuh::planar_rows):
+    the tile's 2 nwg fine rows and their halo."""
+    return nwg + 2
+
+
+def planar_raw_pitch(cin: int, nwg: int) -> int:
+    """conv_sm90.cuh::planar_raw_pitch: the ``PLANAR_IN`` box (PBX x
+    planar_rows x cin x 4 planes of bf16) over the raw buffer's 2 nwg + 2
+    slots, rounded up to 16 bytes."""
+    box, slots = PBX * planar_rows(nwg) * cin * 8, 2 * nwg + 2
+    return (-(-box // slots) + 15) // 16 * 16
+
+
+def fit(cin: int, cout: int, k: int, ns: int, form: int = BF16,
+        mode: int = NONE):
+    """The kernel's shared-memory plan of a launch in ``mode``
+    (conv_sm90.cuh::fit, which chip_smoke.py holds this to): (consumer
+    warpgroups, weight ring depth, resident, bytes), or None for a shape it
+    does not take."""
     cp = cin_pad(cin, form)
     if (k not in (1, 3, 5) or cin < 1 or cout < 1 or cp > MAX_CIN_PAD
-            or ns not in ns_choices(form)):
+            or ns not in ns_choices(form)
+            or (mode != NONE and form != BF16)
+            or (mode in (PLANAR_IN, PLANAR_OUT) and k != 3)):
         return None
     kblocks = -(-cout // ns) * k * k
     raw = ((TW + k - 1) * cin * in_bytes(form) + 30 + 15) // 16 * 16
     for nwg in (2, 1):
+        if mode == PLANAR_IN:
+            raw = planar_raw_pitch(cin, nwg)
         ws = kblocks
         while True:
             total = _smem_bytes(cp * op_bytes(form), k, raw, ns, nwg, ws,
-                                rows_at(ns, form))
+                                rows_at(ns, form), mode)
             if total <= MAX_SMEM:
                 return nwg, ws, ws == kblocks, total
             ws = min(kblocks - 1, MAX_WS) if ws == kblocks else ws - 1
@@ -235,13 +292,16 @@ def blocks(n_tiles: int, g: int, sms: int, per_sm: int) -> int:
     return max(1, min(n_tiles, sms * max(per_sm, 1) // g))
 
 
-def groups(n_tiles: int, nslices: int, sms: int, per_sm: int) -> int:
+def groups(n_tiles: int, nslices: int, sms: int, per_sm: int,
+           mode: int = NONE) -> int:
     """The slice-group plan of a bf16 launch (conv_sm90.cuh::groups, which
     chip_smoke.py holds this to): 1 where the tiles fill ``FULL_WAVES``
     waves of blocks or more, else the G groups of consecutive N slices,
     none empty, that minimise rounds x (REPACK_COST + SLICE_COST x slices
-    a group), rounds being the tiles one block walks; the least such G."""
-    if n_tiles >= FULL_WAVES * sms * max(per_sm, 1):
+    a group), rounds being the tiles one block walks; the least such G.
+    A launch in a mode takes one group (its instances have no SPLIT
+    form)."""
+    if mode != NONE or n_tiles >= FULL_WAVES * sms * max(per_sm, 1):
         return 1
     best, best_cost = 1, None
     for g in range(1, nslices + 1):
@@ -269,21 +329,34 @@ def work_items(n_tiles: int, nslices: int, g: int) -> list:
             for t in range(n_tiles)]
 
 
-def launch_plan(lib, n: int, h: int, w: int, cin: int, cout: int, ks: int
-                ) -> Tuple[int, int, int, int, int]:
-    """The library's slice-group plan of a bf16 launch (G, tiles, N slices,
-    SMs, blocks an SM), from ``bnt_conv_sm90_groups``."""
-    ns = plan(lib, cin, cout, ks)[0]
+def launch_plan(lib, n: int, h: int, w: int, cin: int, cout: int, ks: int,
+                mode: int = NONE) -> Tuple[int, int, int, int, int]:
+    """The library's slice-group plan of a bf16 launch in ``mode`` (G,
+    tiles, N slices, SMs, blocks an SM), from ``bnt_conv_sm90_groups`` or,
+    in a mode, its entry point's plan (a planar launch's fine grid h x w,
+    planar tensors of round16 channels, h / 2 rows, 128 or more
+    columns)."""
+    ns = plan(lib, cin, cout, ks, BF16, mode)[0]
     info = (ctypes.c_int * 4)()
-    g = lib.bnt_conv_sm90_groups(n, h, w, cin, cout, ks, ns, info)
+    if mode in (SIN_INPUT, SIN_RESIDUAL):
+        g = lib.bnt_conv_sm90_sin(*[None] * 9, n, h, w, cin, cout, 0, ks, ns,
+                                  mode, info, None)
+    elif mode != NONE:
+        c = cin if mode == PLANAR_IN else cout
+        g = lib.bnt_conv_sm90_planar(
+            *[None] * 9, h, w, cin, cout, 0, ns, mode, -(-c // 16) * 16,
+            h // 2, max(128, w // 2), info, None)
+    else:
+        g = lib.bnt_conv_sm90_groups(n, h, w, cin, cout, ks, ns, info)
     if g < 1:
         raise ValueError(f"conv_sm90 takes no {cin}->{cout} k{ks} launch")
     return (g, *info)
 
 
-def smem(lib, cin: int, cout: int, ks: int, form: int = BF16) -> int:
+def smem(lib, cin: int, cout: int, ks: int, form: int = BF16,
+         mode: int = NONE) -> int:
     """Shared memory of one launch, or -1 for a shape it does not take."""
-    return plan(lib, cin, cout, ks, form)[1]
+    return plan(lib, cin, cout, ks, form, mode)[1]
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -292,25 +365,48 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def launch(lib, x, w, b, out, *, act="none", shuffle=False, in_affine=None,
            out_affine=None, residual=None, out_inv=None, scale=None,
-           in_inv=None, schedule=None) -> None:
+           in_inv=None, schedule=None, sin=None, planar=None) -> None:
     """One launch: a same-padded k x k conv of NHWC x with the OHWI weight
     w [Cout, k, k, Cin] into ``out`` (see conv_sm90.cu); with int8 weight
     codes w, the int8 form (conv_sm90_i8.cu): ``scale`` and b are the
     float32 dequant scale and bias, a bf16 x is quantised at ``in_inv``
     (int8 codes x are taken as they are).  ``schedule`` (bf16 only, for
     measuring the plan): (slice groups, 0 for the plan's; at most that
-    many warpgroups)."""
-    n, h, wd, cin = x.shape
+    many warpgroups).  The bf16 modes (``mode_of``; conv_sm90_sin.cu,
+    conv_sm90_planar.cu): ``sin`` "input" stages sin(x) before the input
+    affine, "residual" adds sin(residual); ``planar`` "in" reads x as a
+    planar (4 Cp, Hc, Wd) tensor holding the fine image of ``out``'s
+    [1, H, W, Cout] in its first H / 2 rows and W / 2 columns, "out" adds
+    the planar ``residual`` and stores into the planar ``out`` (its
+    elements outside the image stay as they are; bias and residual only:
+    act "none", no ``out_affine``)."""
     form = form_of(x, w)
-    ns = plan(lib, cin, w.shape[0], w.shape[1], form)[0]
+    mode = mode_of(sin, planar)
+    cin, cout, k = w.shape[3], w.shape[0], w.shape[1]
+    ns = plan(lib, cin, cout, k, form, mode)[0]
     s_in, h_in = in_affine if in_affine is not None else (None, None)
     s_out, h_out = out_affine if out_affine is not None else (None, None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = (_ptr(x), _ptr(packed(w, ns)), _ptr(b), _ptr(s_in), _ptr(h_in),
+            _ptr(s_out), _ptr(h_out), _ptr(residual))
+    if mode in (PLANAR_IN, PLANAR_OUT):
+        fine, plane = (out, x) if mode == PLANAR_IN else (x, out)
+        err = lib.bnt_conv_sm90_planar(
+            *ptrs, _ptr(out), fine.shape[1], fine.shape[2], cin, cout,
+            ACT_CODES[act], ns, mode, plane.shape[0] // 4, plane.shape[1],
+            plane.shape[2], None, stream)
+        _build.check(err, "conv_sm90 planar launch")
+        return
+    n, h, wd, _ = x.shape
+    if mode != NONE:
+        err = lib.bnt_conv_sm90_sin(*ptrs, _ptr(out), n, h, wd, cin, cout,
+                                    ACT_CODES[act], k, ns, mode, None,
+                                    stream)
+        _build.check(err, "conv_sm90 sin launch")
+        return
     if form == BF16:
-        args = (_ptr(x), _ptr(packed(w, ns)), _ptr(b), _ptr(s_in),
-                _ptr(h_in), _ptr(s_out), _ptr(h_out), _ptr(residual),
-                _ptr(out_inv), _ptr(out), n, h, wd, cin, w.shape[0],
-                ACT_CODES[act], int(shuffle), w.shape[1], ns)
+        args = (*ptrs, _ptr(out_inv), _ptr(out), n, h, wd, cin, cout,
+                ACT_CODES[act], int(shuffle), k, ns)
         err = (lib.bnt_conv_sm90(*args, stream) if schedule is None else
                lib.bnt_conv_sm90_at(*args, *schedule, stream))
     else:
@@ -323,18 +419,29 @@ def launch(lib, x, w, b, out, *, act="none", shuffle=False, in_affine=None,
     _build.check(err, "conv_sm90 launch")
 
 
-def _stage_tile(virt, base, shape, b, ty0, tx0, k, in_mul, in_add,
-                form=BF16, in_inv=None):
+def _operand(tile, k, form):
     """The flat operand tile [cin_pad * e / 16][group_stride(k)][16 / e]
-    (e = op_bytes(form): bf16 values, or int8 codes) of the output tile at
-    (ty0, tx0) of image b, staged from the 16-byte-widened flat span of
-    each in-image row of ``virt`` (x flat, ``base`` elements after a
-    16-byte boundary, NaN elsewhere); in ``S8Q`` quantised at ``in_inv``
-    after the prologue."""
+    (e = op_bytes(form)) of a staged tile [TH + k - 1, TW + k - 1,
+    cin_pad]; bf16 values rounded to bf16."""
+    chunk = 16 // op_bytes(form)
+    ph, pw, cp = tile.shape
+    flat = torch.zeros((cp // chunk, group_stride(k), chunk))
+    flat[:, :ph * pw] = tile.reshape(ph * pw, -1, chunk).transpose(0, 1)
+    if form == BF16:
+        flat = flat.to(torch.bfloat16).float()
+    return flat.reshape(-1)
+
+
+def _stage_tile(virt, base, shape, b, ty0, tx0, k, in_mul, in_add,
+                form=BF16, in_inv=None, sin_input=False):
+    """The flat operand tile (``_operand``) of the output tile at (ty0,
+    tx0) of image b, staged from the 16-byte-widened flat span of each
+    in-image row of ``virt`` (x flat, ``base`` elements after a 16-byte
+    boundary, NaN elsewhere): with ``sin_input`` sin(x), then the prologue
+    affine; in ``S8Q`` quantised at ``in_inv`` after the prologue."""
     _, h, w, c = shape
     halo, ph, pw = (k - 1) // 2, TH + k - 1, TW + k - 1
     per16 = 16 // in_bytes(form)         # input elements in 16 bytes
-    chunk = 16 // op_bytes(form)
     cp = cin_pad(c, form)
     xs, xe = max(tx0 - halo, 0), min(tx0 - halo + pw, w)
     tile = torch.zeros((ph, pw, cp))
@@ -347,23 +454,61 @@ def _stage_tile(virt, base, shape, b, ty0, tx0, k, in_mul, in_add,
         lo, hi = a0 // per16 * per16, -(-a1 // per16) * per16
         raw = virt[lo:hi]
         span = raw[a0 - lo:a0 - lo + (xe - xs) * c].reshape(xe - xs, c)
-        v = span * in_mul + in_add
+        v = (torch.sin(span) if sin_input else span) * in_mul + in_add
         if form == S8Q:
             v = quant.quant_act(v, in_inv).float()
         col = xs - (tx0 - halo)
         tile[r, col:col + xe - xs, :c] = v
-    flat = torch.zeros((cp // chunk, group_stride(k), chunk))
-    flat[:, :ph * pw] = tile.reshape(ph * pw, -1, chunk).transpose(0, 1)
-    if form == BF16:
-        flat = flat.to(torch.bfloat16).float()
-    return flat.reshape(-1)
+    return _operand(tile, k, form)
+
+
+def _stage_planar(xp, image, ty0, tx0, in_mul, in_add):
+    """The flat operand tile of the output tile at (ty0, tx0) of a
+    ``PLANAR_IN`` launch, staged from its box as the kernel stages it: the
+    box [plane][channel][planar_rows(2)][PBX] at planar (tx0 / 2 -
+    PBX_LEAD, ty0 / 2 - 1) of the real region (image: H x W fine, C
+    channels) of planar xp, zero outside it (the tensor copy's fill); then
+    the repack (conv_sm90.cuh::repack_planar): the tile's pixel (r, col),
+    fine (ty0 - 1 + r, tx0 - 1 + col), read from plane 2 ((r + 1) & 1) +
+    ((col + 1) & 1), box row (r + 1) // 2, column (col + 1) // 2 +
+    PBX_LEAD - 1, with the prologue affine on in-image taps, zero
+    elsewhere."""
+    h, w, c = image
+    planes = xp.reshape(4, xp.shape[0] // 4, *xp.shape[1:])
+    real = planes[:, :c, :h // 2, :w // 2].float()
+    rows, y0, x0 = planar_rows(2), ty0 // 2 - 1, tx0 // 2 - PBX_LEAD
+    box = torch.zeros((4, c, rows, PBX))
+    ya, yb = max(y0, 0), min(y0 + rows, h // 2)
+    xa, xb = max(x0, 0), min(x0 + PBX, w // 2)
+    box[:, :, ya - y0:yb - y0, xa - x0:xb - x0] = real[:, :, ya:yb, xa:xb]
+    r = torch.arange(TH + 2)[:, None]
+    col = torch.arange(TW + 2)[None, :]
+    vals = box[2 * ((r + 1) % 2) + (col + 1) % 2, :, (r + 1) // 2,
+               (col + 1) // 2 + PBX_LEAD - 1]        # [TH + 2, TW + 2, C]
+    fy, fx = ty0 - 1 + r, tx0 - 1 + col
+    inside = ((fy >= 0) & (fy < h) & (fx >= 0) & (fx < w))[..., None]
+    tile = torch.zeros((TH + 2, TW + 2, cin_pad(c)))
+    tile[..., :c] = torch.where(inside, vals * in_mul + in_add, 0.0)
+    return _operand(tile, 3, BF16)
+
+
+def planar_offsets(h: int, w: int, c: int, cp: int, hc: int, wd: int
+                   ) -> torch.Tensor:
+    """[h, w, c] element offsets, in a planar (4 cp, hc, wd) tensor, of the
+    fine image's pixel (oy, ox), channel n: plane 2 (oy & 1) + (ox & 1),
+    row oy // 2, column ox // 2 (conv_sm90.cuh::epilogue_planar)."""
+    oy = torch.arange(h)[:, None, None]
+    ox = torch.arange(w)[None, :, None]
+    n = torch.arange(c)[None, None, :]
+    return (((2 * (oy % 2) + ox % 2) * cp + n) * hc + oy // 2) * wd + ox // 2
 
 
 def emulate(x: torch.Tensor, wpk: torch.Tensor, b: torch.Tensor, *,
             cout: int, k: int, act: str = "none", shuffle: bool = False,
             in_affine=None, out_affine=None, residual=None, out_inv=None,
             scale=None, in_inv=None, groups: int = 1,
-            ns: Optional[int] = None) -> torch.Tensor:
+            ns: Optional[int] = None, sin: Optional[str] = None,
+            planar: Optional[str] = None, image=None) -> torch.Tensor:
     """The kernel's output for NHWC x and the packed weight ``wpk``
     (``pack_weight(w, ns)``, ns by default ``slice_width(cout, form)``,
     the plan's first choice), computed as the kernel
@@ -371,10 +516,20 @@ def emulate(x: torch.Tensor, wpk: torch.Tensor, b: torch.Tensor, *,
     ``wpk`` give the int8 form: x int8 codes, or bf16 quantised at
     ``in_inv``; the exact int32 sums dequantised by ``scale`` and b.  It
     walks the launch's work items (``work_items``) at ``groups`` slice
-    groups: each item stages its tile anew and computes its slices."""
+    groups: each item stages its tile anew and computes its slices.  The
+    modes as ``launch`` takes them: ``sin``; ``planar`` "in" with x planar
+    and ``image`` = (H, W, Cin) of the fine image it holds, "out" with
+    ``residual`` planar (the output: a copy of it, the image's elements
+    replaced)."""
     from .planar import ACTS
 
-    n, h, w, c = x.shape
+    mode = mode_of(sin, planar)
+    if mode == PLANAR_OUT and (act != "none" or out_affine is not None):
+        raise ValueError("a planar output takes bias and residual only")
+    if mode == PLANAR_IN:
+        (h, w, c), n = image, 1
+    else:
+        n, h, w, c = x.shape
     form = form_of(x, wpk)
     e = op_bytes(form)
     ns = slice_width(cout, form) if ns is None else ns
@@ -395,8 +550,12 @@ def emulate(x: torch.Tensor, wpk: torch.Tensor, b: torch.Tensor, *,
     tw, th = -(-w // TW), -(-h // TH)
     for t, s0, s1 in work_items(n * th * tw, nsl, groups):
         bi, ty0, tx0 = t // (th * tw), t // tw % th * TH, t % tw * TW
-        tile = _stage_tile(virt, base, x.shape, bi, ty0, tx0, k, in_mul,
-                           in_add, form, in_inv).to(dtype)
+        if mode == PLANAR_IN:
+            tile = _stage_planar(x, image, ty0, tx0, in_mul, in_add)
+        else:
+            tile = _stage_tile(virt, base, x.shape, bi, ty0, tx0, k, in_mul,
+                               in_add, form, in_inv, mode == SIN_INPUT)
+        tile = tile.to(dtype)
         for s in range(s0, s1):
             for tap in range(k * k):
                 dy, dx = divmod(tap, k)
@@ -416,8 +575,16 @@ def emulate(x: torch.Tensor, wpk: torch.Tensor, b: torch.Tensor, *,
         v = v * (out_affine[0].float() + 1) + out_affine[1].float()
     if shuffle:
         v = F.pixel_shuffle(v.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+    if mode == PLANAR_OUT:
+        out = residual.clone()
+        offs = planar_offsets(h, w, cout, residual.shape[0] // 4,
+                              *residual.shape[1:])
+        flat = out.view(-1)
+        flat[offs] = (v[0] + flat[offs].float()).to(out.dtype)
+        return out
     if residual is not None:
-        v = v + residual.float()
+        r = residual.float()
+        v = v + (torch.sin(r) if mode == SIN_RESIDUAL else r)
     if out_inv is not None:
         return quant.quant_act(v, out_inv)
     return v.to(torch.bfloat16)
@@ -431,7 +598,10 @@ def cuda_conv(lib) -> Conv:
     that launches the kernel."""
     def conv(x, w, b, shape, **kw):
         dtype = torch.bfloat16 if kw.get("out_inv") is None else torch.int8
-        out = torch.empty(shape, dtype=dtype, device=x.device)
+        if kw.get("planar") == "out":  # outside the image: the residual's
+            out = kw["residual"].clone()
+        else:
+            out = torch.empty(shape, dtype=dtype, device=x.device)
         launch(lib, x, w, b, out, **kw)
         return out
     return conv
@@ -440,6 +610,8 @@ def cuda_conv(lib) -> Conv:
 def emulated_conv(x, w, b, shape, **kw) -> torch.Tensor:
     """A conv of the chains' form computed by ``emulate``."""
     ns = slice_width(w.shape[0], form_of(x, w))
+    if kw.get("planar") == "in":
+        kw["image"] = (shape[1], shape[2], w.shape[3])
     return emulate(x, pack_weight(w, ns), b, cout=w.shape[0], k=w.shape[1],
                    **kw)
 
@@ -453,19 +625,37 @@ def _w8a8(weights, **fields) -> dict:
     return {opt: getattr(weights, f) for opt, f in fields.items()}
 
 
-def rsft(conv: Conv, y, weights, sft, out_inv=None) -> torch.Tensor:
+def rsft(conv: Conv, y, weights, sft, out_inv=None, input_sin=False
+         ) -> torch.Tensor:
     """ResBlockSFT of NHWC y as two convs: t = SFT1(gelu(conv0(SFT0(y)) +
     b0)); y + conv1(t) + b1, stored bf16 or as int8 codes at ``out_inv``.
     ``weights``: (w0, b0, w1, b1) OHWI, or a stage's weights with those
-    fields; in W8A8 t is int8 codes at ``inv_t1``."""
+    fields; in W8A8 t is int8 codes at ``inv_t1``.  With ``input_sin``
+    (bf16) the block input is sin(y): conv0 stages it (``sin="input"``),
+    conv1 adds it (``sin="residual"``)."""
     w0, b0, w1, b1 = (weights if isinstance(weights, tuple) else
                       (weights.w0, weights.b0, weights.w1, weights.b1))
+    sins = ({"sin": "input"}, {"sin": "residual"}) if input_sin else ({}, {})
     t = conv(y, w0, b0, y.shape, act="gelu", in_affine=(sft[0], sft[1]),
-             out_affine=(sft[2], sft[3]),
+             out_affine=(sft[2], sft[3]), **sins[0],
              **_w8a8(weights, scale="scale0", in_inv="inv_t0",
                      out_inv="inv_t1"))
-    return conv(t, w1, b1, y.shape, residual=y, out_inv=out_inv,
+    return conv(t, w1, b1, y.shape, residual=y, out_inv=out_inv, **sins[1],
                 **_w8a8(weights, scale="scale1"))
+
+
+def rsft_planar(conv: Conv, xp, weights, sft, hc_real: int, wc_real: int
+                ) -> torch.Tensor:
+    """The ResBlockSFT of the fine image held in the first hc_real rows and
+    wc_real columns of planar xp (4 Cp, Hc, Wd), as two convs: conv0 reads
+    xp (``planar="in"``) into fine NHWC t; conv1 adds xp's elements and
+    stores into a copy of xp (``planar="out"``).  ``weights``: (w0, b0, w1,
+    b1) OHWI."""
+    w0, b0, w1, b1 = weights
+    shape = (1, 2 * hc_real, 2 * wc_real, w0.shape[0])
+    t = conv(xp, w0, b0, shape, act="gelu", in_affine=(sft[0], sft[1]),
+             out_affine=(sft[2], sft[3]), planar="in")
+    return conv(t, w1, b1, xp.shape, residual=xp, planar="out")
 
 
 def upconv_rsft(conv: Conv, x, weights, sft, out_inv=None) -> torch.Tensor:

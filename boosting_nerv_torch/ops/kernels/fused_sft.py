@@ -16,9 +16,11 @@ bf16 and biases [C] bf16, as for ``tile_conv``; the Pallas kernel's
 channels-major layout, 128-lane W and row tiles are Mosaic tactics.
 
 For a tensor on the CPU the wrapper runs ``resblock_sft_chw_plain``; for a
-tensor on the card the two launches of ``planar.rsft_cuda`` on the KS = 3
-bf16 kernel, with ``input_sin`` its compile-time sin instances
-(``ops/csrc/stage_conv_sin.cu``): conv0 stages sin(x) before SFT0, conv1
+tensor on the card the two launches of the Hopper kernel's ResBlockSFT
+chain ``conv_sm90.rsft``, the body of ``tile_conv.resblock_sft_tile``
+(without ``input_sin`` the two compute one function): on
+``ops/csrc/conv_sm90.cu``, or with ``input_sin`` on its sin instances
+(``ops/csrc/conv_sm90_sin.cu``): conv0 stages sin(x) before SFT0, conv1
 adds sin(x) as its residual, so sin(x) is never written to device memory.
 On a CUDA tensor it launches or raises ValueError, it never falls back.
 ``LAUNCHES`` counts the wrapper calls that launched.
@@ -28,7 +30,8 @@ from __future__ import annotations
 
 import torch
 
-from .planar import rsft_nhwc_plain, run_rsft
+from .planar import rsft_nhwc_plain
+from .tile_conv import _rsft
 
 
 def resblock_sft_chw_plain(x: torch.Tensor, w0: torch.Tensor,
@@ -44,5 +47,4 @@ def resblock_sft_chw(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
                      input_sin: bool = False) -> torch.Tensor:
     """ResBlockSFT of NHWC x, or of sin(x) with ``input_sin``:
     [N, H, W, C] -> [N, H, W, C]."""
-    return run_rsft("resblock_sft_chw", x, w0, b0, w1, b1, sft,
-                    input_sin=input_sin)
+    return _rsft("resblock_sft_chw", x, w0, b0, w1, b1, sft, input_sin)

@@ -50,10 +50,16 @@ planar[(2 * r1 + r2) * Cp + c, y, x] = fine[c, 2y + r1, 2x + r2]
   (planar.py:484): the ResBlockSFT of the fine tensor held in the first
   ``hc_real`` rows and ``wc_real`` columns of xp, HWIO kernels.
 
-Each crops the real region to fine NHWC in torch (the Pallas kernels' own
-XLA converters do the same at the tail's ends), runs the KS = 3 kernel (one
-launch) or the two-launch ResBlockSFT on it, and writes the planar result.
-Pad channels hold what the Pallas kernel leaves there: act(0) for
+``conv_planar`` crops the real region to fine NHWC in torch (the Pallas
+kernels' own XLA converters do the same at the tail's ends), runs the
+KS = 3 stage kernel (``stage_conv.cu``, one launch) on it and writes the
+planar result.  ``rsft_planar`` runs on the card the two launches of the
+Hopper kernel's planar chain ``conv_sm90.rsft_planar``
+(``ops/csrc/conv_sm90_planar.cu``): conv0 reads xp itself (one TMA tensor
+copy a tile), conv1 adds xp's elements and stores into a copy of xp, so no
+torch crop or planar write surrounds them; the fine intermediate between
+them is NHWC.  Pad channels hold what the Pallas kernel leaves there:
+act(0) for
 ``conv_planar`` (0 for none / sin / gelu, 0.5 for outimg), xp's for
 ``rsft_planar``.  Pad columns and rows, which no caller reads, hold act(0)
 and xp's values (the Pallas kernel leaves its convolution's edge values
@@ -349,12 +355,26 @@ def check_tensors(x, c_in, tensors, x_dtypes, smem_fn, convs):
     if x.dim() != 4 or x.shape[3] != c_in:
         raise ValueError(f"x must be NHWC [N, H, W, {c_in}], got "
                          f"{tuple(x.shape)}")
+    check_shapes(tensors)
+    if x.device.type == "cpu":
+        return False
+    check_device(x, tensors, x_dtypes, smem_fn, convs)
+    return True
+
+
+def check_shapes(tensors) -> None:
+    """Raise ValueError unless each (name, tensor, shape, _) has its
+    shape."""
     for name, t, shape, _ in tensors:
         if t is None or tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got "
                              f"{None if t is None else tuple(t.shape)}")
-    if x.device.type == "cpu":
-        return False
+
+
+def check_device(x, tensors, x_dtypes, smem_fn, convs) -> None:
+    """``check_tensors``' checks on the card: x on a CUDA device, in
+    ``x_dtypes``; every tensor on x's device, contiguous, of its dtype;
+    every conv fitted by ``smem_fn`` (``check_fit``)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in x_dtypes:
@@ -370,7 +390,6 @@ def check_tensors(x, c_in, tensors, x_dtypes, smem_fn, convs):
             raise ValueError(f"the CUDA kernel takes {name} as {dtype}, got "
                              f"{t.dtype}")
     check_fit(smem_fn, convs)
-    return True
 
 
 def check_fit(smem_fn, convs) -> None:
@@ -390,9 +409,10 @@ def stage_smem(lib):
 
 def sm90_smem(lib):
     """The shared-memory fit of the Hopper kernel (``conv_sm90.cu``, or
-    with a form the int8 ``conv_sm90_i8.cu``)."""
-    return lambda cin, cout, ks, form=conv_sm90.BF16: conv_sm90.smem(
-        lib, cin, cout, ks, form)
+    with a form the int8 ``conv_sm90_i8.cu``, with a mode its sin or
+    planar instances)."""
+    return lambda cin, cout, ks, form=conv_sm90.BF16, mode=conv_sm90.NONE: (
+        conv_sm90.smem(lib, cin, cout, ks, form, mode))
 
 
 def _check_conv(x, w, b, k, ks, act, smem_fn=stage_smem):
@@ -431,16 +451,23 @@ def run_conv(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
-def _check_rsft(x, w0, b0, w1, b1, sft, smem_fn=stage_smem):
-    """``check_tensors`` for a ResBlockSFT of NHWC x: w0/w1 OHWI
-    [C, 3, 3, C] and b0/b1 [C] bf16, sft [4, C] float32 on the card;
+def _rsft_tensors(c):
+    """(name, shape, dtype on the card) of a ResBlockSFT's weights: w0/w1
+    OHWI [C, 3, 3, C] and b0/b1 [C] bf16, sft [4, C] float32."""
+    bf = torch.bfloat16
+    return [("w0", (c, 3, 3, c), bf), ("b0", (c,), bf),
+            ("w1", (c, 3, 3, c), bf), ("b1", (c,), bf),
+            ("sft", (4, c), torch.float32)]
+
+
+def _check_rsft(x, w0, b0, w1, b1, sft, smem_fn=sm90_smem):
+    """``check_tensors`` for a ResBlockSFT of NHWC x (``_rsft_tensors``);
     its C -> C conv fitted by ``smem_fn``."""
     c = x.shape[-1]
-    bf = torch.bfloat16
-    tensors = [("w0", w0, (c, 3, 3, c), bf), ("b0", b0, (c,), bf),
-               ("w1", w1, (c, 3, 3, c), bf), ("b1", b1, (c,), bf),
-               ("sft", sft, (4, c), torch.float32)]
-    return check_tensors(x, c, tensors, (bf,), smem_fn, [(c, c, 3)])
+    tensors = [(n, t, shape, dt) for t, (n, shape, dt) in
+               zip((w0, b0, w1, b1, sft), _rsft_tensors(c))]
+    return check_tensors(x, c, tensors, (torch.bfloat16,), smem_fn,
+                         [(c, c, 3)])
 
 
 def _stage_convs(c_in, c, up, head):
@@ -509,10 +536,13 @@ def _out(x, shape, out_inv):
 
 
 def rsft_cuda(lib, y, rsft_w, sft, out_inv=None, input_sin=False):
-    """ResBlockSFT of NHWC y in two launches: t = SFT1(gelu(conv0(SFT0(y))
-    + b0)), then y + conv1(t) + b1; rsft_w = (w0, b0, w1, b1) OHWI.  With
-    ``input_sin`` the block input is sin(y): conv0 stages it and conv1 adds
-    it as its residual (bf16 output only)."""
+    """ResBlockSFT of NHWC y in two launches of the stage kernel
+    (``stage_conv.cu``, with ``input_sin`` ``stage_conv_sin.cu``): t =
+    SFT1(gelu(conv0(SFT0(y)) + b0)), then y + conv1(t) + b1; rsft_w = (w0,
+    b0, w1, b1) OHWI.  With ``input_sin`` the block input is sin(y): conv0
+    stages it and conv1 adds it as its residual (bf16 output only).  No
+    wrapper runs it: it is the K1 probes' reference chain
+    (``probes.conv_rsft_stage``) and the same-call A/B's old side."""
     w0, b0, w1, b1 = rsft_w
     t = torch.empty_like(y)
     launch_conv(lib, y, w0, b0, t, act="gelu", in_affine=(sft[0], sft[1]),
@@ -521,22 +551,6 @@ def rsft_cuda(lib, y, rsft_w, sft, out_inv=None, input_sin=False):
     out = _out(y, y.shape, out_inv)
     launch_conv(lib, t, w1, b1, out, residual=y, out_inv=out_inv,
                 sin="residual" if input_sin else "none")
-    return out
-
-
-def run_rsft(name: str, x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
-             w1: torch.Tensor, b1: torch.Tensor, sft: torch.Tensor, *,
-             input_sin: bool = False) -> torch.Tensor:
-    """The ResBlockSFT wrappers' body (``rsft_nhwc_plain``'s function): for
-    a tensor on the card the two launches of ``rsft_cuda``, counted once in
-    ``LAUNCHES[name]``, for one on the CPU the plain version.  Raises
-    ValueError for weights, biases or SFT vectors of the wrong shape and,
-    on the card, for a shape or type the kernel does not take."""
-    if not _check_rsft(x, w0, b0, w1, b1, sft):
-        return rsft_nhwc_plain(x, w0, b0, w1, b1, sft, input_sin)
-    out = rsft_cuda(_build.load_library(), x, (w0, b0, w1, b1), sft,
-                    input_sin=input_sin)
-    LAUNCHES[name] += 1
     return out
 
 
@@ -713,11 +727,22 @@ def conv_planar(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
 
 def _rsft_planar(xp, w0, b0, w1, b1, sft, c, hc_real, wc_real, plain):
     _check_planar(xp, c, wc_real, hc_real)
-    x = _fine(xp, c, hc_real, wc_real)
     w0, w1 = _hwio_to_ohwi(w0, c, c), _hwio_to_ohwi(w1, c, c)
-    y = (rsft_nhwc_plain(x, w0, b0, w1, b1, sft) if plain else
-         run_rsft("rsft_planar", x, w0, b0, w1, b1, sft))
-    return _put_planar(xp.clone(memory_format=torch.contiguous_format), y)
+    tensors = [(n, t, shape, dt) for t, (n, shape, dt) in
+               zip((w0, b0, w1, b1, sft), _rsft_tensors(c))]
+    check_shapes(tensors)
+    if plain or xp.device.type == "cpu":
+        y = rsft_nhwc_plain(_fine(xp, c, hc_real, wc_real), w0, b0, w1, b1,
+                            sft)
+        return _put_planar(xp.clone(memory_format=torch.contiguous_format),
+                           y)
+    check_device(xp, tensors, (torch.bfloat16,), sm90_smem,
+                 [(c, c, 3, conv_sm90.BF16, mode)
+                  for mode in (conv_sm90.PLANAR_IN, conv_sm90.PLANAR_OUT)])
+    out = conv_sm90.rsft_planar(conv_sm90.cuda_conv(_build.load_library()),
+                                xp, (w0, b0, w1, b1), sft, hc_real, wc_real)
+    LAUNCHES["rsft_planar"] += 1
+    return out
 
 
 def rsft_planar_plain(xp: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,

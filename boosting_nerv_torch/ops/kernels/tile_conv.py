@@ -85,13 +85,14 @@ def _conv(name, x, w, b, k, ks, act):
     return out
 
 
-def _rsft(name, x, w0, b0, w1, b1, sft):
-    """The ResBlockSFT wrappers' body: on the card the two launches of
-    ``conv_sm90.rsft``, counted once in ``LAUNCHES[name]``."""
+def _rsft(name, x, w0, b0, w1, b1, sft, input_sin=False):
+    """The ResBlockSFT wrappers' body (also ``fused_sft.resblock_sft_chw``'s,
+    whose ``input_sin`` makes the block input sin(x)): on the card the two
+    launches of ``conv_sm90.rsft``, counted once in ``LAUNCHES[name]``."""
     if not _check_rsft(x, w0, b0, w1, b1, sft, sm90_smem):
-        return rsft_nhwc_plain(x, w0, b0, w1, b1, sft)
+        return rsft_nhwc_plain(x, w0, b0, w1, b1, sft, input_sin)
     out = conv_sm90.rsft(conv_sm90.cuda_conv(_build.load_library()), x,
-                         (w0, b0, w1, b1), sft)
+                         (w0, b0, w1, b1), sft, input_sin=input_sin)
     LAUNCHES[name] += 1
     return out
 

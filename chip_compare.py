@@ -32,7 +32,12 @@ serving config with seeded random weights and times, with CUDA events:
 - the W8A8 stage calls, in ms per call: ``planar.fused_conv_rsft_i8`` at
   stages 5 and 7 + head and ``planar.fused_upconv_rsft_i8`` at stage 6 of
   the W8A8 decode, int8 codes in, as that decode calls them (each tree's
-  own kernel: the stage kernel before the int8 form of ``conv_sm90.cu``).
+  own kernel: the stage kernel before the int8 form of ``conv_sm90.cu``);
+- the v1 decode's ``fused_sft.resblock_sft_chw`` calls (stage 6 with
+  ``input_sin``, stage 7), ``planar.rsft_planar`` at the planar form of
+  stage 7 (C 51, Hc 540, wc_real 960, Wd 1024) and the planar phase's
+  stage 7 + head (``conv_planar`` with sin, ``rsft_planar``,
+  ``conv_planar`` with outimg), in ms per call (each tree's own kernels).
 
 ``--no-decodes`` times the calls only (a quicker look at a kernel change).
 
@@ -98,12 +103,12 @@ def worker(tree: str, decodes: bool = True) -> dict:
     import torch
 
     from boosting_nerv_torch.models import build_model
-    from boosting_nerv_torch.ops.kernels import (_build, conv_sm90, planar,
-                                                 tile_conv)
+    from boosting_nerv_torch.ops.kernels import (_build, conv_sm90,
+                                                 fused_sft, planar, tile_conv)
     from boosting_nerv_torch.runtime.fast_decode import (
         build_fast_decode, build_fast_decode_v2, build_fast_decode_v3,
         build_fast_decode_v5, build_serving_decode)
-    from chip_smoke import CALIB_TS, bench_config, cuda_ms
+    from chip_smoke import CALIB_TS, PLANAR_WD, bench_config, cuda_ms, hwio
 
     assert os.path.dirname(os.path.abspath(_build.__file__)) == os.path.join(
         os.path.abspath(tree), "boosting_nerv_torch", "ops", "kernels")
@@ -216,6 +221,35 @@ def worker(tree: str, decodes: bool = True) -> dict:
                 calls[f"{rsft_fn.__name__} {tag} stage {st.index}"] = (
                     lambda y=y, rw=st.rsft, sft=st.sft(te), f=rsft_fn:
                     f(y, *rw, sft))
+        v1 = build_fast_decode(cfg, model, 512)
+        t1 = v1.time_embed(torch.tensor([0.5], device="cuda"))
+        for st in v1.chw.stages:
+            y, s_in = rnd(1, *st.out_hw, st.rsft[0].shape[0]), (
+                st.upconv is not None)
+            calls[f"resblock_sft_chw v1 stage {st.index}"
+                  + (" input_sin" if s_in else "")] = (
+                lambda y=y, rw=st.rsft, sft=st.sft(t1), s_in=s_in:
+                fused_sft.resblock_sft_chw(y, *rw, sft, input_sin=s_in))
+        st7 = v1.chw.stages[-1]
+        c, (hf, wf) = st7.rsft[0].shape[0], st7.out_hw
+        xp = torch.nn.functional.pad(planar.to_planar(rnd(c, hf, wf)),
+                                     (0, PLANAR_WD - wf // 2))
+        w0, b0, w1, b1 = st7.rsft
+        sft7, real = st7.sft(t1), {"hc_real": hf // 2, "wc_real": wf // 2}
+
+        def rsft_planar(x):
+            return planar.rsft_planar(x, hwio(w0), b0, hwio(w1), b1, sft7,
+                                      c=c, **real)
+
+        def planar_phase():
+            x = planar.conv_planar(xp, hwio(st7.conv_w), st7.conv_b, c_in=c,
+                                   c_out=c, wc_real=wf // 2, act="sin")
+            return planar.conv_planar(
+                rsft_planar(x), hwio(v1.chw.head_w), v1.chw.head_b, c_in=c,
+                c_out=3, wc_real=wf // 2, act="outimg")
+
+        calls["rsft_planar planar stage 7"] = lambda: rsft_planar(xp)
+        calls["planar phase stage 7 + head"] = planar_phase
         for name, fn in calls.items():
             items[name] = [cuda_ms(fn), float(fn().float().sum())]
     log = open(_build.library_path() + ".log").read()

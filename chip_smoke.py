@@ -8,11 +8,12 @@ Phases, one line of output each (or one line per shape):
 1. requires CUDA (exits non-zero before anything else without it) and
    prints the card's name and power limit as nvidia-smi reports them;
 2. builds the hand-written kernels from ``boosting_nerv_torch/ops/csrc``
-   and prints ptxas's register and spill report of every kernel instance,
-   then one line per instance of the int8 form of the Hopper kernel
-   (``conv_sm90_i8*.cu``): registers, spill bytes and its wgmma
-   instructions in ``cuobjdump -sass`` (each instance must have some, and
-   no spills);
+   and prints the build's seconds and ptxas's register and spill report of
+   every kernel instance, then one line per instance of the int8 form of
+   the Hopper kernel (``conv_sm90_i8*.cu``) and of its sin and planar
+   modes (``conv_sm90_sin.cu``, ``conv_sm90_planar.cu``): registers, spill
+   bytes and its wgmma instructions in ``cuobjdump -sass`` (each instance
+   must have some, and no spills);
 3. builds HNeRV-Boost at the UVG-1080p serving config of bench.py with
    seeded random weights, encodes one synthetic 1080x1920 frame, and builds
    the decodes: the bf16 serving decode (v5) and the W8A8 one (calibrated
@@ -33,10 +34,14 @@ Phases, one line of output each (or one line per shape):
    ragged shape each (width 50 and 9 rows; k = 1 with act gelu for
    conv_tile_v3, k = 5 for conv_tile, also at 128 -> 80 channels, which
    the Hopper kernel takes only at its narrowest N slice; wc_real 50 for
-   the planar ones; the four tile wrappers and the bf16 fused_upconv_rsft
-   and fused_conv_rsft on the Hopper kernel conv_sm90.cu, the W8A8
-   fused_upconv_rsft_i8 and fused_conv_rsft_i8 on its int8 form
-   conv_sm90_i8.cu, the v1 and planar wrappers on the stage kernels): max
+   the planar ones, rsft_planar also with hc_real 7 of 9 rows and random
+   pads; the four tile wrappers, resblock_sft_chw and the bf16
+   fused_upconv_rsft and fused_conv_rsft on the Hopper kernel
+   conv_sm90.cu, resblock_sft_chw's input_sin on its sin instances
+   conv_sm90_sin.cu, rsft_planar on its planar instances
+   conv_sm90_planar.cu, the W8A8 fused_upconv_rsft_i8 and
+   fused_conv_rsft_i8 on its int8 form conv_sm90_i8.cu, conv_planar,
+   conv3x3_act_chw and head_conv_chw on the stage kernel): max
    abs error within 2e-2 * max(|plain|, 1), int8 codes compared after
    dequantising with 1/inv; prints the share of codes that differ; times
    both with CUDA events, F.conv2d for conv_tile and, beside
@@ -45,7 +50,9 @@ Phases, one line of output each (or one line per shape):
    take, raises ValueError on the card from the tile, v1 and planar
    wrappers; checks conv_sm90.cu's and conv_sm90_i8.cu's shared-memory
    plan of every conv shape they serve, and conv_sm90.cu's slice-group
-   plan G at every launch grid, against the Python mirror and prints the
+   plan G at every launch grid, and those of the sin instances at the v1
+   ResBlockSFT's grid and of the planar instances at the planar phase's,
+   against the Python mirror and prints the
    plans; times each conv_sm90.cu launch of the v3 decode on a grid of at
    most 270 rows and the v5 stage 2 upconv at every slice-group count
    and at one and two warpgroups beside the plan's ("schedule" lines);
@@ -54,7 +61,12 @@ Phases, one line of output each (or one line per shape):
    old) at conv_tile's v2 stage-6 call, at fused_upconv_rsft's bf16
    stages 2, 4 and 6, at fused_conv_rsft's stages 3, 5 and 7 + head, at
    every resblock_sft_tile_v3 and conv_tile_v3 call of the v3 decode and
-   at every resblock_sft_tile call of the v2 decode, and the W8A8 stage
+   at every resblock_sft_tile call of the v2 decode, at resblock_sft_chw's
+   v1 stages 6 (input_sin) and 7 and at rsft_planar's planar stage 7 (with
+   its torch crop and planar write around the stage chain, as it was
+   served before), and that planar call's two designs on conv_sm90 (the
+   NHWC chain with the torch crop and write, against the planar
+   instances), and the W8A8 stage
    kernel's chain (stage_conv_i8.cu) beside conv_sm90_i8.cu at the W8A8
    stages 5, 6 and 7 + head (the same-call A/B);
 5. the bf16 slice: serves 8 frame indices through ``build_serving_decode``;
@@ -103,7 +115,8 @@ Phases, one line of output each (or one line per shape):
 
 The launch counts are set to 0 just before each slice's frames (the
 planar phase's stage-7 calls, the probe phase's timed run) and read just
-after.  The line before the
+after.  Before the last two lines the run's seconds are printed.  The
+line before the
 last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero without
 printing either.
@@ -138,6 +151,8 @@ CHW = "boosting_nerv_tpu/ops/pallas/conv_chw.py"
 STAGE_CU = "boosting_nerv_torch/ops/csrc/stage_conv.cu"
 SM90_CU = "boosting_nerv_torch/ops/csrc/conv_sm90.cu"
 SM90_I8_CU = "boosting_nerv_torch/ops/csrc/conv_sm90_i8.cu"
+SM90_SIN_CU = "boosting_nerv_torch/ops/csrc/conv_sm90_sin.cu"
+SM90_PLANAR_CU = "boosting_nerv_torch/ops/csrc/conv_sm90_planar.cu"
 KERNELS = {  # wrapper: (source, replaces)
     "fused_upconv_rsft": (SM90_CU, f"{PLANAR}:1308"),
     "fused_conv_rsft": (SM90_CU, f"{PLANAR}:1541"),
@@ -151,10 +166,10 @@ KERNELS = {  # wrapper: (source, replaces)
     "resblock_sft_tile_v3": (SM90_CU, f"{TILE}:788"),
     "conv3x3_act_chw": (STAGE_CU, f"{CHW}:88"),
     "head_conv_chw": (STAGE_CU, f"{CHW}:95"),
-    "resblock_sft_chw": ("boosting_nerv_torch/ops/csrc/stage_conv_sin.cu",
+    "resblock_sft_chw": (SM90_SIN_CU,
                          "boosting_nerv_tpu/ops/pallas/fused_sft.py:138"),
     "conv_planar": (STAGE_CU, f"{PLANAR}:398"),
-    "rsft_planar": (STAGE_CU, f"{PLANAR}:484"),
+    "rsft_planar": (SM90_PLANAR_CU, f"{PLANAR}:484"),
 }
 LIBRARY = {"conv_tile"}  # one PyTorch call computes it: F.conv2d
 V3_LAUNCHES = {"conv_tile_v3": 8, "resblock_sft_tile_v3": 8}
@@ -426,13 +441,19 @@ def hwio(w):
     return w.permute(1, 2, 3, 0).contiguous()
 
 
-def planar_in(gen, c, hc, wc, wd):
+def planar_in(gen, c, hc, wc, wd, fill=False):
     """A random planar tensor (4 * round16(c), hc, wd) holding a fine
-    (c, 2 hc, 2 wc) one; zero beyond it."""
+    (c, 2 hc, 2 wc) one; zero beyond it, or with ``fill`` random there
+    too."""
     from boosting_nerv_torch.ops.kernels import planar
 
     xp = planar.to_planar(rnd(gen, c, 2 * hc, 2 * wc))
-    return torch.nn.functional.pad(xp, (0, wd - wc))
+    xp = torch.nn.functional.pad(xp, (0, wd - wc))
+    if fill:
+        real = torch.zeros_like(xp, dtype=torch.bool)
+        real.view(4, -1, hc, wd)[:, :c, :, :wc] = True
+        xp = torch.where(real, xp, rnd(gen, *xp.shape))
+    return xp
 
 
 def chw_cases(decode_v1, gen):
@@ -501,6 +522,9 @@ def chw_cases(decode_v1, gen):
         ("ragged", "rsft_planar", (planar_in(gen, c, h, w, 128), hwio(w0), b0,
                                    hwio(w1), b1, sft),
          {"c": c, "hc_real": h, "wc_real": w}, False),
+        ("ragged rows", "rsft_planar",
+         (planar_in(gen, c, h, w, 128, fill=True), hwio(w0), b0, hwio(w1),
+          b1, sft), {"c": c, "hc_real": h - 2, "wc_real": w}, False),
     ]
     return cases
 
@@ -579,20 +603,26 @@ def check_kernels(cases, device_line):
     return summary
 
 
-def run_ab(decode, decode_i8, v2, v3, gen, device_line):
+def run_ab(decode, decode_i8, v2, v3, v1, gen, device_line):
     """The same-call old/new comparison of the wrappers moved onto
     conv_sm90.cu: the stage kernel's chain (stage_conv.cu, as they were
     served before) against the wrapper, timed in turns old, new, new, old,
     at conv_tile's v2 stage-6 call (61 -> 204), at the bf16 v5 stages 2, 4
     and 6 of fused_upconv_rsft and 3, 5 and 7 + head of fused_conv_rsft,
     at every resblock_sft_tile_v3 and conv_tile_v3 call of the v3 decode
-    (stages 0-7 and 1-7 + head, 45x80 to 1080x1920) and at every
-    resblock_sft_tile call of the v2 decode (stages 0-7); and of the W8A8
+    (stages 0-7 and 1-7 + head, 45x80 to 1080x1920), at every
+    resblock_sft_tile call of the v2 decode (stages 0-7), at
+    resblock_sft_chw's v1 stages 6 (input_sin: stage_conv_sin.cu) and 7
+    and at rsft_planar's planar stage 7 (the stage chain between the torch
+    crop and planar write that served it); rsft_planar's two designs on
+    conv_sm90: (a) conv_sm90.cu's NHWC chain between the same crop and
+    write, (b) the planar instances (conv_sm90_planar.cu); and of the W8A8
     wrappers moved onto conv_sm90_i8.cu: the
     W8A8 stage kernel's chain (stage_conv_i8.cu) against the wrapper at
     the W8A8 stages 5, 6 and 7 + head.  Measurement only: no decode path
     chooses by it, and the old chains count no launch."""
-    from boosting_nerv_torch.ops.kernels import (_build, planar, probes,
+    from boosting_nerv_torch.ops.kernels import (_build, conv_sm90,
+                                                 fused_sft, planar, probes,
                                                  tile_conv)
 
     lib = _build.load_library()
@@ -670,6 +700,46 @@ def run_ab(decode, decode_i8, v2, v3, gen, device_line):
                       lambda xs=xs, sft=sft, rw=st.rsft:
                       tile_conv.resblock_sft_tile(xs, *rw, sft)))
     cases = [c + names for c in cases]
+    t1 = v1.time_embed(torch.tensor([0.5], device="cuda"))
+    for st in v1.chw.stages:
+        xs, sft, s_in = (rnd(gen, 1, *st.out_hw, st.rsft[0].shape[0]),
+                         st.sft(t1), st.upconv is not None)
+        cases.append((f"resblock_sft_chw v1 stage {st.index}"
+                      + (" input_sin" if s_in else ""), tuple(xs.shape),
+                      lambda xs=xs, sft=sft, rw=st.rsft, s_in=s_in:
+                      planar.rsft_cuda(lib, xs, rw, sft, input_sin=s_in),
+                      lambda xs=xs, sft=sft, rw=st.rsft, s_in=s_in:
+                      fused_sft.resblock_sft_chw(xs, *rw, sft,
+                                                 input_sin=s_in),
+                      "stage_conv_sin.cu" if s_in else "stage_conv.cu",
+                      "conv_sm90_sin.cu" if s_in else "conv_sm90.cu"))
+    st7 = v1.chw.stages[-1]
+    c, (hf, wf) = st7.rsft[0].shape[0], st7.out_hw
+    xp, sft7 = planar_in(gen, c, hf // 2, wf // 2, PLANAR_WD), st7.sft(t1)
+    w0, b0, w1, b1 = st7.rsft
+    kw = {"c": c, "hc_real": hf // 2, "wc_real": wf // 2}
+    conv = conv_sm90.cuda_conv(lib)
+
+    def cropped(chain):
+        """rsft_planar as a chain on the cropped NHWC region, written back
+        into a copy of xp."""
+        y = chain(planar._fine(xp, c, hf // 2, wf // 2))
+        return planar._put_planar(xp.clone(), y)
+
+    def planar_b():
+        return planar.rsft_planar(xp, hwio(w0), b0, hwio(w1), b1, sft7,
+                                  **kw)
+
+    cases.append(("rsft_planar planar stage 7", tuple(xp.shape),
+                  lambda: cropped(lambda y: planar.rsft_cuda(
+                      lib, y, st7.rsft, sft7)), planar_b,
+                  "stage_conv.cu (torch crop and write)",
+                  "conv_sm90_planar.cu"))
+    cases.append(("rsft_planar planar stage 7, (a) against (b)",
+                  tuple(xp.shape), lambda: cropped(lambda y: conv_sm90.rsft(
+                      conv, y, st7.rsft, sft7)), planar_b,
+                  "conv_sm90.cu (a: torch crop and write)",
+                  "conv_sm90_planar.cu (b)"))
     t8 = decode_i8.time_embed(torch.tensor([0.5], device="cuda"))
     zc = set(decode_i8.w8a8_zc)
     for st in decode_i8.tail:
@@ -700,22 +770,44 @@ def run_ab(decode, decode_i8, v2, v3, gen, device_line):
         print(f"a/b {label} in {shape}: {old_name} {(o1 + o2) / 2:.4f} "
               f"ms ({o1:.4f}, {o2:.4f}), {new_name} {(n1 + n2) / 2:.4f} "
               f"ms ({n1:.4f}, {n2:.4f}) [{device_line}]", flush=True)
+    # rsft_planar's parts, each alone: (b)'s two launches and its copy of
+    # xp, (a)'s crop, two NHWC launches and planar write
+    fine = planar._fine(xp, c, hf // 2, wf // 2)
+    t, y, out = torch.empty_like(fine), torch.empty_like(fine), xp.clone()
+    kw0 = {"act": "gelu", "in_affine": (sft7[0], sft7[1]),
+           "out_affine": (sft7[2], sft7[3])}
+    parts = {
+        "(b) conv0 planar in": lambda: conv_sm90.launch(
+            lib, xp, w0, b0, t, planar="in", **kw0),
+        "(b) conv1 planar out": lambda: conv_sm90.launch(
+            lib, t, w1, b1, out, residual=xp, planar="out"),
+        "(b) copy of xp": lambda: xp.clone(),
+        "(a) crop": lambda: planar._fine(xp, c, hf // 2, wf // 2),
+        "(a) conv0": lambda: conv_sm90.launch(lib, fine, w0, b0, t, **kw0),
+        "(a) conv1": lambda: conv_sm90.launch(lib, t, w1, b1, y,
+                                              residual=fine),
+        "(a) planar write": lambda: planar._put_planar(out, y)}
+    print("split rsft_planar planar stage 7: " + ", ".join(
+        f"{k} {cuda_ms(f):.4f} ms" for k, f in parts.items())
+        + f" [{device_line}]", flush=True)
 
 
-def check_plans(decode, decode_i8, v2, v3, device_line):
-    """Every conv that conv_sm90.cu serves in the decodes and every one
-    that conv_sm90_i8.cu serves in the W8A8 decode: the library's
+def check_plans(decode, decode_i8, v2, v3, v1, device_line):
+    """Every conv that conv_sm90.cu serves in the decodes, every one that
+    conv_sm90_i8.cu serves in the W8A8 decode, and the v1 ResBlockSFT's and
+    the planar phase's convs on the sin and planar instances: the library's
     shared-memory fit equals its mirror ``conv_sm90.fit`` (which the CPU
     tests use), and at each bf16 launch grid the library's slice-group plan
-    (``bnt_conv_sm90_groups``) equals its mirror ``conv_sm90.groups`` at
-    the library's tiles, SMs and blocks an SM; each plan is printed."""
+    (``bnt_conv_sm90_groups``, or a mode's entry point's) equals its mirror
+    ``conv_sm90.groups`` at the library's tiles, SMs and blocks an SM; each
+    plan is printed."""
     from boosting_nerv_torch.ops.kernels import _build, conv_sm90
 
     bf, s8, s8q = conv_sm90.BF16, conv_sm90.S8, conv_sm90.S8Q
-    grids = {}  # (cin, cout, k, form) -> launch grids (n, h, w)
+    grids = {}  # (cin, cout, k, form, mode) -> launch grids (n, h, w)
 
-    def add(w, grid, form=bf):
-        grids.setdefault((w.shape[3], w.shape[0], w.shape[1], form),
+    def add(w, grid, form=bf, mode=conv_sm90.NONE):
+        grids.setdefault((w.shape[3], w.shape[0], w.shape[1], form, mode),
                          set()).add(tuple(grid))
 
     for st in decode.tail:
@@ -745,14 +837,26 @@ def check_plans(decode, decode_i8, v2, v3, device_line):
         add(w.w1, out, s8)
         if st.head:
             add(w.head_w, out, s8)
+    for st in v1.chw.stages:  # the ResBlockSFT of sin(x) at the switch
+        if st.upconv is not None:
+            add(st.rsft[0], (1, *st.out_hw), mode=conv_sm90.SIN_INPUT)
+            add(st.rsft[2], (1, *st.out_hw), mode=conv_sm90.SIN_RESIDUAL)
+    st7 = v1.chw.stages[-1]  # the planar phase's rsft_planar
+    for mode in (conv_sm90.PLANAR_IN, conv_sm90.PLANAR_OUT):
+        add(st7.rsft[0], (1, *st7.out_hw), mode=mode)
     lib = _build.load_library()
     names = {bf: "conv_sm90", s8: "conv_sm90_i8 codes in",
              s8q: "conv_sm90_i8 bf16 in"}
-    for (cin, cout, k, form), shapes in sorted(grids.items()):
-        ns, smem = conv_sm90.plan(lib, cin, cout, k, form)
-        mirror = conv_sm90.fit(cin, cout, k, ns, form)
+    modes = {conv_sm90.NONE: "", conv_sm90.SIN_INPUT: " sin input",
+             conv_sm90.SIN_RESIDUAL: " sin residual",
+             conv_sm90.PLANAR_IN: " planar in",
+             conv_sm90.PLANAR_OUT: " planar out"}
+    for (cin, cout, k, form, mode), shapes in sorted(grids.items()):
+        ns, smem = conv_sm90.plan(lib, cin, cout, k, form, mode)
+        mirror = conv_sm90.fit(cin, cout, k, ns, form, mode)
+        name = names[form] + modes[mode]
         if mirror is None or mirror[-1] != smem:
-            raise SmokeFailure(f"{names[form]} plan of {cin}->{cout} k{k} N "
+            raise SmokeFailure(f"{name} plan of {cin}->{cout} k{k} N "
                                f"{ns}: library {smem} bytes, mirror "
                                f"{mirror}")
         rows = conv_sm90.rows_at(ns, form)
@@ -762,16 +866,16 @@ def check_plans(decode, decode_i8, v2, v3, device_line):
             if form != bf:  # the int8 form takes every slice a block
                 continue
             g, tiles, nslices, sms, per_sm = conv_sm90.launch_plan(
-                lib, n, h, wd, cin, cout, k)
-            want = conv_sm90.groups(tiles, nslices, sms, per_sm)
+                lib, n, h, wd, cin, cout, k, mode)
+            want = conv_sm90.groups(tiles, nslices, sms, per_sm, mode)
             if (g != want or nslices != nsl
                     or tiles != conv_sm90.tiles(n, h, wd, mirror[0], rows)):
                 raise SmokeFailure(
-                    f"conv_sm90 slice groups of {cin}->{cout} k{k} at "
+                    f"{name} slice groups of {cin}->{cout} k{k} at "
                     f"{n}x{h}x{wd}: library G {g} ({tiles} tiles, {nslices} "
                     f"slices, {sms} SMs x {per_sm}), mirror G {want}")
             sched.append(f"{h}x{wd}: {tiles} tiles x {per_sm} a SM, G {g}")
-        print(f"plan {names[form]} {cin}->{cout} k{k}: N {ns} x {nsl}, "
+        print(f"plan {name} {cin}->{cout} k{k}: N {ns} x {nsl}, "
               f"{rows} rows x {mirror[0]} warpgroup(s), "
               f"{'resident' if mirror[2] else f'ring {mirror[1]}'}, "
               f"{smem} bytes" + (f"; {'; '.join(sched)}" if sched else "")
@@ -1155,26 +1259,32 @@ def print_ptxas(log_path):
                   f"{spills} spill bytes", flush=True)
 
 
-def check_s8_instances(device_line):
-    """Phase 2's lines of the int8 form of the Hopper kernel: each
-    production instance (conv_sm90_i8.cu, _64.cu, _80.cu; its K5 probe
-    units are phase 10's) with its registers, spill bytes and wgmma
-    (IGMMA) instructions in the library's SASS; fails on a spill or an
+MODE_UNITS = ("conv_sm90_sin.cu", "conv_sm90_planar.cu")
+
+
+def check_instances(device_line):
+    """Phase 2's lines of the int8 form of the Hopper kernel and of its sin
+    and planar modes: each production instance (conv_sm90_i8.cu, _64.cu,
+    _80.cu, whose K5 probe units are phase 10's; conv_sm90_sin.cu,
+    conv_sm90_planar.cu) with its registers, spill bytes and wgmma (IGMMA,
+    HGMMA) instructions in the library's SASS; fails on a spill or an
     instance without them."""
     from boosting_nerv_torch.ops.kernels import _build
     from boosting_nerv_torch.tools import probes
 
     lib = _build.library_path()
     regs = {i["name"]: i for i in probes.ptxas_instances(lib + ".log")
-            if i["source"].startswith("conv_sm90_i8")
+            if (i["source"].startswith("conv_sm90_i8")
+                or i["source"] in MODE_UNITS)
             and i["source"] not in probes.PROBE_SOURCES}
     counts = probes.sass_mma_counts(lib)
-    if not regs:
-        raise SmokeFailure("no conv_sm90_i8 instance in ptxas's report")
+    for unit in ("conv_sm90_i8.cu",) + MODE_UNITS:
+        if not any(r["source"] == unit for r in regs.values()):
+            raise SmokeFailure(f"no {unit} instance in ptxas's report")
     for name, r in sorted(regs.items(), key=lambda kv: kv[1]["source"]):
-        m = re.search(r"conv_sm90_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
-                      name)
-        what = ("N {} P {} form {} rows {}".format(*m.groups()) if m
+        m = re.search(r"conv_sm90_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E"
+                      r"Lb[01]ELi(\d+)E", name)
+        what = ("N {} P {} form {} rows {} mode {}".format(*m.groups()) if m
                 else name)
         n = counts.get(name, 0)
         print(f"ptxas {r['source']} {what}: "
@@ -1196,6 +1306,7 @@ def main() -> int:
         build_fast_decode, build_fast_decode_v2, build_fast_decode_v3,
         build_fast_decode_v5, build_serving_decode)
 
+    t_start = time.perf_counter()
     device_line = card()
     print(f"card: {device_line}", flush=True)
     # every float32 reference in full float32
@@ -1207,7 +1318,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({_build.library_path()})", flush=True)
     print_ptxas(_build.library_path() + ".log")
-    check_s8_instances(device_line)
+    check_instances(device_line)
 
     cfg = bench_config()
     model = build_model(cfg, seed=0).eval()
@@ -1245,9 +1356,9 @@ def main() -> int:
                             + tile_cases(v3, v2, gen) + chw_cases(v1, gen),
                             device_line)
     check_refusal(gen, device_line)
-    check_plans(decode, decode_i8, v2, v3, device_line)
+    check_plans(decode, decode_i8, v2, v3, v1, device_line)
     run_schedules(decode, v3, gen, device_line)
-    run_ab(decode, decode_i8, v2, v3, gen, device_line)
+    run_ab(decode, decode_i8, v2, v3, v1, gen, device_line)
     runs = [check_frames("bf16", decode, refs, embed, ts)]
     print_turns("bf16", ("plain stages", plain_decode), ("kernels", decode),
                 embed, ts, device_line)
@@ -1281,6 +1392,8 @@ def main() -> int:
               if not sum(r[e["name"]] for r in runs)]
     if unused:
         raise SmokeFailure(f"kernels the main paths never launched: {unused}")
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s in all "
+          f"[{device_line}]", flush=True)
     print(json.dumps({"kernels": [
         {**e, "launches": sum(r[e["name"]] for r in runs)} for e in entries]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,11 @@ fused_upconv_rsft with and without ``out_inv``, ``planar.py:1541``
 fused_conv_rsft without and with the head and with ``out_inv`` (planar in
 and out), ``tile_conv.py:788`` resblock_sft_tile_v3 (mode "dy3"),
 ``tile_conv.py:473`` conv_tile_v3 (k = 3 with act sin and outimg, k = 1
-with gelu) and ``tile_conv.py:951`` resblock_sft_tile; and the
-slice-group plan of small grids (``groups``, ``work_items``).
+with gelu), ``tile_conv.py:951`` resblock_sft_tile, ``fused_sft.py:138``
+resblock_sft_chw with ``input_sin`` (the sin modes) and ``planar.py:484``
+rsft_planar at a ragged real region (the planar modes); the slice-group
+plan of small grids (``groups``, ``work_items``) and the modes'
+shared-memory and slice-group plans.
 The CUDA kernel runs only on the card: chip_smoke.py holds it against the
 wrappers' plain versions there.
 
@@ -25,6 +28,7 @@ import torch
 
 from boosting_nerv_torch.ops.kernels import conv_sm90, planar, quant
 from boosting_nerv_torch.ops.pixelshuffle import jax_to_torch_shuffle_perm
+from boosting_nerv_tpu.ops.pallas import fused_sft as fk
 from boosting_nerv_tpu.ops.pallas import planar as pk
 from boosting_nerv_tpu.ops.pallas import tile_conv as tk
 from boosting_nerv_tpu.ops.pixelshuffle import depth_to_space
@@ -195,11 +199,79 @@ def _rsft_case(r, v2, h, w):
     return got.float().numpy(), want, None
 
 
+def _rsft_chw_case(r, _, h, w):
+    """``rsft`` with ``input_sin`` on ``emulated_conv`` (conv0 in
+    SIN_INPUT, conv1 in SIN_RESIDUAL) against the Pallas v1 ResBlockSFT
+    with ``input_sin``, whose block input and residual are sin(x)."""
+    c = 6
+    x = _rand(r, 1, h, w, c, s=2.0)
+    w0, w1 = _rand(r, 3, 3, c, c, s=0.2), _rand(r, 3, 3, c, c, s=0.2)
+    b0, b1 = _rand(r, c, s=0.1), _rand(r, c, s=0.1)
+    sft = [r.normal(size=c).astype(np.float32) * 0.3 for _ in range(4)]
+
+    def taps(k):  # HWIO -> (9, Cout, Cin)
+        return jnp.asarray(k.transpose(0, 1, 3, 2).reshape(9, c, c),
+                           jnp.bfloat16)
+
+    want = fk.resblock_sft_chw(
+        jnp.asarray(x[0].transpose(2, 0, 1), jnp.bfloat16), taps(w0),
+        jnp.asarray(b0), taps(w1), jnp.asarray(b1), *map(jnp.asarray, sft),
+        interpret=True, input_sin=True)
+    want = np.asarray(want.astype(jnp.float32)).transpose(1, 2, 0)[None]
+    bf = torch.bfloat16
+    got = conv_sm90.rsft(
+        conv_sm90.emulated_conv, torch.from_numpy(x).to(bf),
+        (_ohwi(w0).to(bf), torch.from_numpy(b0).to(bf), _ohwi(w1).to(bf),
+         torch.from_numpy(b1).to(bf)), torch.from_numpy(np.stack(sft)),
+        input_sin=True)
+    return got.float().numpy(), want, None
+
+
+def _rsft_planar_case(r, hc, hc_real, wc_real):
+    """``rsft_planar`` on ``emulated_conv`` (conv0 staging the planar box
+    in PLANAR_IN, conv1 adding the planar residual and storing in
+    PLANAR_OUT) against the Pallas planar ResBlockSFT, on the real region
+    of a planar (4 Cp, hc, WD) input whose pad rows, columns and channels
+    hold random values, which the output keeps."""
+    c = 6
+    xp = np.asarray(pk.to_planar(jnp.asarray(
+        _rand(r, c, 2 * hc_real, 2 * wc_real))))
+    xp = np.pad(xp, ((0, 0), (0, hc - hc_real), (0, WD - wc_real)))
+    real = np.zeros(xp.shape, bool)
+    real.reshape(4, -1, hc, WD)[:, :c, :hc_real, :wc_real] = True
+    xp = np.where(real, xp, _rand(r, *xp.shape))
+    w0, w1 = _rand(r, 3, 3, c, c, s=0.2), _rand(r, 3, 3, c, c, s=0.2)
+    b0, b1 = _rand(r, c, s=0.1), _rand(r, c, s=0.1)
+    sft = r.normal(size=(4, c)).astype(np.float32) * 0.3
+    want = pk.rsft_planar(jnp.asarray(xp, jnp.bfloat16), jnp.asarray(w0),
+                          jnp.asarray(b0), jnp.asarray(w1), jnp.asarray(b1),
+                          *map(jnp.asarray, sft), c=c, hc_real=hc_real,
+                          wc_real=wc_real, th=4, interpret=True)
+    bf = torch.bfloat16
+    xt = torch.from_numpy(xp).to(bf)
+    got = conv_sm90.rsft_planar(
+        conv_sm90.emulated_conv, xt,
+        (_ohwi(w0).to(bf), torch.from_numpy(b0).to(bf), _ohwi(w1).to(bf),
+         torch.from_numpy(b1).to(bf)), torch.from_numpy(sft), hc_real,
+        wc_real)
+    assert got.shape == xt.shape
+    assert torch.equal(got[torch.from_numpy(~real)], xt[~real])
+
+    def fine(out):  # the real region, NHWC [1, 2 hc_real, 2 wc_real, C]
+        out = np.asarray(jnp.asarray(out, jnp.float32))[:, :hc_real]
+        return np.asarray(pk.from_planar(jnp.asarray(out), c))[
+            :, :, :2 * wc_real].transpose(1, 2, 0)[None]
+
+    return fine(got.float().numpy()), fine(want), None
+
+
 CASES = {"conv_tile": _conv_tile_case, "conv_tile_v3": _conv_tile_v3_case,
          "fused_upconv_rsft": _upconv_case,
          "fused_conv_rsft": _conv_rsft_case,
          "resblock_sft_tile_v3": _rsft_case,
-         "resblock_sft_tile": lambda r, _, h, w: _rsft_case(r, True, h, w)}
+         "resblock_sft_tile": lambda r, _, h, w: _rsft_case(r, True, h, w),
+         "resblock_sft_chw": _rsft_chw_case,
+         "rsft_planar": _rsft_planar_case}
 
 
 def _conv_ref(x, k, b):
@@ -225,11 +297,14 @@ def _gelu(v):
     ("conv_tile_v3", (3, "sin"), 9, 50),
     ("conv_tile_v3", (3, "outimg"), 9, 50),
     ("conv_tile_v3", (1, "gelu"), 9, 70),
-    ("resblock_sft_tile", None, 9, 50)],
+    ("resblock_sft_tile", None, 9, 50),
+    ("resblock_sft_chw", None, 9, 50),
+    ("rsft_planar", 6, 5, 50)],
     ids=["conv_tile_k1", "conv_tile_k3", "conv_tile_k5", "upconv",
          "upconv_out_inv", "conv_rsft", "conv_rsft_head",
          "conv_rsft_out_inv", "rsft_v3", "conv_tile_v3_k3_sin",
-         "conv_tile_v3_k3_outimg", "conv_tile_v3_k1_gelu", "rsft_v2"])
+         "conv_tile_v3_k3_outimg", "conv_tile_v3_k1_gelu", "rsft_v2",
+         "rsft_chw_input_sin", "rsft_planar_ragged"])
 def test_emulation_matches_pallas(case):
     name, arg, h, w = case
     r = np.random.default_rng(sum(map(ord, str(case))))
@@ -410,3 +485,58 @@ def test_operand_tile_layout_is_bank_conflict_free():
             range(0, 128, 16))
         offs = conv_sm90.a_offsets(gs)
         assert torch.equal(offs[:, 0], torch.arange(64) * 8)
+
+
+@pytest.mark.parametrize("mode", ["sin_input", "sin_residual", "planar_in",
+                                  "planar_out"])
+def test_mode_plans(mode, monkeypatch):
+    """The modes' plans (the mirrors ``fit`` and ``groups`` of their
+    instances, which chip_smoke.py holds to the library): one slice group
+    a launch, even where the plan would split a small grid's slices; the
+    sin modes' shared memory is the NONE launch's; the planar modes take
+    3 x 3 only; PLANAR_IN's raw buffer holds its box (two warpgroups, the
+    weights resident at the planar phase's C 51), PLANAR_OUT's transposed
+    staging needs more only at N 80; ``rsft_planar``'s fit check
+    (``sm90_smem`` in its mode, here on a library whose fit is the mirror)
+    takes C 51 and refuses C 200."""
+    m = getattr(conv_sm90, mode.upper())
+    assert conv_sm90.groups(46, 10, 132, 1) > 1
+    assert conv_sm90.groups(46, 10, 132, 1, mode=m) == 1
+    assert conv_sm90.work_items(3, 2, 1) == [(0, 0, 2), (1, 0, 2),
+                                             (2, 0, 2)]
+    for c in (5, 16, 51, 61, 73, 128):
+        for ns in conv_sm90.NS_CHOICES:
+            none, got = (conv_sm90.fit(c, c, 3, ns),
+                         conv_sm90.fit(c, c, 3, ns, mode=m))
+            if m in (conv_sm90.SIN_INPUT, conv_sm90.SIN_RESIDUAL):
+                assert got == none
+                continue
+            assert conv_sm90.fit(c, c, 5, ns, mode=m) is None
+            if got is None:  # only PLANAR_IN's larger raw buffer misses
+                assert m == conv_sm90.PLANAR_IN and none is not None
+                continue
+            assert got[-1] <= conv_sm90.MAX_SMEM
+            if m == conv_sm90.PLANAR_OUT:
+                extra = 0 if ns < 80 else got[0] * (80 * 68 - 64 * 84) * 4
+                assert got[:3] == none[:3] and got[-1] == none[-1] + extra
+            else:
+                nwg = got[0]
+                box = conv_sm90.PBX * conv_sm90.planar_rows(nwg) * c * 8
+                assert (2 * nwg + 2) * conv_sm90.planar_raw_pitch(
+                    c, nwg) >= box
+    assert conv_sm90.fit(51, 51, 3, 56, mode=m)[:3] == (2, 9, True)
+    assert conv_sm90.fit(51, 51, 3, 64, form=conv_sm90.S8, mode=m) is None
+    if m in (conv_sm90.PLANAR_IN, conv_sm90.PLANAR_OUT):
+        class Lib:  # the library's planar fit, as the mirror computes it
+            @staticmethod
+            def bnt_conv_sm90_planar_smem(cin, cout, ns, mode):
+                plan = conv_sm90.fit(cin, cout, 3, ns, mode=mode)
+                return -1 if plan is None else plan[-1]
+
+        conv_sm90.plan.cache_clear()
+        monkeypatch.setattr(planar._build, "load_library", lambda: Lib)
+        bf = conv_sm90.BF16
+        planar.check_fit(planar.sm90_smem, [(51, 51, 3, bf, m)])
+        with pytest.raises(ValueError, match="Cin <= 128"):
+            planar.check_fit(planar.sm90_smem, [(200, 200, 3, bf, m)])
+        conv_sm90.plan.cache_clear()
