@@ -62,8 +62,8 @@ class UpConv(nn.Module):
         super().__init__()
         if conv_type != "pshuffel_3x3":
             raise NotImplementedError(
-                f"UpConv {conv_type!r} is not ported yet (ROADMAP queue 1, "
-                "item 7: other model families)")
+                f"UpConv {conv_type!r} is not ported yet (ROADMAP queue 1: "
+                "other model families)")
         ks = min(ks, 3)
         self.strd = strd
         self.conv = TConv(ngf, new_ngf * strd * strd, ks, 1, (ks - 1) // 2)
@@ -82,8 +82,8 @@ class DownConv(nn.Module):
         super().__init__()
         if conv_type != "conv":
             raise NotImplementedError(
-                f"DownConv {conv_type!r} is not ported yet (ROADMAP queue 1, "
-                "item 7: other model families)")
+                f"DownConv {conv_type!r} is not ported yet (ROADMAP queue 1: "
+                "other model families)")
         self.conv = TConv(ngf, new_ngf, ks + strd, strd, math.ceil(ks / 2))
 
     def forward(self, x):
@@ -144,7 +144,8 @@ class NeRVBlock(nn.Module):
         super().__init__()
         if norm != "none":
             raise NotImplementedError(
-                f"norm {norm!r} is not ported yet (ROADMAP queue 1, item 7)")
+                f"norm {norm!r} is not ported yet (ROADMAP queue 1: other "
+                "model families)")
         conv_cls = UpConv if dec_block else DownConv
         self.conv = conv_cls(conv_type, ngf, new_ngf, ks, strd)
         self.act = get_activation(act)

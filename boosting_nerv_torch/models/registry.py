@@ -24,8 +24,8 @@ def build_model(cfg: BoostConfig, seed: Optional[int] = 0,
     CPU first, so the weights do not depend on the device or on torch's
     global RNG."""
     if cfg.model in _NOT_PORTED:
-        raise NotImplementedError(f"{cfg.model} is not ported yet: ROADMAP "
-                                  "queue 1, item 7 (other model families)")
+        raise NotImplementedError(f"{cfg.model} is not ported yet (ROADMAP "
+                                  "queue 1: other model families)")
     if cfg.model != "HNeRV_Boost":
         raise KeyError(f"Unknown model {cfg.model!r}; available: "
                        f"{['HNeRV_Boost', *sorted(_NOT_PORTED)]}")

@@ -10,7 +10,7 @@
 //             clip(rint(v * out_inv), +-127); PixelShuffle(2) folded into
 //             the store addressing.
 //
-// It replaces six Pallas kernels of boosting_nerv_tpu/ops/pallas/:
+// It replaces eight Pallas kernels of boosting_nerv_tpu/ops/pallas/:
 // tile_conv.py:144 conv_tile (k x k conv + bias, one launch),
 // tile_conv.py:473 conv_tile_v3 (k in {1, 3}, + none / sin / outimg /
 // gelu in the epilogue, one launch), tile_conv.py:951 resblock_sft_tile
@@ -21,9 +21,15 @@
 // optional int8-code store; three launches) and planar.py:1541
 // fused_conv_rsft in bf16 (the stride-1 stage: conv and sin, the pair,
 // the optional 51 -> 3 head with outimg; three or four launches),
-// ops/kernels/planar.py through ops/kernels/conv_sm90.py.  Its int8 form
-// (conv_sm90_i8.cu) serves the W8A8 forms of the last two; the v1 and
-// planar wrappers stay on stage_conv.cu.
+// ops/kernels/planar.py through ops/kernels/conv_sm90.py; fused_sft.py:138
+// resblock_sft_chw (the pair; with input_sin on its sin instances,
+// conv_sm90_sin.cu) and conv_chw.py:64 _run (conv3x3_act_chw :88, sin;
+// head_conv_chw :95, outimg; one launch each), ops/kernels/fused_sft.py
+// and conv_chw.py.  Its int8 form (conv_sm90_i8.cu) serves the W8A8 forms
+// of fused_upconv_rsft and fused_conv_rsft, its planar instances
+// (conv_sm90_planar.cu) the planar entry points rsft_planar and
+// conv_planar.  No wrapper launches the stage kernel stage_conv.cu any
+// more: it serves the K1 probes and chip_smoke.py's A/B.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): conv_tile's
 // v2 stage-6 call (540x960, 61 -> 204) is 116 GFLOP, 0.117 ms of tensor

@@ -53,9 +53,11 @@
 // (MODE_PLANAR_IN: the input is a planar tensor, staged by one 4-D TMA
 // tensor copy a tile; MODE_PLANAR_OUT: the residual is read from and the
 // output stored into planar tensors), the two launches of the planar
-// ResBlockSFT (conv_sm90_planar.cu).  A planar tensor (4 Cp, Hc, Wd) holds
-// the fine (C, 2 hc, 2 wc) one as planar[(2 r1 + r2) Cp + c, y, x] =
-// fine[c, 2 y + r1, 2 x + r2].
+// ResBlockSFT, and both at once (MODE_PLANAR_IO: planar input staged as
+// MODE_PLANAR_IN's, planar store as MODE_PLANAR_OUT's, with an activation
+// and no residual), the planar conv (conv_sm90_planar.cu).  A planar
+// tensor (4 Cp, Hc, Wd) holds the fine (C, 2 hc, 2 wc) one as
+// planar[(2 r1 + r2) Cp + c, y, x] = fine[c, 2 y + r1, 2 x + r2].
 
 #pragma once
 
@@ -118,11 +120,21 @@ enum Mode {
   MODE_SIN_INPUT = 1,
   MODE_SIN_RESIDUAL = 2,
   MODE_PLANAR_IN = 3,
-  MODE_PLANAR_OUT = 4
+  MODE_PLANAR_OUT = 4,
+  MODE_PLANAR_IO = 5
 };
 
 __host__ __device__ constexpr bool planar_mode(int m) {
-  return m == MODE_PLANAR_IN || m == MODE_PLANAR_OUT;
+  return m == MODE_PLANAR_IN || m == MODE_PLANAR_OUT || m == MODE_PLANAR_IO;
+}
+
+// A mode that stages a planar input (its box through the tensor map) /
+// stores into a planar output (its sums staged transposed).
+__host__ __device__ constexpr bool planar_in(int m) {
+  return m == MODE_PLANAR_IN || m == MODE_PLANAR_IO;
+}
+__host__ __device__ constexpr bool planar_out(int m) {
+  return m == MODE_PLANAR_OUT || m == MODE_PLANAR_IO;
 }
 
 // A planar launch (3 x 3 only): Params with h x w the fine grid (n = 1),
@@ -131,13 +143,24 @@ __host__ __device__ constexpr bool planar_mode(int m) {
 // and 4 planes; zero beyond the real region); in MODE_PLANAR_OUT,
 // residual and out planar tensors of cp channels a plane, hc x wd.
 struct ParamsPlanar : Params {
-  CUtensorMap tmap;                // MODE_PLANAR_IN only
+  CUtensorMap tmap;                // the planar-input modes only
   int cp, hc, wd;
+};
+
+// A MODE_PLANAR_IO launch: ParamsPlanar with x the planar input of cp
+// channels a plane (read through tmap, as in MODE_PLANAR_IN) and out a
+// planar output of cpo, both hc x wd.  A struct of its own, so that the
+// other planar instances' parameters stay as they were.
+struct ParamsPlanarIO : ParamsPlanar {
+  int cpo;
 };
 
 template <int F, int M = MODE_NONE>
 using ParamsOf = std::conditional_t<
-    F == FORM_BF16, std::conditional_t<planar_mode(M), ParamsPlanar, Params>,
+    F == FORM_BF16,
+    std::conditional_t<
+        M == MODE_PLANAR_IO, ParamsPlanarIO,
+        std::conditional_t<planar_mode(M), ParamsPlanar, Params>>,
     ParamsS8>;
 
 // Planar columns of a MODE_PLANAR_IN box: a tile's TW + 2 fine columns
@@ -192,16 +215,16 @@ __host__ __device__ inline Layout layout(int ks, int cin_pad, int raw_pitch,
 }
 
 // Staged floats of one warpgroup's output row in mode m: [pixel][ns + 4],
-// or in MODE_PLANAR_OUT [channel][TW + 4] (transposed, so that the planar
-// stores' lanes run along the pixels), whichever is larger.
+// or in a planar-output mode [channel][TW + 4] (transposed, so that the
+// planar stores' lanes run along the pixels), whichever is larger.
 __host__ __device__ constexpr int stage_floats(int ns, int m) {
-  return m == MODE_PLANAR_OUT && ns * (TW + 4) > TW * (ns + 4)
+  return planar_out(m) && ns * (TW + 4) > TW * (ns + 4)
              ? ns * (TW + 4)
              : TW * (ns + 4);
 }
 
-// layout's carve-up with mode m's staging (larger only in MODE_PLANAR_OUT
-// at N 80).
+// layout's carve-up with mode m's staging (larger only in a planar-output
+// mode at N 80).
 __host__ __device__ inline Layout mode_layout(Layout l, int m, int nwg,
                                               int ns) {
   const int extra = nwg * (stage_floats(ns, m) - TW * (ns + 4)) * 4;
@@ -536,8 +559,8 @@ __device__ __forceinline__ void slice_range(const Params& p, int& s0,
 }
 
 // The producer warp's lane 0: raw input rows of every tile of this block
-// (in MODE_PLANAR_IN its planar box, one tensor copy), and the weight
-// blocks of its slices (once if resident, else per tile).
+// (in MODE_PLANAR_IN and MODE_PLANAR_IO its planar box, one tensor copy),
+// and the weight blocks of its slices (once if resident, else per tile).
 template <int F, int R, bool SPLIT, int M = MODE_NONE>
 __device__ __forceinline__ void produce(const Params& p, const Layout& L,
                                         unsigned char* smem, int ns) {
@@ -569,7 +592,7 @@ __device__ __forceinline__ void produce(const Params& p, const Layout& L,
   uint32_t raw_phase = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const TileAt t = tile_at<R>(p, tile);
-    if constexpr (M == MODE_PLANAR_IN) {
+    if constexpr (planar_in(M)) {
       // the box at planar (tx0 / 2 - PBX_LEAD, ty0 / 2 - 1), channel 0,
       // plane 0: ty0 and tx0 are even, so it holds fine rows ty0 - 1 ..
       // and columns tx0 - 2 PBX_LEAD ..; the copy counts the whole box
@@ -846,20 +869,33 @@ __device__ __noinline__ void epilogue_row_sin(const ParamsOf<F>& p,
   epilogue_body<NS, P, F, true>(p, s_acc, b, oy, tx0, n0, wq, lane);
 }
 
-// The epilogue of one output row of a MODE_PLANAR_OUT launch: fine row oy,
+// The planes (channels a plane) of the planar output of a launch in mode
+// M: cp in MODE_PLANAR_OUT (the residual's too), cpo in MODE_PLANAR_IO.
+template <int M>
+__device__ __forceinline__ int out_planes(const ParamsOf<FORM_BF16, M>& p) {
+  if constexpr (M == MODE_PLANAR_IO) {
+    return p.cpo;
+  } else {
+    return p.cp;
+  }
+}
+
+// The epilogue of one output row of a planar-output launch: fine row oy,
 // pixels tx0 + px (px < 64) x NS channels (n0 + ch), staged transposed in
 // s_acc[ch][px] (pitch TW + 4: the accumulators' scalar stores hit
 // distinct banks, and a warp's reads of one channel's 32 consecutive
-// pixels too).  + bias, + the planar residual (the mode takes no
-// activation and no output affine: conv1 of a ResBlockSFT), a bf16 store
-// into the planar output: a warp's item is one channel and 32 consecutive
-// pixels, whose even and odd pixels lie in two planes (r2 = 0, 1) at 16
-// consecutive planar columns each, so that its residual loads and its
-// stores are two 32-byte runs.  A warp takes items wq, wq + 4, ..., U at a
-// time, their bias and residual loads issued before any store, so that U
-// loads are in flight and not one.
-template <int NS, int P>
-__device__ __noinline__ void epilogue_planar(const ParamsPlanar& p,
+// pixels too).  + bias, then in MODE_PLANAR_OUT + the planar residual (no
+// activation and no output affine: conv1 of a ResBlockSFT), in
+// MODE_PLANAR_IO the activation ACT (compile-time, as epilogue_body's; no
+// residual: the planar conv); a bf16 store into the planar output: a
+// warp's item is one channel and 32 consecutive pixels, whose even and
+// odd pixels lie in two planes (r2 = 0, 1) at 16 consecutive planar
+// columns each, so that its residual loads and its stores are two 32-byte
+// runs.  A warp takes items wq, wq + 4, ..., U at a time, their bias and
+// residual loads issued before any store, so that U loads are in flight
+// and not one.
+template <int NS, int P, int M = MODE_PLANAR_OUT, int ACT = ACT_NONE>
+__device__ __noinline__ void epilogue_planar(const ParamsOf<FORM_BF16, M>& p,
                                              const float* s_acc, int oy,
                                              int tx0, int n0, int wq,
                                              int lane) {
@@ -872,7 +908,7 @@ __device__ __noinline__ void epilogue_planar(const ParamsPlanar& p,
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
   const size_t chan = (size_t)p.hc * p.wd;  // elements of one channel
   // pixel tx0 of row oy in plane 2 r1 (r1 = oy & 1), channel 0
-  const size_t row = (size_t)(2 * (oy & 1)) * p.cp * chan +
+  const size_t row = (size_t)(2 * (oy & 1)) * out_planes<M>(p) * chan +
                      (size_t)(oy >> 1) * p.wd + (tx0 >> 1);
   for (int it0 = wq; it0 < 2 * NS; it0 += 4 * U) {
     size_t off[U];
@@ -883,17 +919,51 @@ __device__ __noinline__ void epilogue_planar(const ParamsPlanar& p,
       const int it = it0 + 4 * u, n = n0 + (it >> 1);
       const int px = (it & 1) * 32 + lane;
       ok[u] = it < 2 * NS && n < cout && tx0 + px < w;
-      off[u] = row + ((px & 1) * p.cp + n) * chan + (px >> 1);
+      off[u] = row + ((px & 1) * out_planes<M>(p) + n) * chan + (px >> 1);
       add[u] = kEpi && ok[u] ? __bfloat162float(bias[n]) : 0.0f;
-      if (residual && ok[u]) add[u] += __bfloat162float(residual[off[u]]);
+      // compile-time, not only the null test: with the residual's loads
+      // live, the MODE_PLANAR_IO instances took up to 18 more registers
+      // (ptxas) and their 1080x1920x51 launch read slower on an H100
+      if constexpr (M != MODE_PLANAR_IO)
+        if (residual && ok[u]) add[u] += __bfloat162float(residual[off[u]]);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int it = it0 + 4 * u;
-      if (ok[u] && store)
-        out[off[u]] = __float2bfloat16(
-            s_acc[(it >> 1) * (TW + 4) + (it & 1) * 32 + lane] + add[u]);
+      if constexpr (M == MODE_PLANAR_IO) {
+        if (ok[u] && store)
+          out[off[u]] = __float2bfloat16(activate(
+              s_acc[(it >> 1) * (TW + 4) + (it & 1) * 32 + lane] + add[u],
+              kEpi ? ACT : ACT_NONE));
+      } else {
+        if (ok[u] && store)
+          out[off[u]] = __float2bfloat16(
+              s_acc[(it >> 1) * (TW + 4) + (it & 1) * 32 + lane] + add[u]);
+      }
     }
+  }
+}
+
+// MODE_PLANAR_IO's epilogue of one output row at launch p's activation
+// (epilogue_planar, one copy a compile-time activation).
+template <int NS, int P>
+__device__ __forceinline__ void epilogue_planar_io(const ParamsPlanarIO& p,
+                                                   const float* s_acc,
+                                                   int oy, int tx0, int n0,
+                                                   int wq, int lane) {
+  constexpr int M = MODE_PLANAR_IO;
+  switch (p.act) {
+    case ACT_SIN:
+      epilogue_planar<NS, P, M, ACT_SIN>(p, s_acc, oy, tx0, n0, wq, lane);
+      break;
+    case ACT_GELU:
+      epilogue_planar<NS, P, M, ACT_GELU>(p, s_acc, oy, tx0, n0, wq, lane);
+      break;
+    case ACT_OUTIMG:
+      epilogue_planar<NS, P, M, ACT_OUTIMG>(p, s_acc, oy, tx0, n0, wq, lane);
+      break;
+    default:
+      epilogue_planar<NS, P, M, ACT_NONE>(p, s_acc, oy, tx0, n0, wq, lane);
   }
 }
 
@@ -908,7 +978,7 @@ __device__ __forceinline__ float staged(__nv_bfloat16 x) {
   }
 }
 
-// MODE_PLANAR_IN's repack of one tile: its planar box in the raw buffer,
+// The planar-input modes' repack of one tile: its planar box in the raw buffer,
 // [plane][Cin][planar_rows(nwg)][PBX], into the operand tile s_pad
 // ([8-channel group][pixel][8]).  Warp w takes the channel groups w, w +
 // cwarps, ..., its lanes consecutive pixels of the halo'd tile (fine row
@@ -1075,12 +1145,12 @@ conv_sm90_kernel(const __grid_constant__ ParamsOf<F, M> p) {
     if constexpr (F != FORM_BF16) prologue();
     consumer_sync(consumers);  // the previous tile's GEMM is done with s_pad
     const unsigned char* rbuf = smem + L.raw;
-    if constexpr (M == MODE_PLANAR_IN) {
+    if constexpr (planar_in(M)) {
       if (kStage)
         repack_planar(p, reinterpret_cast<const __nv_bfloat16*>(rbuf), s_pad,
                       gs, t.ty0, t.tx0, ph, warp, cwarps, lane);
     }
-    for (int r = 0; r < (kStage && M != MODE_PLANAR_IN ? ph : 0); ++r) {
+    for (int r = 0; r < (kStage && !planar_in(M) ? ph : 0); ++r) {
       const int iy = t.ty0 - halo + r;
       const bool row_in = iy >= 0 && iy < p.h;
       // element of pixel ix of this row: row + ix * cin
@@ -1225,7 +1295,7 @@ conv_sm90_kernel(const __grid_constant__ ParamsOf<F, M> p) {
       for (int mt = 0; mt < R; ++mt) {
         const int oy = t.ty0 + wg * R + mt;
         if (oy >= p.h) continue;  // uniform over the warpgroup
-        if constexpr (M == MODE_PLANAR_OUT) {
+        if constexpr (planar_out(M)) {
           // transposed, s_acc[ch][px]: lanes (g, tq) store to banks
           // 8 tq + g, all distinct
 #pragma unroll
@@ -1251,6 +1321,8 @@ conv_sm90_kernel(const __grid_constant__ ParamsOf<F, M> p) {
         wg_sync(wg);
         if constexpr (M == MODE_PLANAR_OUT)
           epilogue_planar<NS, P>(p, s_acc, oy, t.tx0, n0, wq, lane);
+        else if constexpr (M == MODE_PLANAR_IO)
+          epilogue_planar_io<NS, P>(p, s_acc, oy, t.tx0, n0, wq, lane);
         else if constexpr (M == MODE_SIN_RESIDUAL)
           epilogue_row_sin<NS, P, F>(p, s_acc, t.b, oy, t.tx0, n0, wq, lane);
         else
@@ -1286,15 +1358,15 @@ inline int rows_of(int ns, int f) {
 
 // The shared-memory plan of a launch of form f in mode m: warpgroups (2,
 // else 1; at most max_nwg) and the weight ring (every block resident, else
-// the deepest ring up to MAX_WS that fits, at least 2); in
-// MODE_PLANAR_IN the raw pitch of the planar box at those warpgroups.
+// the deepest ring up to MAX_WS that fits, at least 2); in a planar-input
+// mode the raw pitch of the planar box at those warpgroups.
 // Fills p and returns the bytes, or -1 where nothing fits.
 inline int fit(Params& p, int ns, int f = FORM_BF16, int max_nwg = 2,
                int m = MODE_NONE) {
   const int rows = rows_of(ns, f);
   const int kblocks = p.nslices * p.ks * p.ks;
   for (int nwg = max_nwg; nwg >= 1; --nwg) {
-    if (m == MODE_PLANAR_IN) p.raw_pitch = planar_raw_pitch(p.cin, nwg);
+    if (planar_in(m)) p.raw_pitch = planar_raw_pitch(p.cin, nwg);
     for (int ws = kblocks; ws >= 1;) {
       const Layout l = mode_layout(
           layout(p.ks, p.cin_pad, p.raw_pitch, nwg, ws, ns, rows,

@@ -1,10 +1,13 @@
 // The planar instances of the bf16 Hopper conv kernel (conv_sm90.cuh,
-// modes MODE_PLANAR_IN and MODE_PLANAR_OUT at N 8, 56, 64 and 80),
-// compiled beside conv_sm90.cu's, whose instances keep their code: the two
-// launches of the planar ResBlockSFT (ops/kernels/planar.py::rsft_planar,
-// the port of boosting_nerv_tpu/ops/pallas/planar.py:484, whose input and
-// output are planar tensors (4 Cp, Hc, Wd) holding a fine (C, 2 hc, 2 wc)
-// one: planar[(2 r1 + r2) Cp + c, y, x] = fine[c, 2 y + r1, 2 x + r2]).
+// modes MODE_PLANAR_IN, MODE_PLANAR_OUT and MODE_PLANAR_IO at N 8, 56, 64
+// and 80), compiled beside conv_sm90.cu's, whose instances keep their
+// code: the two launches of the planar ResBlockSFT
+// (ops/kernels/planar.py::rsft_planar, the port of
+// boosting_nerv_tpu/ops/pallas/planar.py:484) and the one launch of the
+// planar conv (planar.py::conv_planar, the port of planar.py:398), whose
+// inputs and outputs are planar tensors (4 Cp, Hc, Wd) holding a fine (C,
+// 2 hc, 2 wc) one: planar[(2 r1 + r2) Cp + c, y, x] = fine[c, 2 y + r1,
+// 2 x + r2].
 //
 // conv0 (MODE_PLANAR_IN) reads the planar input itself: per tile one TMA
 // tensor copy of a 4-D box (planar columns x rows x channels x planes,
@@ -21,8 +24,22 @@
 // output's pad channels, rows and columns are the caller's (a copy of the
 // input).  Without these modes the wrapper cropped the real region to a
 // contiguous NHWC copy and wrote the result back through a strided 5-D
-// permute, ~2.8 ms of torch layout work at 540 x 960 planar, C 51, beside
+// permute, ~2.6 ms of torch layout work at 540 x 960 planar, C 51, beside
 // the two convs.
+//
+// The planar conv act(conv3x3(x) + b) (MODE_PLANAR_IO) is both in one
+// launch: the input staged as conv0's (the tensor map of the input's cp
+// planes, no input affine), the sums staged transposed and stored as
+// conv1's into a planar output of cpo channels a plane, with the
+// activation (none, sin, gelu, outimg: compile-time, one copy of the
+// epilogue each) after the bias and no residual.  The wrapper fills the
+// output with act(0) first (its pad channels, rows and columns, 0.5 for
+// outimg); the launch writes the image's elements only.  It replaces the
+// stage kernel (stage_conv.cu) between a torch crop and a planar write.
+// Its bound at the planar phase's 51 -> 51 call (540 x 960 planar, Cp 64,
+// Wd 1024): the real region read and the whole planar output written,
+// 0.148 ms of HBM at 3.35 TB/s (9 x 51 x 51 multiply-adds a fine pixel
+// take 0.098 ms of the tensor cores).
 //
 // What bounds the pair is conv_sm90.cu's 1080x1920x51 ResBlockSFT: the
 // input's real region read and the planar output written once, 0.196 ms
@@ -87,26 +104,29 @@ bool planar_map(sm90::ParamsPlanar& p) {
 
 // The launch of p at N slice NS in mode m, or with `info` its plan alone.
 template <int NS>
-int run(const sm90::ParamsPlanar& p, int smem, int m, cudaStream_t s,
+int run(const sm90::ParamsPlanarIO& p, int smem, int m, cudaStream_t s,
         int* info) {
   constexpr int A = PHASE_ALL, BF = sm90::FORM_BF16, R = sm90::ROWS_PER_WG;
-  if (m == sm90::MODE_PLANAR_IN)
-    return info ? sm90::mode_plan<NS, sm90::MODE_PLANAR_IN>(p, smem, info)
-                : sm90::launch<NS, A, BF, R, false, sm90::MODE_PLANAR_IN>(
-                      p, smem, s);
-  return info ? sm90::mode_plan<NS, sm90::MODE_PLANAR_OUT>(p, smem, info)
-              : sm90::launch<NS, A, BF, R, false, sm90::MODE_PLANAR_OUT>(
-                    p, smem, s);
+  constexpr int M_IN = sm90::MODE_PLANAR_IN, M_OUT = sm90::MODE_PLANAR_OUT,
+                M_IO = sm90::MODE_PLANAR_IO;
+  if (m == M_IN)
+    return info ? sm90::mode_plan<NS, M_IN>(p, smem, info)
+                : sm90::launch<NS, A, BF, R, false, M_IN>(p, smem, s);
+  if (m == M_IO)
+    return info ? sm90::mode_plan<NS, M_IO>(p, smem, info)
+                : sm90::launch<NS, A, BF, R, false, M_IO>(p, smem, s);
+  return info ? sm90::mode_plan<NS, M_OUT>(p, smem, info)
+              : sm90::launch<NS, A, BF, R, false, M_OUT>(p, smem, s);
 }
 
 // Fills p for a planar launch in mode m (see bnt_conv_sm90_planar): the
 // shared-memory bytes, or -1 for a launch the kernel does not take.
-int prepare_planar(sm90::ParamsPlanar& p, const void* x, const void* wpk,
+int prepare_planar(sm90::ParamsPlanarIO& p, const void* x, const void* wpk,
                    const void* bias, const void* in_scale,
                    const void* in_shift, const void* out_scale,
                    const void* out_shift, const void* residual, void* out,
                    int h, int w, int cin, int cout, int act, int ns, int m,
-                   int cp, int hc, int wd) {
+                   int cp, int cpo, int hc, int wd) {
   const int smem = sm90::prepare(p, x, wpk, bias, in_scale, in_shift,
                                  out_scale, out_shift, residual, nullptr,
                                  out, 1, h, w, cin, cout, act, 0, 3, ns,
@@ -114,11 +134,15 @@ int prepare_planar(sm90::ParamsPlanar& p, const void* x, const void* wpk,
   p.cp = cp;
   p.hc = hc;
   p.wd = wd;
+  p.cpo = cpo;
   const int planes = m == sm90::MODE_PLANAR_IN ? cin : cout;
-  if (smem < 0 || !sm90::planar_mode(m) || planes > cp || h / 2 > hc ||
-      w / 2 > wd || wd % 8 != 0 ||
-      (m == sm90::MODE_PLANAR_OUT &&
-       (act != ACT_NONE || out_scale || out_shift)))
+  const int held = m == sm90::MODE_PLANAR_IO ? cpo : cp;
+  if (smem < 0 || !sm90::planar_mode(m) || planes > held ||
+      (m == sm90::MODE_PLANAR_IO && cin > cp) || h / 2 > hc || w / 2 > wd ||
+      wd % 8 != 0 ||
+      (sm90::planar_out(m) && (out_scale || out_shift)) ||
+      (m == sm90::MODE_PLANAR_OUT && act != ACT_NONE) ||
+      (m == sm90::MODE_PLANAR_IO && residual))
     return -1;
   return smem;
 }
@@ -128,10 +152,10 @@ int prepare_planar(sm90::ParamsPlanar& p, const void* x, const void* wpk,
 extern "C" {
 
 // Shared memory of one planar launch (bytes) in mode `mode` (3:
-// MODE_PLANAR_IN, 4: MODE_PLANAR_OUT), 3 x 3, with N slices of ns
-// channels, or -1 for a shape the kernel does not take (as
+// MODE_PLANAR_IN, 4: MODE_PLANAR_OUT, 5: MODE_PLANAR_IO), 3 x 3, with N
+// slices of ns channels, or -1 for a shape the kernel does not take (as
 // bnt_conv_sm90_smem, and the planar box's raw buffer in MODE_PLANAR_IN,
-// the transposed staging in MODE_PLANAR_OUT).
+// the transposed staging in MODE_PLANAR_OUT, both in MODE_PLANAR_IO).
 int bnt_conv_sm90_planar_smem(int cin, int cout, int ns, int mode) {
   sm90::Params p{};
   if (!sm90::planar_mode(mode) || !sm90::shape(p, cin, cout, 3, ns))
@@ -147,27 +171,32 @@ int bnt_conv_sm90_planar_smem(int cin, int cout, int ns, int mode) {
 //   4 (MODE_PLANAR_OUT): x is NHWC [1, h, w, cin]; residual (or null) and
 //     out are planar (4 cp, hc, wd) tensors (cout channels a plane), out's
 //     elements outside the image's are not written; bias and residual
-//     only (act none, no output affine).
-// The epilogue is bnt_conv_sm90's (bias, act, output affine, residual),
-// bf16 out.  With `info` not null nothing is launched: info = {tiles, N
-// slices, SMs, blocks an SM} and the slice groups (1) are returned, -1
-// for a launch the kernel does not take.  Else returns cudaGetLastError()
-// after the launch (0 on success), cudaErrorInvalidValue for a launch it
-// does not take or a tensor map the driver refuses.
+//     only (act none, no output affine);
+//   5 (MODE_PLANAR_IO): x is planar (4 cp, hc, wd) as in 3, out planar
+//     (4 cpo, hc, wd) as in 4 (cout channels a plane, the elements outside
+//     the image's not written); bias and act only (no residual, no output
+//     affine).
+// cpo is read in mode 5 only.  The epilogue is otherwise bnt_conv_sm90's
+// (bias, act, output affine, residual), bf16 out.  With `info` not null
+// nothing is launched: info = {tiles, N slices, SMs, blocks an SM} and the
+// slice groups (1) are returned, -1 for a launch the kernel does not take.
+// Else returns cudaGetLastError() after the launch (0 on success),
+// cudaErrorInvalidValue for a launch it does not take or a tensor map the
+// driver refuses.
 int bnt_conv_sm90_planar(const void* x, const void* wpk, const void* bias,
                          const void* in_scale, const void* in_shift,
                          const void* out_scale, const void* out_shift,
                          const void* residual, void* out, int h, int w,
                          int cin, int cout, int act, int ns, int mode,
-                         int cp, int hc, int wd, int* info,
+                         int cp, int cpo, int hc, int wd, int* info,
                          void* stream) {
-  sm90::ParamsPlanar p{};
+  sm90::ParamsPlanarIO p{};
   const int smem =
       prepare_planar(p, x, wpk, bias, in_scale, in_shift, out_scale,
                      out_shift, residual, out, h, w, cin, cout, act, ns,
-                     mode, cp, hc, wd);
+                     mode, cp, cpo, hc, wd);
   if (smem < 0) return info ? -1 : cudaErrorInvalidValue;
-  if (!info && mode == sm90::MODE_PLANAR_IN && !planar_map(p))
+  if (!info && sm90::planar_in(mode) && !planar_map(p))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (ns) {

@@ -113,7 +113,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bnt_conv_sm90_sin.restype = ci
     lib.bnt_conv_sm90_sin.argtypes = [vp] * 9 + [ci] * 9 + [vp] * 2
     lib.bnt_conv_sm90_planar.restype = ci
-    lib.bnt_conv_sm90_planar.argtypes = [vp] * 9 + [ci] * 10 + [vp] * 2
+    lib.bnt_conv_sm90_planar.argtypes = [vp] * 9 + [ci] * 11 + [vp] * 2
     lib.bnt_conv_sm90_planar_smem.restype = ci
     lib.bnt_conv_sm90_planar_smem.argtypes = [ci] * 4
     lib.bnt_conv_sm90_i8.restype = ci

@@ -16,17 +16,23 @@ and 16-row halo DMA are Mosaic tactics with no counterpart here, and any
 width or height is taken.
 
 Each wrapper runs its plain PyTorch version (``*_plain``) for a tensor on
-the CPU and, for a tensor on the card, one launch of the KS = 3 bf16 kernel
-of ``ops/csrc/stage_conv.cu`` with its sin or outimg epilogue; on a CUDA
-tensor it launches or raises ValueError, it never falls back.
-``LAUNCHES`` counts the wrapper calls that launched.
+the CPU and, for a tensor on the card, one launch of the Hopper kernel
+``ops/csrc/conv_sm90.cu`` with its sin or outimg epilogue: the body of
+``tile_conv.conv_tile_v3`` (``tile_conv._conv`` at k = 3), counted under
+the wrapper's own name (the 51 -> 3 head takes the N 8 slice, as
+``conv_tile_v3``'s head does).  The stage kernel ``stage_conv.cu``, which
+served them before, serves only the K1 probes and chip_smoke.py's A/B.  On
+a CUDA tensor a wrapper launches or raises ValueError (for example for
+more than 128 input channels), it never falls back.  ``LAUNCHES`` counts
+the wrapper calls that launched.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .planar import conv_act_plain, run_conv
+from .planar import conv_act_plain
+from .tile_conv import _conv
 
 
 def conv3x3_act_chw_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
@@ -44,11 +50,11 @@ def head_conv_chw_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 def conv3x3_act_chw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                     ) -> torch.Tensor:
     """sin(conv3x3(x) + b) of NHWC x: [N, H, W, Cin] -> [N, H, W, Cout]."""
-    return run_conv("conv3x3_act_chw", x, w, b, "sin")
+    return _conv("conv3x3_act_chw", x, w, b, 3, (3,), "sin")
 
 
 def head_conv_chw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                   ) -> torch.Tensor:
     """tanh(conv3x3(x) + b) * 0.5 + 0.5 of NHWC x: [N, H, W, Cin] ->
     [N, H, W, Cout] (Cout = 3 for the RGB head)."""
-    return run_conv("head_conv_chw", x, w, b, "outimg")
+    return _conv("head_conv_chw", x, w, b, 3, (3,), "outimg")

@@ -2,13 +2,18 @@
 bf16 form (``conv_sm90.cu``, and ``conv_sm90_split.cu`` for launches split
 into slice groups), which serves the four fine-grid wrappers of
 ``tile_conv`` (``conv_tile``, ``conv_tile_v3``, ``resblock_sft_tile``,
-``resblock_sft_tile_v3``), ``fused_sft.resblock_sft_chw``,
+``resblock_sft_tile_v3``), the v1 wrappers ``conv_chw.conv3x3_act_chw``,
+``conv_chw.head_conv_chw`` and ``fused_sft.resblock_sft_chw``,
 ``planar.fused_upconv_rsft`` and ``planar.fused_conv_rsft``, with its
 modes: the sine of the staged input or of the residual
 (``conv_sm90_sin.cu``, ``resblock_sft_chw`` with ``input_sin``) and the
-planar staging, residual and store (``conv_sm90_planar.cu``,
-``planar.rsft_planar``); and its int8 form (``conv_sm90_i8.cu``), which
+planar staging, residual and store (``conv_sm90_planar.cu``:
+``planar.rsft_planar``, and both in one launch with an activation,
+``planar.conv_planar``); and its int8 form (``conv_sm90_i8.cu``), which
 serves ``planar.fused_upconv_rsft_i8`` and ``planar.fused_conv_rsft_i8``.
+No wrapper launches the stage kernel ``stage_conv.cu`` any more
+(``planar.launch_conv``): it serves the K1 probes and chip_smoke.py's
+same-call A/B.
 
 A launch's operand form follows from its tensors: bf16 weights give the
 bf16 form (``BF16``); int8 weight codes give the int8 form, repacking int8
@@ -50,14 +55,15 @@ here:
   sine with ``sin="residual"``; a planar residual and store at the planar
   offsets, ``planar_offsets``).
 - the modes (``SIN_INPUT``, ``SIN_RESIDUAL``, ``PLANAR_IN``,
-  ``PLANAR_OUT``; ``mode_of``), bf16 only, one slice group a launch
-  (``groups`` gives 1); ``fit`` mirrors the planar box's raw buffer and
-  the transposed staging of the planar output.
+  ``PLANAR_OUT``, ``PLANAR_IO``; ``mode_of``), bf16 only, one slice group
+  a launch (``groups`` gives 1); ``fit`` mirrors the planar box's raw
+  buffer and the transposed staging of the planar output.
 
 ``launch`` is one kernel launch; ``rsft`` the two launches of a
 ResBlockSFT (of sin(y) with ``input_sin``), ``rsft_planar`` those of the
-planar one, ``upconv_rsft`` and ``conv_rsft`` the three (four with the
-head) of the stride-2 and stride-1 stages, each with a launch
+planar one, ``conv_planar`` the one of the planar conv, ``upconv_rsft``
+and ``conv_rsft`` the three (four with the head) of the stride-2 and
+stride-1 stages, each with a launch
 (``cuda_conv``) or ``emulate`` (``emulated_conv``) as its conv, on bf16
 ``StageWeights`` or on W8A8 ``StageWeightsI8``, whose convs take their
 dequant scales and input multipliers from the weights' fields.
@@ -85,18 +91,21 @@ ROWS_S8_64 = 3                     # int8 rows a warpgroup at N 64
 FULL_WAVES = 4                     # the slice-group plan's (groups)
 REPACK_COST, SLICE_COST = 1, 4
 # the modes of a bf16 launch (conv_sm90.cuh::Mode)
-NONE, SIN_INPUT, SIN_RESIDUAL, PLANAR_IN, PLANAR_OUT = range(5)
-PBX, PBX_LEAD = 48, 8              # a PLANAR_IN box: columns, lead
+NONE, SIN_INPUT, SIN_RESIDUAL, PLANAR_IN, PLANAR_OUT, PLANAR_IO = range(6)
+PLANAR_MODES = (PLANAR_IN, PLANAR_OUT, PLANAR_IO)
+PBX, PBX_LEAD = 48, 8              # a planar input's box: columns, lead
 
 
 def mode_of(sin: Optional[str] = None, planar: Optional[str] = None) -> int:
     """The mode of a launch with ``sin`` ("input", "residual") or
-    ``planar`` ("in": planar input; "out": planar residual and output)."""
+    ``planar`` ("in": planar input; "out": planar residual and output;
+    "io": planar input and output)."""
     if sin is not None and planar is not None:
         raise ValueError("a launch takes a sin mode or a planar one")
     if sin is not None:
         return {"input": SIN_INPUT, "residual": SIN_RESIDUAL}[sin]
-    return {None: NONE, "in": PLANAR_IN, "out": PLANAR_OUT}[planar]
+    return {None: NONE, "in": PLANAR_IN, "out": PLANAR_OUT,
+            "io": PLANAR_IO}[planar]
 
 
 def form_of(x: torch.Tensor, w: torch.Tensor) -> int:
@@ -146,7 +155,7 @@ def plan(lib, cin: int, cout: int, ks: int, form: int = BF16,
     first width of ``slice_widths(cout, form)`` whose launch fits, or
     (0, -1) where none does.  The sin modes' plan is ``NONE``'s."""
     for ns in slice_widths(cout, form):
-        if mode in (PLANAR_IN, PLANAR_OUT):
+        if mode in PLANAR_MODES:
             smem = (lib.bnt_conv_sm90_planar_smem(cin, cout, ns, mode)
                     if ks == 3 else -1)
         elif form == BF16:
@@ -224,8 +233,8 @@ def a_offsets(gs: int, e: int = 2) -> torch.Tensor:
 def stage_floats(ns: int, mode: int = NONE) -> int:
     """Staged floats of one warpgroup's output row
     (conv_sm90.cuh::stage_floats): [pixel][ns + 4], or in ``PLANAR_OUT``
-    [channel][TW + 4] where that is larger."""
-    if mode == PLANAR_OUT:
+    and ``PLANAR_IO`` [channel][TW + 4] where that is larger."""
+    if mode in (PLANAR_OUT, PLANAR_IO):
         return max(ns * (TW + 4), TW * (ns + 4))
     return TW * (ns + 4)
 
@@ -239,13 +248,13 @@ def _smem_bytes(kbytes, k, raw, ns, nwg, ws, rows=2, mode=NONE) -> int:
 
 
 def planar_rows(nwg: int) -> int:
-    """Planar rows of a ``PLANAR_IN`` box (conv_sm90.cuh::planar_rows):
+    """Planar rows of a planar input's box (conv_sm90.cuh::planar_rows):
     the tile's 2 nwg fine rows and their halo."""
     return nwg + 2
 
 
 def planar_raw_pitch(cin: int, nwg: int) -> int:
-    """conv_sm90.cuh::planar_raw_pitch: the ``PLANAR_IN`` box (PBX x
+    """conv_sm90.cuh::planar_raw_pitch: a planar input's box (PBX x
     planar_rows x cin x 4 planes of bf16) over the raw buffer's 2 nwg + 2
     slots, rounded up to 16 bytes."""
     box, slots = PBX * planar_rows(nwg) * cin * 8, 2 * nwg + 2
@@ -262,12 +271,12 @@ def fit(cin: int, cout: int, k: int, ns: int, form: int = BF16,
     if (k not in (1, 3, 5) or cin < 1 or cout < 1 or cp > MAX_CIN_PAD
             or ns not in ns_choices(form)
             or (mode != NONE and form != BF16)
-            or (mode in (PLANAR_IN, PLANAR_OUT) and k != 3)):
+            or (mode in PLANAR_MODES and k != 3)):
         return None
     kblocks = -(-cout // ns) * k * k
     raw = ((TW + k - 1) * cin * in_bytes(form) + 30 + 15) // 16 * 16
     for nwg in (2, 1):
-        if mode == PLANAR_IN:
+        if mode in (PLANAR_IN, PLANAR_IO):
             raw = planar_raw_pitch(cin, nwg)
         ws = kblocks
         while True:
@@ -342,10 +351,11 @@ def launch_plan(lib, n: int, h: int, w: int, cin: int, cout: int, ks: int,
         g = lib.bnt_conv_sm90_sin(*[None] * 9, n, h, w, cin, cout, 0, ks, ns,
                                   mode, info, None)
     elif mode != NONE:
-        c = cin if mode == PLANAR_IN else cout
+        cp, cpo = (-(-c // 16) * 16 for c in (cin, cout))
         g = lib.bnt_conv_sm90_planar(
-            *[None] * 9, h, w, cin, cout, 0, ns, mode, -(-c // 16) * 16,
-            h // 2, max(128, w // 2), info, None)
+            *[None] * 9, h, w, cin, cout, 0, ns, mode,
+            cpo if mode == PLANAR_OUT else cp, cpo, h // 2,
+            max(128, w // 2), info, None)
     else:
         g = lib.bnt_conv_sm90_groups(n, h, w, cin, cout, ks, ns, info)
     if g < 1:
@@ -365,7 +375,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def launch(lib, x, w, b, out, *, act="none", shuffle=False, in_affine=None,
            out_affine=None, residual=None, out_inv=None, scale=None,
-           in_inv=None, schedule=None, sin=None, planar=None) -> None:
+           in_inv=None, schedule=None, sin=None, planar=None,
+           image=None) -> None:
     """One launch: a same-padded k x k conv of NHWC x with the OHWI weight
     w [Cout, k, k, Cin] into ``out`` (see conv_sm90.cu); with int8 weight
     codes w, the int8 form (conv_sm90_i8.cu): ``scale`` and b are the
@@ -379,7 +390,9 @@ def launch(lib, x, w, b, out, *, act="none", shuffle=False, in_affine=None,
     [1, H, W, Cout] in its first H / 2 rows and W / 2 columns, "out" adds
     the planar ``residual`` and stores into the planar ``out`` (its
     elements outside the image stay as they are; bias and residual only:
-    act "none", no ``out_affine``)."""
+    act "none", no ``out_affine``), "io" reads x as "in" does and stores
+    act(conv + b) into the planar ``out`` as "out" does (no residual, no
+    ``out_affine``), the fine image ``image`` = (H, W)."""
     form = form_of(x, w)
     mode = mode_of(sin, planar)
     cin, cout, k = w.shape[3], w.shape[0], w.shape[1]
@@ -389,11 +402,15 @@ def launch(lib, x, w, b, out, *, act="none", shuffle=False, in_affine=None,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = (_ptr(x), _ptr(packed(w, ns)), _ptr(b), _ptr(s_in), _ptr(h_in),
             _ptr(s_out), _ptr(h_out), _ptr(residual))
-    if mode in (PLANAR_IN, PLANAR_OUT):
-        fine, plane = (out, x) if mode == PLANAR_IN else (x, out)
+    if mode in PLANAR_MODES:
+        if mode == PLANAR_IO:
+            (h, wd), plane = image, x
+        else:
+            fine, plane = (out, x) if mode == PLANAR_IN else (x, out)
+            h, wd = fine.shape[1], fine.shape[2]
         err = lib.bnt_conv_sm90_planar(
-            *ptrs, _ptr(out), fine.shape[1], fine.shape[2], cin, cout,
-            ACT_CODES[act], ns, mode, plane.shape[0] // 4, plane.shape[1],
+            *ptrs, _ptr(out), h, wd, cin, cout, ACT_CODES[act], ns, mode,
+            plane.shape[0] // 4, out.shape[0] // 4, plane.shape[1],
             plane.shape[2], None, stream)
         _build.check(err, "conv_sm90 planar launch")
         return
@@ -492,6 +509,14 @@ def _stage_planar(xp, image, ty0, tx0, in_mul, in_add):
     return _operand(tile, 3, BF16)
 
 
+def act_zero(act: str) -> float:
+    """act(0): what a planar conv's output holds outside the image (0.5
+    for outimg, else 0)."""
+    from .planar import ACTS
+
+    return float(ACTS[act](torch.zeros(())))
+
+
 def planar_offsets(h: int, w: int, c: int, cp: int, hc: int, wd: int
                    ) -> torch.Tensor:
     """[h, w, c] element offsets, in a planar (4 cp, hc, wd) tensor, of the
@@ -508,7 +533,8 @@ def emulate(x: torch.Tensor, wpk: torch.Tensor, b: torch.Tensor, *,
             in_affine=None, out_affine=None, residual=None, out_inv=None,
             scale=None, in_inv=None, groups: int = 1,
             ns: Optional[int] = None, sin: Optional[str] = None,
-            planar: Optional[str] = None, image=None) -> torch.Tensor:
+            planar: Optional[str] = None, image=None,
+            out_shape=None) -> torch.Tensor:
     """The kernel's output for NHWC x and the packed weight ``wpk``
     (``pack_weight(w, ns)``, ns by default ``slice_width(cout, form)``,
     the plan's first choice), computed as the kernel
@@ -520,13 +546,17 @@ def emulate(x: torch.Tensor, wpk: torch.Tensor, b: torch.Tensor, *,
     modes as ``launch`` takes them: ``sin``; ``planar`` "in" with x planar
     and ``image`` = (H, W, Cin) of the fine image it holds, "out" with
     ``residual`` planar (the output: a copy of it, the image's elements
-    replaced)."""
+    replaced), "io" with x and ``image`` as "in" and the planar output of
+    ``out_shape`` (4 Cpo, Hc, Wd): act(0) (``act_zero``), the image's
+    elements replaced."""
     from .planar import ACTS
 
     mode = mode_of(sin, planar)
     if mode == PLANAR_OUT and (act != "none" or out_affine is not None):
         raise ValueError("a planar output takes bias and residual only")
-    if mode == PLANAR_IN:
+    if mode == PLANAR_IO and (residual is not None or out_affine is not None):
+        raise ValueError("a planar conv takes bias and act only")
+    if mode in (PLANAR_IN, PLANAR_IO):
         (h, w, c), n = image, 1
     else:
         n, h, w, c = x.shape
@@ -550,7 +580,7 @@ def emulate(x: torch.Tensor, wpk: torch.Tensor, b: torch.Tensor, *,
     tw, th = -(-w // TW), -(-h // TH)
     for t, s0, s1 in work_items(n * th * tw, nsl, groups):
         bi, ty0, tx0 = t // (th * tw), t // tw % th * TH, t % tw * TW
-        if mode == PLANAR_IN:
+        if mode in (PLANAR_IN, PLANAR_IO):
             tile = _stage_planar(x, image, ty0, tx0, in_mul, in_add)
         else:
             tile = _stage_tile(virt, base, x.shape, bi, ty0, tx0, k, in_mul,
@@ -575,12 +605,14 @@ def emulate(x: torch.Tensor, wpk: torch.Tensor, b: torch.Tensor, *,
         v = v * (out_affine[0].float() + 1) + out_affine[1].float()
     if shuffle:
         v = F.pixel_shuffle(v.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
-    if mode == PLANAR_OUT:
-        out = residual.clone()
-        offs = planar_offsets(h, w, cout, residual.shape[0] // 4,
-                              *residual.shape[1:])
+    if mode in (PLANAR_OUT, PLANAR_IO):
+        out = (residual.clone() if mode == PLANAR_OUT else
+               torch.full(out_shape, act_zero(act), dtype=torch.bfloat16))
+        offs = planar_offsets(h, w, cout, out.shape[0] // 4, *out.shape[1:])
         flat = out.view(-1)
-        flat[offs] = (v[0] + flat[offs].float()).to(out.dtype)
+        if mode == PLANAR_OUT:
+            v = v + flat[offs].float()
+        flat[offs] = v[0].to(out.dtype)
         return out
     if residual is not None:
         r = residual.float()
@@ -600,6 +632,9 @@ def cuda_conv(lib) -> Conv:
         dtype = torch.bfloat16 if kw.get("out_inv") is None else torch.int8
         if kw.get("planar") == "out":  # outside the image: the residual's
             out = kw["residual"].clone()
+        elif kw.get("planar") == "io":  # outside the image: act(0)
+            out = torch.full(shape, act_zero(kw.get("act", "none")),
+                             dtype=dtype, device=x.device)
         else:
             out = torch.empty(shape, dtype=dtype, device=x.device)
         launch(lib, x, w, b, out, **kw)
@@ -612,6 +647,8 @@ def emulated_conv(x, w, b, shape, **kw) -> torch.Tensor:
     ns = slice_width(w.shape[0], form_of(x, w))
     if kw.get("planar") == "in":
         kw["image"] = (shape[1], shape[2], w.shape[3])
+    elif kw.get("planar") == "io":
+        kw["image"], kw["out_shape"] = (*kw["image"], w.shape[3]), shape
     return emulate(x, pack_weight(w, ns), b, cout=w.shape[0], k=w.shape[1],
                    **kw)
 
@@ -656,6 +693,16 @@ def rsft_planar(conv: Conv, xp, weights, sft, hc_real: int, wc_real: int
     t = conv(xp, w0, b0, shape, act="gelu", in_affine=(sft[0], sft[1]),
              out_affine=(sft[2], sft[3]), planar="in")
     return conv(t, w1, b1, xp.shape, residual=xp, planar="out")
+
+
+def conv_planar(conv: Conv, xp, w, b, act: str, hc_real: int, wc_real: int,
+                cpo: int) -> torch.Tensor:
+    """act(conv3x3(x) + b) of the fine image held in the first hc_real rows
+    and wc_real columns of planar xp (4 Cp, Hc, Wd), w OHWI, as one conv
+    (``planar="io"``) into a planar (4 cpo, Hc, Wd) tensor that holds
+    act(0) outside the image."""
+    return conv(xp, w, b, (4 * cpo, *xp.shape[1:]), act=act, planar="io",
+                image=(2 * hc_real, 2 * wc_real))
 
 
 def upconv_rsft(conv: Conv, x, weights, sft, out_inv=None) -> torch.Tensor:

@@ -50,21 +50,25 @@ planar[(2 * r1 + r2) * Cp + c, y, x] = fine[c, 2y + r1, 2x + r2]
   (planar.py:484): the ResBlockSFT of the fine tensor held in the first
   ``hc_real`` rows and ``wc_real`` columns of xp, HWIO kernels.
 
-``conv_planar`` crops the real region to fine NHWC in torch (the Pallas
-kernels' own XLA converters do the same at the tail's ends), runs the
-KS = 3 stage kernel (``stage_conv.cu``, one launch) on it and writes the
-planar result.  ``rsft_planar`` runs on the card the two launches of the
-Hopper kernel's planar chain ``conv_sm90.rsft_planar``
-(``ops/csrc/conv_sm90_planar.cu``): conv0 reads xp itself (one TMA tensor
-copy a tile), conv1 adds xp's elements and stores into a copy of xp, so no
-torch crop or planar write surrounds them; the fine intermediate between
-them is NHWC.  Pad channels hold what the Pallas kernel leaves there:
-act(0) for
+Both run on the card on the planar instances of the Hopper kernel
+(``ops/csrc/conv_sm90_planar.cu``), which read and write the planar layout
+themselves, so no torch crop or planar write surrounds them.
+``conv_planar`` is one launch of its planar conv (``conv_sm90.conv_planar``,
+mode ``PLANAR_IO``): the input staged from xp by one TMA tensor copy a
+tile, act(conv + b) stored into the planar output, which the wrapper fills
+with act(0) first.  ``rsft_planar`` is the two launches of its planar chain
+``conv_sm90.rsft_planar``: conv0 reads xp itself, conv1 adds xp's elements
+and stores into a copy of xp; the fine intermediate between them is NHWC.
+Pad channels hold what the Pallas kernel leaves there: act(0) for
 ``conv_planar`` (0 for none / sin / gelu, 0.5 for outimg), xp's for
 ``rsft_planar``.  Pad columns and rows, which no caller reads, hold act(0)
 and xp's values (the Pallas kernel leaves its convolution's edge values
 there).  The Pallas ``th`` and ``interpret`` arguments are tactics and are
 dropped.
+
+No wrapper launches the stage kernel ``stage_conv.cu`` (``launch_conv``)
+any more: it serves the K1 probes (``probes``) and, with ``rsft_cuda``,
+the old side of chip_smoke.py's same-call A/B.
 """
 
 from __future__ import annotations
@@ -318,10 +322,12 @@ def _stream(x):
 def launch_conv(lib, x, w, b, out, *, act="none", shuffle=False,
                 in_affine=None, out_affine=None, residual=None, out_inv=None,
                 sin="none"):
-    """One launch of the bf16 kernel (``stage_conv.cu``): a same-padded
-    3x3 conv of NHWC x with the OHWI weight w [Cout, 3, 3, Cin].  ``sin``
-    "input" stages sin(x) before the input affine, "residual" adds
-    sin(residual) (a bf16 output only: ``stage_conv_sin.cu``)."""
+    """One launch of the bf16 stage kernel (``stage_conv.cu``): a
+    same-padded 3x3 conv of NHWC x with the OHWI weight w [Cout, 3, 3,
+    Cin].  ``sin`` "input" stages sin(x) before the input affine,
+    "residual" adds sin(residual) (a bf16 output only:
+    ``stage_conv_sin.cu``).  No wrapper launches it: the K1 probes and the
+    same-call A/B's old side do."""
     n, h, wd, cin = x.shape
     s_in, h_in = in_affine if in_affine is not None else (None, None)
     s_out, h_out = out_affine if out_affine is not None else (None, None)
@@ -402,11 +408,6 @@ def check_fit(smem_fn, convs) -> None:
                              "kernel's shared-memory tile (Cin <= 128)")
 
 
-def stage_smem(lib):
-    """The shared-memory fit of the stage kernel (``stage_conv.cu``)."""
-    return lib.bnt_stage_conv_smem
-
-
 def sm90_smem(lib):
     """The shared-memory fit of the Hopper kernel (``conv_sm90.cu``, or
     with a form the int8 ``conv_sm90_i8.cu``, with a mode its sin or
@@ -415,7 +416,7 @@ def sm90_smem(lib):
         conv_sm90.smem(lib, cin, cout, ks, form, mode))
 
 
-def _check_conv(x, w, b, k, ks, act, smem_fn=stage_smem):
+def _check_conv(x, w, b, k, ks, act, smem_fn):
     """``check_tensors`` for one k x k conv + act of NHWC x with the OHWI
     weight w and bias b (bf16 on the card), fitted by ``smem_fn``.  Raises
     for a k outside ``ks``, an unknown act or a weight that is not
@@ -432,23 +433,6 @@ def _check_conv(x, w, b, k, ks, act, smem_fn=stage_smem):
     return check_tensors(x, c_in, [("w", w, (cout, k, k, c_in), bf),
                                    ("b", b, (cout,), bf)], (bf,),
                          smem_fn, [(c_in, cout, k)])
-
-
-def run_conv(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-             act: str = "none") -> torch.Tensor:
-    """The 3x3 conv wrappers' body on the stage kernel: act(conv3x3 +
-    bias) of NHWC x with the OHWI weight w; for a tensor on the card one
-    launch of ``stage_conv.cu``, counted in ``LAUNCHES[name]``, for one on
-    the CPU the plain version.  Raises ValueError for an act or weight it
-    does not take and, on the card, for a shape or type the kernel does
-    not take."""
-    if not _check_conv(x, w, b, 3, (3,), act):
-        return conv_act_plain(x, w, b, act)
-    out = torch.empty(x.shape[:3] + (w.shape[0],), dtype=x.dtype,
-                      device=x.device)
-    launch_conv(_build.load_library(), x, w, b, out, act=act)
-    LAUNCHES[name] += 1
-    return out
 
 
 def _rsft_tensors(c):
@@ -698,14 +682,22 @@ def _conv_planar(xp, w, b, c_in, c_out, wc_real, act, plain):
     hc = _check_planar(xp, c_in, wc_real)
     if act not in ACTS:
         raise ValueError(f"act must be one of {tuple(ACTS)}, got {act!r}")
-    x = _fine(xp, c_in, hc, wc_real)
     w = _hwio_to_ohwi(w, c_in, c_out)
-    y = (conv_act_plain(x, w, b, act) if plain else
-         run_conv("conv_planar", x, w, b, act))
-    fill = float(ACTS[act](torch.zeros(())))
-    out = torch.full((4 * _round16(c_out), hc, xp.shape[2]), fill,
-                     dtype=y.dtype, device=y.device)
-    return _put_planar(out, y)
+    bf = torch.bfloat16
+    tensors = [("w", w, (c_out, 3, 3, c_in), bf), ("b", b, (c_out,), bf)]
+    check_shapes(tensors)
+    if plain or xp.device.type == "cpu":
+        y = conv_act_plain(_fine(xp, c_in, hc, wc_real), w, b, act)
+        out = torch.full((4 * _round16(c_out), hc, xp.shape[2]),
+                         conv_sm90.act_zero(act), dtype=y.dtype,
+                         device=y.device)
+        return _put_planar(out, y)
+    check_device(xp, tensors, (bf,), sm90_smem,
+                 [(c_in, c_out, 3, conv_sm90.BF16, conv_sm90.PLANAR_IO)])
+    out = conv_sm90.conv_planar(conv_sm90.cuda_conv(_build.load_library()),
+                                xp, w, b, act, hc, wc_real, _round16(c_out))
+    LAUNCHES["conv_planar"] += 1
+    return out
 
 
 def conv_planar_plain(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,

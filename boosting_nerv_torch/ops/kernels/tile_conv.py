@@ -74,8 +74,9 @@ resblock_sft_tile_v3_plain = resblock_sft_tile_plain
 # --------------------------------------------------------------------- #
 
 def _conv(name, x, w, b, k, ks, act):
-    """The conv wrappers' body: act(k x k conv + bias), k in ``ks``; on the
-    card one launch of ``conv_sm90.cu``, counted in ``LAUNCHES[name]``."""
+    """The conv wrappers' body (also ``conv_chw``'s, at k = 3): act(k x k
+    conv + bias), k in ``ks``; on the card one launch of ``conv_sm90.cu``,
+    counted in ``LAUNCHES[name]``."""
     if not _check_conv(x, w, b, k, ks, act, sm90_smem):
         return conv_act_plain(x, w, b, act)
     out = torch.empty(x.shape[:3] + (w.shape[0],), dtype=x.dtype,

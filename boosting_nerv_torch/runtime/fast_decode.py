@@ -302,7 +302,8 @@ def _as_model(cfg: BoostConfig, params_or_model) -> HNeRVBoost:
 def _check_config(cfg: BoostConfig) -> None:
     if cfg.model != "HNeRV_Boost":
         raise NotImplementedError(f"serving decode of {cfg.model} is not "
-                                  "ported yet (ROADMAP queue 1, item 7)")
+                                  "ported yet (ROADMAP queue 1: other model "
+                                  "families)")
     if not (cfg.conv_type[1] == "pshuffel_3x3" and cfg.act == "sin"
             and cfg.sft_block == "res_sft" and cfg.norm == "none"
             and cfg.ch_t):

@@ -34,10 +34,13 @@ serving config with seeded random weights and times, with CUDA events:
   the W8A8 decode, int8 codes in, as that decode calls them (each tree's
   own kernel: the stage kernel before the int8 form of ``conv_sm90.cu``);
 - the v1 decode's ``fused_sft.resblock_sft_chw`` calls (stage 6 with
-  ``input_sin``, stage 7), ``planar.rsft_planar`` at the planar form of
-  stage 7 (C 51, Hc 540, wc_real 960, Wd 1024) and the planar phase's
-  stage 7 + head (``conv_planar`` with sin, ``rsft_planar``,
-  ``conv_planar`` with outimg), in ms per call (each tree's own kernels).
+  ``input_sin``, stage 7), its ``conv_chw.conv3x3_act_chw`` (stage 7) and
+  ``conv_chw.head_conv_chw`` (the head) calls, ``planar.rsft_planar`` and
+  ``planar.conv_planar`` (sin at stage 7, outimg at the head) at the
+  planar form of stage 7 (C 51, Hc 540, wc_real 960, Wd 1024) and the
+  planar phase's stage 7 + head (``conv_planar`` with sin,
+  ``rsft_planar``, ``conv_planar`` with outimg), in ms per call (each
+  tree's own kernels).
 
 ``--no-decodes`` times the calls only (a quicker look at a kernel change).
 
@@ -103,7 +106,7 @@ def worker(tree: str, decodes: bool = True) -> dict:
     import torch
 
     from boosting_nerv_torch.models import build_model
-    from boosting_nerv_torch.ops.kernels import (_build, conv_sm90,
+    from boosting_nerv_torch.ops.kernels import (_build, conv_chw, conv_sm90,
                                                  fused_sft, planar, tile_conv)
     from boosting_nerv_torch.runtime.fast_decode import (
         build_fast_decode, build_fast_decode_v2, build_fast_decode_v3,
@@ -250,6 +253,18 @@ def worker(tree: str, decodes: bool = True) -> dict:
 
         calls["rsft_planar planar stage 7"] = lambda: rsft_planar(xp)
         calls["planar phase stage 7 + head"] = planar_phase
+        for label, cw, cb, act, fn in (
+                ("stage 7", st7.conv_w, st7.conv_b, "sin",
+                 conv_chw.conv3x3_act_chw),
+                ("head", v1.chw.head_w, v1.chw.head_b, "outimg",
+                 conv_chw.head_conv_chw)):
+            x = rnd(1, hf, wf, c)
+            calls[f"{fn.__name__} v1 {label}"] = (
+                lambda x=x, cw=cw, cb=cb, fn=fn: fn(x, cw, cb))
+            calls[f"conv_planar planar {label}"] = (
+                lambda w=hwio(cw), cb=cb, co=cw.shape[0], act=act:
+                planar.conv_planar(xp, w, cb, c_in=c, c_out=co,
+                                   wc_real=wf // 2, act=act))
         for name, fn in calls.items():
             items[name] = [cuda_ms(fn), float(fn().float().sum())]
     log = open(_build.library_path() + ".log").read()

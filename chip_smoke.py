@@ -35,13 +35,12 @@ Phases, one line of output each (or one line per shape):
    conv_tile_v3, k = 5 for conv_tile, also at 128 -> 80 channels, which
    the Hopper kernel takes only at its narrowest N slice; wc_real 50 for
    the planar ones, rsft_planar also with hc_real 7 of 9 rows and random
-   pads; the four tile wrappers, resblock_sft_chw and the bf16
+   pads; the four tile wrappers, the three v1 wrappers and the bf16
    fused_upconv_rsft and fused_conv_rsft on the Hopper kernel
    conv_sm90.cu, resblock_sft_chw's input_sin on its sin instances
-   conv_sm90_sin.cu, rsft_planar on its planar instances
+   conv_sm90_sin.cu, rsft_planar and conv_planar on its planar instances
    conv_sm90_planar.cu, the W8A8 fused_upconv_rsft_i8 and
-   fused_conv_rsft_i8 on its int8 form conv_sm90_i8.cu, conv_planar,
-   conv3x3_act_chw and head_conv_chw on the stage kernel): max
+   fused_conv_rsft_i8 on its int8 form conv_sm90_i8.cu): max
    abs error within 2e-2 * max(|plain|, 1), int8 codes compared after
    dequantising with 1/inv; prints the share of codes that differ; times
    both with CUDA events, F.conv2d for conv_tile and, beside
@@ -51,8 +50,9 @@ Phases, one line of output each (or one line per shape):
    wrappers; checks conv_sm90.cu's and conv_sm90_i8.cu's shared-memory
    plan of every conv shape they serve, and conv_sm90.cu's slice-group
    plan G at every launch grid, and those of the sin instances at the v1
-   ResBlockSFT's grid and of the planar instances at the planar phase's,
-   against the Python mirror and prints the
+   ResBlockSFT's grid and of the planar instances at the planar phase's
+   (rsft_planar's two modes, conv_planar's in-and-out mode), against the
+   Python mirror and prints the
    plans; times each conv_sm90.cu launch of the v3 decode on a grid of at
    most 270 rows and the v5 stage 2 upconv at every slice-group count
    and at one and two warpgroups beside the plan's ("schedule" lines);
@@ -62,11 +62,15 @@ Phases, one line of output each (or one line per shape):
    stages 2, 4 and 6, at fused_conv_rsft's stages 3, 5 and 7 + head, at
    every resblock_sft_tile_v3 and conv_tile_v3 call of the v3 decode and
    at every resblock_sft_tile call of the v2 decode, at resblock_sft_chw's
-   v1 stages 6 (input_sin) and 7 and at rsft_planar's planar stage 7 (with
-   its torch crop and planar write around the stage chain, as it was
-   served before), and that planar call's two designs on conv_sm90 (the
-   NHWC chain with the torch crop and write, against the planar
-   instances), and the W8A8 stage
+   v1 stages 6 (input_sin) and 7, at conv3x3_act_chw's v1 stage 7 and
+   head_conv_chw's v1 head, at rsft_planar's planar stage 7 and
+   conv_planar's two planar-phase calls (stage 7 with sin, the head with
+   outimg; each with its torch crop and planar write around the stage
+   kernel, as it was served before), and rsft_planar's two designs on
+   conv_sm90 (the NHWC chain with the torch crop and write, against the
+   planar instances), with one "split" line each for rsft_planar and for
+   conv_planar's stage-7 call (its fill and launch against the NHWC
+   conv_sm90.cu launch of the same conv), and the W8A8 stage
    kernel's chain (stage_conv_i8.cu) beside conv_sm90_i8.cu at the W8A8
    stages 5, 6 and 7 + head (the same-call A/B);
 5. the bf16 slice: serves 8 frame indices through ``build_serving_decode``;
@@ -148,7 +152,6 @@ PLANAR_WD = 1024    # the planar width of the 1080p stages (960 real)
 PLANAR = "boosting_nerv_tpu/ops/pallas/planar.py"
 TILE = "boosting_nerv_tpu/ops/pallas/tile_conv.py"
 CHW = "boosting_nerv_tpu/ops/pallas/conv_chw.py"
-STAGE_CU = "boosting_nerv_torch/ops/csrc/stage_conv.cu"
 SM90_CU = "boosting_nerv_torch/ops/csrc/conv_sm90.cu"
 SM90_I8_CU = "boosting_nerv_torch/ops/csrc/conv_sm90_i8.cu"
 SM90_SIN_CU = "boosting_nerv_torch/ops/csrc/conv_sm90_sin.cu"
@@ -164,11 +167,11 @@ KERNELS = {  # wrapper: (source, replaces)
     "conv_tile_v3": (SM90_CU, f"{TILE}:473"),
     "resblock_sft_tile": (SM90_CU, f"{TILE}:951"),
     "resblock_sft_tile_v3": (SM90_CU, f"{TILE}:788"),
-    "conv3x3_act_chw": (STAGE_CU, f"{CHW}:88"),
-    "head_conv_chw": (STAGE_CU, f"{CHW}:95"),
+    "conv3x3_act_chw": (SM90_CU, f"{CHW}:88"),
+    "head_conv_chw": (SM90_CU, f"{CHW}:95"),
     "resblock_sft_chw": (SM90_SIN_CU,
                          "boosting_nerv_tpu/ops/pallas/fused_sft.py:138"),
-    "conv_planar": (STAGE_CU, f"{PLANAR}:398"),
+    "conv_planar": (SM90_PLANAR_CU, f"{PLANAR}:398"),
     "rsft_planar": (SM90_PLANAR_CU, f"{PLANAR}:484"),
 }
 LIBRARY = {"conv_tile"}  # one PyTorch call computes it: F.conv2d
@@ -612,16 +615,20 @@ def run_ab(decode, decode_i8, v2, v3, v1, gen, device_line):
     at every resblock_sft_tile_v3 and conv_tile_v3 call of the v3 decode
     (stages 0-7 and 1-7 + head, 45x80 to 1080x1920), at every
     resblock_sft_tile call of the v2 decode (stages 0-7), at
-    resblock_sft_chw's v1 stages 6 (input_sin: stage_conv_sin.cu) and 7
-    and at rsft_planar's planar stage 7 (the stage chain between the torch
-    crop and planar write that served it); rsft_planar's two designs on
-    conv_sm90: (a) conv_sm90.cu's NHWC chain between the same crop and
-    write, (b) the planar instances (conv_sm90_planar.cu); and of the W8A8
+    resblock_sft_chw's v1 stages 6 (input_sin: stage_conv_sin.cu) and 7,
+    at conv3x3_act_chw's v1 stage 7 and head_conv_chw's v1 head, at
+    rsft_planar's planar stage 7 and at conv_planar's planar stage 7 (sin)
+    and head (outimg) (the stage kernel between the torch crop and planar
+    write that served them); rsft_planar's two designs on conv_sm90: (a)
+    conv_sm90.cu's NHWC chain between the same crop and write, (b) the
+    planar instances (conv_sm90_planar.cu); and of the W8A8
     wrappers moved onto conv_sm90_i8.cu: the
     W8A8 stage kernel's chain (stage_conv_i8.cu) against the wrapper at
-    the W8A8 stages 5, 6 and 7 + head.  Measurement only: no decode path
-    chooses by it, and the old chains count no launch."""
-    from boosting_nerv_torch.ops.kernels import (_build, conv_sm90,
+    the W8A8 stages 5, 6 and 7 + head.  Then the parts of rsft_planar's
+    and of conv_planar's stage-7 call, each alone ("split" lines).
+    Measurement only: no decode path chooses by it, and the old chains
+    count no launch."""
+    from boosting_nerv_torch.ops.kernels import (_build, conv_chw, conv_sm90,
                                                  fused_sft, planar, probes,
                                                  tile_conv)
 
@@ -715,6 +722,19 @@ def run_ab(decode, decode_i8, v2, v3, v1, gen, device_line):
                       "conv_sm90_sin.cu" if s_in else "conv_sm90.cu"))
     st7 = v1.chw.stages[-1]
     c, (hf, wf) = st7.rsft[0].shape[0], st7.out_hw
+    convs = [("v1 stage 7", st7.conv_w, st7.conv_b, "sin",
+              conv_chw.conv3x3_act_chw),
+             ("v1 head", v1.chw.head_w, v1.chw.head_b, "outimg",
+              conv_chw.head_conv_chw)]
+    for label, cw, cb, act, fn in convs:
+        xs = rnd(gen, 1, hf, wf, cw.shape[3])
+        y = torch.empty((1, hf, wf, cw.shape[0]), dtype=xs.dtype,
+                        device="cuda")
+        cases.append((f"{fn.__name__} {label}", tuple(xs.shape),
+                      lambda xs=xs, cw=cw, cb=cb, y=y, act=act:
+                      planar.launch_conv(lib, xs, cw, cb, y, act=act),
+                      lambda xs=xs, cw=cw, cb=cb, fn=fn: fn(xs, cw, cb),
+                      "stage_conv.cu", "conv_sm90.cu"))
     xp, sft7 = planar_in(gen, c, hf // 2, wf // 2, PLANAR_WD), st7.sft(t1)
     w0, b0, w1, b1 = st7.rsft
     kw = {"c": c, "hc_real": hf // 2, "wc_real": wf // 2}
@@ -740,6 +760,30 @@ def run_ab(decode, decode_i8, v2, v3, v1, gen, device_line):
                       conv, y, st7.rsft, sft7)), planar_b,
                   "conv_sm90.cu (a: torch crop and write)",
                   "conv_sm90_planar.cu (b)"))
+
+    def conv_planar_old(cw, cb, act):
+        """conv_planar as the stage kernel served it: the torch crop, one
+        launch, a planar output filled with act(0) and the planar
+        write."""
+        x = planar._fine(xp, c, hf // 2, wf // 2)
+        y = torch.empty(x.shape[:3] + (cw.shape[0],), dtype=x.dtype,
+                        device="cuda")
+        planar.launch_conv(lib, x, cw, cb, y, act=act)
+        out = torch.full((4 * planar._round16(cw.shape[0]), hf // 2,
+                          xp.shape[2]), conv_sm90.act_zero(act),
+                         dtype=y.dtype, device="cuda")
+        return planar._put_planar(out, y)
+
+    for label, cw, cb, act, _ in convs:
+        kwp = {"c_in": c, "c_out": cw.shape[0], "wc_real": wf // 2,
+               "act": act}
+        cases.append((f"conv_planar planar {label[3:]}", tuple(xp.shape),
+                      lambda cw=cw, cb=cb, act=act:
+                      conv_planar_old(cw, cb, act),
+                      lambda w=hwio(cw), cb=cb, kwp=kwp:
+                      planar.conv_planar(xp, w, cb, **kwp),
+                      "stage_conv.cu (torch crop and write)",
+                      "conv_sm90_planar.cu"))
     t8 = decode_i8.time_embed(torch.tensor([0.5], device="cuda"))
     zc = set(decode_i8.w8a8_zc)
     for st in decode_i8.tail:
@@ -788,6 +832,26 @@ def run_ab(decode, decode_i8, v2, v3, v1, gen, device_line):
                                               residual=fine),
         "(a) planar write": lambda: planar._put_planar(out, y)}
     print("split rsft_planar planar stage 7: " + ", ".join(
+        f"{k} {cuda_ms(f):.4f} ms" for k, f in parts.items())
+        + f" [{device_line}]", flush=True)
+    # conv_planar's stage-7 call, its parts alone: the fill of the planar
+    # output with act(0) and the planar in-and-out launch, against the
+    # NHWC launch of the same conv and the stage kernel's route's parts
+    w7, b7 = st7.conv_w, st7.conv_b
+    out7 = torch.empty((4 * planar._round16(c), hf // 2, PLANAR_WD),
+                       dtype=torch.bfloat16, device="cuda")
+    parts = {
+        "fill": lambda: torch.full(out7.shape, 0.0, dtype=out7.dtype,
+                                   device="cuda"),
+        "launch planar io": lambda: conv_sm90.launch(
+            lib, xp, w7, b7, out7, act="sin", planar="io", image=(hf, wf)),
+        "NHWC conv_sm90.cu launch (conv_tile_v3's)": lambda: (
+            conv_sm90.launch(lib, fine, w7, b7, y, act="sin")),
+        "old: crop": lambda: planar._fine(xp, c, hf // 2, wf // 2),
+        "old: stage_conv.cu launch": lambda: planar.launch_conv(
+            lib, fine, w7, b7, y, act="sin"),
+        "old: planar write": lambda: planar._put_planar(out7, y)}
+    print("split conv_planar planar stage 7: " + ", ".join(
         f"{k} {cuda_ms(f):.4f} ms" for k, f in parts.items())
         + f" [{device_line}]", flush=True)
 
@@ -844,13 +908,17 @@ def check_plans(decode, decode_i8, v2, v3, v1, device_line):
     st7 = v1.chw.stages[-1]  # the planar phase's rsft_planar
     for mode in (conv_sm90.PLANAR_IN, conv_sm90.PLANAR_OUT):
         add(st7.rsft[0], (1, *st7.out_hw), mode=mode)
+    for w in (st7.conv_w, v1.chw.head_w):  # conv3x3_act_chw, head_conv_chw
+        add(w, (1, *st7.out_hw))           # and the planar phase's
+        add(w, (1, *st7.out_hw), mode=conv_sm90.PLANAR_IO)  # conv_planar
     lib = _build.load_library()
     names = {bf: "conv_sm90", s8: "conv_sm90_i8 codes in",
              s8q: "conv_sm90_i8 bf16 in"}
     modes = {conv_sm90.NONE: "", conv_sm90.SIN_INPUT: " sin input",
              conv_sm90.SIN_RESIDUAL: " sin residual",
              conv_sm90.PLANAR_IN: " planar in",
-             conv_sm90.PLANAR_OUT: " planar out"}
+             conv_sm90.PLANAR_OUT: " planar out",
+             conv_sm90.PLANAR_IO: " planar io"}
     for (cin, cout, k, form, mode), shapes in sorted(grids.items()):
         ns, smem = conv_sm90.plan(lib, cin, cout, k, form, mode)
         mirror = conv_sm90.fit(cin, cout, k, ns, form, mode)

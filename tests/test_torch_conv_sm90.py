@@ -9,14 +9,18 @@ fused_conv_rsft without and with the head and with ``out_inv`` (planar in
 and out), ``tile_conv.py:788`` resblock_sft_tile_v3 (mode "dy3"),
 ``tile_conv.py:473`` conv_tile_v3 (k = 3 with act sin and outimg, k = 1
 with gelu), ``tile_conv.py:951`` resblock_sft_tile, ``fused_sft.py:138``
-resblock_sft_chw with ``input_sin`` (the sin modes) and ``planar.py:484``
-rsft_planar at a ragged real region (the planar modes); the slice-group
-plan of small grids (``groups``, ``work_items``) and the modes'
-shared-memory and slice-group plans.
+resblock_sft_chw with ``input_sin`` (the sin modes), ``planar.py:484``
+rsft_planar at a ragged real region (the planar modes), ``planar.py:398``
+conv_planar with act sin and outimg (the planar in-and-out mode) and
+``conv_chw.py:88`` conv3x3_act_chw and ``:95`` head_conv_chw; the
+slice-group plan of small grids (``groups``, ``work_items``) and the
+modes' shared-memory and slice-group plans.
 The CUDA kernel runs only on the card: chip_smoke.py holds it against the
 wrappers' plain versions there.
 
-Tolerance: 2e-2 * max(|Pallas|, 1), both sides storing bf16; int8 codes
+Tolerance: 2e-2 * max(|Pallas|, 1), both sides storing bf16 (a planar
+conv's pads, which the emulation fills with act(0), compared exactly, 0.5
+for outimg); int8 codes
 are compared after dequantising with 1 / out_inv (the Pallas stage keeps y
 in float32 where the port's chain stores it in bf16, so single codes may
 differ by one step), as tests/test_torch_w8a8.py compares them."""
@@ -28,6 +32,7 @@ import torch
 
 from boosting_nerv_torch.ops.kernels import conv_sm90, planar, quant
 from boosting_nerv_torch.ops.pixelshuffle import jax_to_torch_shuffle_perm
+from boosting_nerv_tpu.ops.pallas import conv_chw as ck
 from boosting_nerv_tpu.ops.pallas import fused_sft as fk
 from boosting_nerv_tpu.ops.pallas import planar as pk
 from boosting_nerv_tpu.ops.pallas import tile_conv as tk
@@ -265,13 +270,73 @@ def _rsft_planar_case(r, hc, hc_real, wc_real):
     return fine(got.float().numpy()), fine(want), None
 
 
+def _conv_planar_case(r, co_act, hc, wc_real):
+    """``conv_planar`` on ``emulated_conv`` (PLANAR_IO: the planar box
+    staged, act(conv + b) stored into the planar output) against the Pallas
+    planar conv, on the real region (hc rows, wc_real columns) of a planar
+    (4 Cp, hc + 1, WD) input whose pad row, columns and channels hold
+    random values; the output's pad channels, row and columns hold act(0)
+    exactly."""
+    c, (co, act) = 6, co_act
+    xp = np.asarray(pk.to_planar(jnp.asarray(
+        _rand(r, c, 2 * hc, 2 * wc_real))))
+    xp = np.pad(xp, ((0, 0), (0, 1), (0, WD - wc_real)))
+    real = np.zeros(xp.shape, bool)
+    real.reshape(4, -1, hc + 1, WD)[:, :c, :hc, :wc_real] = True
+    xp = np.where(real, xp, _rand(r, *xp.shape))
+    kern, bias = _rand(r, 3, 3, c, co, s=0.2), _rand(r, co, s=0.1)
+    want = pk.conv_planar(jnp.asarray(xp[:, :hc], jnp.bfloat16),
+                          jnp.asarray(kern), jnp.asarray(bias), c_in=c,
+                          c_out=co, wc_real=wc_real, act=act, th=4,
+                          interpret=True)
+    bf, cpo = torch.bfloat16, planar._round16(co)
+    got = conv_sm90.conv_planar(
+        conv_sm90.emulated_conv, torch.from_numpy(xp).to(bf),
+        _ohwi(kern).to(bf), torch.from_numpy(bias).to(bf), act, hc, wc_real,
+        cpo)
+    assert got.shape == (4 * cpo, hc + 1, WD)
+    image = torch.zeros(got.shape, dtype=torch.bool)
+    image.view(4, cpo, hc + 1, WD)[:, :co, :hc, :wc_real] = True
+    assert torch.all(got[~image] == {"sin": 0.0, "outimg": 0.5}[act])
+
+    def fine(out):  # the real region, NHWC [1, 2 hc, 2 wc_real, Co]
+        out = np.asarray(jnp.asarray(out, jnp.float32))[:, :hc]
+        return np.asarray(pk.from_planar(jnp.asarray(out), co))[
+            :, :, :2 * wc_real].transpose(1, 2, 0)[None]
+
+    return fine(got.float().numpy()), fine(want), None
+
+
+def _conv_chw_case(r, name, h, w):
+    """One ``conv_sm90.launch`` at k = 3, emulated (the body of the v1
+    wrappers: act sin at C 6 -> 7, act outimg at 6 -> 3 on the N 8 slice),
+    against the Pallas conv_chw entry point of that name (``_run``)."""
+    c, co, act = {"conv3x3_act_chw": (6, 7, "sin"),
+                  "head_conv_chw": (6, 3, "outimg")}[name]
+    x, kern, bias = (_rand(r, 1, h, w, c), _rand(r, 3, 3, c, co, s=0.2),
+                     _rand(r, co, s=0.1))
+    w9 = jnp.asarray(kern.transpose(0, 1, 3, 2).reshape(9, co, c),
+                     jnp.bfloat16)
+    want = getattr(ck, name)(jnp.asarray(x[0].transpose(2, 0, 1),
+                                         jnp.bfloat16), w9,
+                             jnp.asarray(bias), interpret=True)
+    want = np.asarray(want.astype(jnp.float32)).transpose(1, 2, 0)[None]
+    wt = _ohwi(kern).to(torch.bfloat16)
+    got = conv_sm90.emulate(
+        torch.from_numpy(x).to(torch.bfloat16),
+        conv_sm90.pack_weight(wt, conv_sm90.slice_width(co)),
+        torch.from_numpy(bias).to(torch.bfloat16), cout=co, k=3, act=act)
+    return got.float().numpy(), want, None
+
+
 CASES = {"conv_tile": _conv_tile_case, "conv_tile_v3": _conv_tile_v3_case,
          "fused_upconv_rsft": _upconv_case,
          "fused_conv_rsft": _conv_rsft_case,
          "resblock_sft_tile_v3": _rsft_case,
          "resblock_sft_tile": lambda r, _, h, w: _rsft_case(r, True, h, w),
          "resblock_sft_chw": _rsft_chw_case,
-         "rsft_planar": _rsft_planar_case}
+         "rsft_planar": _rsft_planar_case,
+         "conv_planar": _conv_planar_case, "conv_chw": _conv_chw_case}
 
 
 def _conv_ref(x, k, b):
@@ -299,12 +364,17 @@ def _gelu(v):
     ("conv_tile_v3", (1, "gelu"), 9, 70),
     ("resblock_sft_tile", None, 9, 50),
     ("resblock_sft_chw", None, 9, 50),
-    ("rsft_planar", 6, 5, 50)],
+    ("rsft_planar", 6, 5, 50),
+    ("conv_planar", (7, "sin"), 5, 50),
+    ("conv_planar", (3, "outimg"), 5, 50),
+    ("conv_chw", "conv3x3_act_chw", 9, 50),
+    ("conv_chw", "head_conv_chw", 9, 50)],
     ids=["conv_tile_k1", "conv_tile_k3", "conv_tile_k5", "upconv",
          "upconv_out_inv", "conv_rsft", "conv_rsft_head",
          "conv_rsft_out_inv", "rsft_v3", "conv_tile_v3_k3_sin",
          "conv_tile_v3_k3_outimg", "conv_tile_v3_k1_gelu", "rsft_v2",
-         "rsft_chw_input_sin", "rsft_planar_ragged"])
+         "rsft_chw_input_sin", "rsft_planar_ragged", "conv_planar_sin",
+         "conv_planar_outimg_head", "conv3x3_act_chw", "head_conv_chw"])
 def test_emulation_matches_pallas(case):
     name, arg, h, w = case
     r = np.random.default_rng(sum(map(ord, str(case))))
@@ -488,7 +558,7 @@ def test_operand_tile_layout_is_bank_conflict_free():
 
 
 @pytest.mark.parametrize("mode", ["sin_input", "sin_residual", "planar_in",
-                                  "planar_out"])
+                                  "planar_out", "planar_io"])
 def test_mode_plans(mode, monkeypatch):
     """The modes' plans (the mirrors ``fit`` and ``groups`` of their
     instances, which chip_smoke.py holds to the library): one slice group
@@ -496,9 +566,11 @@ def test_mode_plans(mode, monkeypatch):
     sin modes' shared memory is the NONE launch's; the planar modes take
     3 x 3 only; PLANAR_IN's raw buffer holds its box (two warpgroups, the
     weights resident at the planar phase's C 51), PLANAR_OUT's transposed
-    staging needs more only at N 80; ``rsft_planar``'s fit check
-    (``sm90_smem`` in its mode, here on a library whose fit is the mirror)
-    takes C 51 and refuses C 200."""
+    staging needs more only at N 80, PLANAR_IO takes both (PLANAR_IN's
+    plan below N 80) and fits the planar phase's C 51 -> 51 at N 56 and
+    51 -> 3 at N 8 with two warpgroups; the planar wrappers' fit check
+    (``sm90_smem`` in their mode, here on a library whose fit is the
+    mirror) takes C 51 and refuses C 200."""
     m = getattr(conv_sm90, mode.upper())
     assert conv_sm90.groups(46, 10, 132, 1) > 1
     assert conv_sm90.groups(46, 10, 132, 1, mode=m) == 1
@@ -512,21 +584,27 @@ def test_mode_plans(mode, monkeypatch):
                 assert got == none
                 continue
             assert conv_sm90.fit(c, c, 5, ns, mode=m) is None
-            if got is None:  # only PLANAR_IN's larger raw buffer misses
-                assert m == conv_sm90.PLANAR_IN and none is not None
+            if got is None:  # only a planar box's larger raw buffer misses
+                assert m != conv_sm90.PLANAR_OUT and none is not None
                 continue
             assert got[-1] <= conv_sm90.MAX_SMEM
             if m == conv_sm90.PLANAR_OUT:
                 extra = 0 if ns < 80 else got[0] * (80 * 68 - 64 * 84) * 4
                 assert got[:3] == none[:3] and got[-1] == none[-1] + extra
             else:
+                if m == conv_sm90.PLANAR_IO and ns < 80:
+                    assert got == conv_sm90.fit(c, c, 3, ns,
+                                                mode=conv_sm90.PLANAR_IN)
                 nwg = got[0]
                 box = conv_sm90.PBX * conv_sm90.planar_rows(nwg) * c * 8
                 assert (2 * nwg + 2) * conv_sm90.planar_raw_pitch(
                     c, nwg) >= box
     assert conv_sm90.fit(51, 51, 3, 56, mode=m)[:3] == (2, 9, True)
     assert conv_sm90.fit(51, 51, 3, 64, form=conv_sm90.S8, mode=m) is None
-    if m in (conv_sm90.PLANAR_IN, conv_sm90.PLANAR_OUT):
+    if m == conv_sm90.PLANAR_IO:
+        assert conv_sm90.fit(51, 51, 3, 56, mode=m)[-1] == 225056
+        assert conv_sm90.fit(51, 3, 3, 8, mode=m)[:3] == (2, 9, True)
+    if m in conv_sm90.PLANAR_MODES:
         class Lib:  # the library's planar fit, as the mirror computes it
             @staticmethod
             def bnt_conv_sm90_planar_smem(cin, cout, ns, mode):
