@@ -1,10 +1,12 @@
-"""Load JAX-package parameters into the port.
+"""Parameters between the JAX package's flax layout and the port's.
 
 The JAX trainer saves checkpoints as a pickle of numpy trees,
 ``{"epoch", "params", "opt_state"?, "extra"?}``
 (boosting_nerv_tpu/training/checkpoint.py), so reading one needs no jax.
 ``torch_state_from_flax`` maps the flax ``params`` tree of HNeRV-Boost onto
-the state dict of ``models.hnerv.HNeRVBoost``:
+the state dict of ``models.hnerv.HNeRVBoost``, and
+``flax_params_from_torch_state`` is its exact inverse (the port's
+checkpoints hold flax-layout params, so the JAX trainer reads them):
 
 - conv kernels HWIO -> OIHW (no flip: both frameworks cross-correlate);
   the depthwise (7, 7, 1, C) kernel becomes (C, 1, 7, 7) by the same rule;
@@ -101,12 +103,90 @@ def torch_state_from_flax(params: Mapping, cfg: BoostConfig
         name = f"{_torch_name(path[:-1])}.{_LEAF[path[-1]]}"
         if path[-1] == "kernel":
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-        m = re.fullmatch(r"blocks\.(\d+)\.conv\.conv\.(weight|bias)", name)
-        if m and strds[int(m.group(1))] > 1:
-            r = strds[int(m.group(1))]
+        r = _upconv_stride(name, strds)
+        if r > 1:
             arr = arr[jax_to_torch_shuffle_perm(arr.shape[0] // (r * r), r)]
         state[name] = torch.from_numpy(np.array(arr))  # writable copy
     return state
+
+
+def _upconv_stride(name: str, strds) -> int:
+    """The PixelShuffle factor of an upsampling conv's weight or bias
+    ``name``, 1 for any other entry."""
+    m = re.fullmatch(r"blocks\.(\d+)\.conv\.conv\.(weight|bias)", name)
+    return strds[int(m.group(1))] if m else 1
+
+
+_FLAX_LEAF = {"weight": "kernel", "bias": "bias", "gamma": "gamma"}
+_CONVNEXT_FLAX = {v: k for k, v in _CONVNEXT.items()}
+_SFT_FLAX = {v: k for k, v in _SFT_DENSE.items()}
+
+
+def _flax_path(name: str) -> Tuple[str, ...]:
+    """torch state-dict key -> flax path (with the leaf); the inverse of
+    ``_torch_name`` plus ``_LEAF``."""
+    parts = name.split(".")
+    mod, leaf = parts[:-1], parts[-1]
+    top = mod[0]
+    if top == "encoder":
+        kind, i, rest = mod[1], mod[2], mod[3:]
+        if kind == "blocks":
+            path = ["encoder", f"ConvNeXtBlock_{i}"] + [
+                _CONVNEXT_FLAX[r] for r in rest]
+        else:
+            path = ["encoder", {"convs": "Conv", "norms": "LayerNorm"}[kind]
+                    + f"_{i}"]
+        norm = (path[-1].startswith("LayerNorm_"))
+    elif top == "stem_t":
+        path, norm = ["stem_t", f"TDense_{mod[2]}", "Dense_0"], False
+    elif top == "head":
+        path, norm = ["head", "Conv_0"], False
+    else:
+        path = ["stem"] if top == "stem" else [f"blocks_{mod[1]}"]
+        rest = mod[1:] if top == "stem" else mod[2:]
+        if rest[0] == "conv":  # UpConv_0 / DownConv_0 -> TConv_0 -> Conv_0
+            path += ["DownConv_0" if top == "stem" else "UpConv_0",
+                     "TConv_0", "Conv_0"]
+        else:  # rsft
+            path.append("ResBlockSFT_0")
+            sub = rest[1]
+            if sub.startswith("sft"):
+                path += [f"SFTLayer_{sub[3:]}", _SFT_FLAX[rest[2]],
+                         "Dense_0"]
+            else:
+                path += [f"TConv_{sub[4:]}", "Conv_0"]
+        norm = False
+    return tuple(path) + ("scale" if norm and leaf == "weight"
+                          else _FLAX_LEAF[leaf],)
+
+
+def flax_params_from_torch_state(state: Mapping[str, torch.Tensor],
+                                 cfg: BoostConfig) -> Dict[str, Any]:
+    """HNeRVBoost state dict -> the flax params tree
+    ``{"params": {...}}`` in float32 numpy: OIHW -> HWIO, Linear -> Dense,
+    the torch PixelShuffle channel order of every upsampling conv back to
+    JAX's, and the SFT Dense names.  ``torch_state_from_flax`` of the
+    result gives ``state`` back."""
+    if cfg.model != "HNeRV_Boost":
+        raise NotImplementedError(f"the bridge covers HNeRV_Boost only, not "
+                                  f"{cfg.model}")
+    strds = [s.strd for s in decoder_stage_plan(cfg, cfg.fc_dim,
+                                                hnerv_style=True)]
+    tree: Dict[str, Any] = {}
+    for name, t in state.items():
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        r = _upconv_stride(name, strds)
+        if r > 1:
+            perm = jax_to_torch_shuffle_perm(arr.shape[0] // (r * r), r)
+            arr = arr[np.argsort(perm)]
+        path = _flax_path(name)
+        if path[-1] == "kernel":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return {"params": tree}
 
 
 def load_flax_checkpoint(path: str) -> Dict[str, Any]:

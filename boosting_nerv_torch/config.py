@@ -1,14 +1,19 @@
-"""Model configuration of the port (counterpart of boosting_nerv_tpu/config.py).
+"""Configuration of the port (counterpart of boosting_nerv_tpu/config.py).
 
-``BoostConfig`` carries the architecture and sizing knobs of the reference
-CLI, with the same names, string encodings (``--embed pe_1.25_80``,
-``--ks 0_1_5``, ``--fc_hw 9_16``, ``--enc_dim 64_16``) and defaults as the
-JAX package's config; its training, compression and TPU knobs follow with
-the slices that use them.  ``decoder_stage_plan`` and ``resolve_sizes`` are
-the same arithmetic as there (the reference's channel schedule and
-model-sizing solver), so that one set of flags gives both packages the
-same model; ``tests/test_torch_config.py`` holds them to it.  The port
-keeps its own copy because it must run where the JAX package is absent.
+``BoostConfig`` carries the knobs of the reference CLI with the same names,
+string encodings (``--embed pe_1.25_80``, ``--ks 0_1_5``, ``--fc_hw 9_16``,
+``--enc_dim 64_16``, ``--data_split 1_1_1``, ``--crop_list 720_1280``) and
+defaults as the JAX package's config: the dataset, architecture, training,
+post-training quantisation, evaluation and misc fields, and of the JAX
+package's compute knobs those that mean something on one GPU
+(``train_precision``, ``micro_batch``, ``remat``) or that the port's
+trainer refuses until their slice lands (``dp``, ``sp``, ``profile``,
+``planar_train``).  The CEM quantiser fields come with the compression
+slice.  ``decoder_stage_plan`` and ``resolve_sizes`` are the same
+arithmetic as there (the reference's channel schedule and model-sizing
+solver), so that one set of flags gives both packages the same model;
+``tests/test_torch_config.py`` holds them to it.  The port keeps its own
+copy because it must run where the JAX package is absent.
 """
 
 from __future__ import annotations
@@ -23,15 +28,24 @@ import numpy as np
 
 @dataclass
 class BoostConfig:
+    # dataset
+    data_path: str = ""
+    vid: str = "video"
+    shuffle_data: bool = False
+    data_split: str = "1_1_1"
+    crop_list: str = "640_1280"
+    resize_list: str = "-1"
+
+    # architecture
     model: str = "HNeRV_Boost"  # NeRV_Boost | ENeRV_Boost | HNeRV_Boost | HNeRV
     embed: str = "pe_1.25_80"
-    lfreq: str = "pi"
     ks: str = "0_1_5"
     enc_blks: int = 1
     enc_strds: List[int] = field(default_factory=list)
     enc_dim: str = "64_16"
     modelsize: float = 1.5
     saturate_stages: int = -1
+    lfreq: str = "pi"
     fc_dim: Optional[int] = None
     fc_hw: str = "9_16"
     reduce: float = 1.2
@@ -43,8 +57,58 @@ class BoostConfig:
     act: str = "gelu"
     sft_block: str = "none"  # "res_sft" enables the TAT conditional decoder
     ch_t: int = 32
+    block_dim: int = 128
     out_bias: str = "tanh"
+
+    # training
+    workers: int = 2
+    batchSize: int = 1
+    start_epoch: int = -1
+    not_resume: bool = False
+    epochs: int = 5
+    lr: float = 0.001
+    lr_type: str = "cosine_0.1_1_0.1"
+    loss: str = "Fusion6"
+    optim_type: str = "Adan"
+    clip_max_norm: Optional[float] = None  # None: unset, clipping off
+    inpanting: str = "none"
     interpolation: bool = False  # halves the embedding budget when sizing
+    embed_inter: bool = False
+
+    # post-training quantisation of the regression eval
+    quant: bool = False  # parsed, unused by the regression trainer (as JAX)
+    quant_model_bit: int = 8
+    quant_embed_bit: int = 6
+    quant_axis: int = 0  # parsed, unused (as in the JAX package)
+
+    # evaluation
+    eval_only: bool = False
+    eval_freq: int = 10
+    dump_images: bool = False
+    dump_videos: bool = False
+    eval_fps: bool = False
+
+    # misc
+    manualSeed: int = 1
+    debug: bool = False
+    print_freq: int = 50
+    weight: str = "None"
+    overwrite: bool = False
+    outf: str = "unify"
+    suffix: str = ""
+
+    # compute
+    dp: int = 1
+    sp: int = 1
+    profile: bool = False
+    # "highest": float32 convolutions and matmuls with TF32 off (the
+    # reference trains fp32); "high" / "default": TF32 on
+    train_precision: str = "highest"
+    # gradient accumulation over equal micro-batches of this many frames
+    # (mean gradients); 0 = off
+    micro_batch: int = 0
+    remat: bool = False  # recompute the forward in the backward pass
+    planar_train: int = 0
 
     @property
     def fc_h(self) -> int:
@@ -53,6 +117,14 @@ class BoostConfig:
     @property
     def fc_w(self) -> int:
         return int(self.fc_hw.split("_")[1])
+
+    @property
+    def crop_h(self) -> int:
+        return int(self.crop_list.split("_")[0])
+
+    @property
+    def crop_w(self) -> int:
+        return int(self.crop_list.split("_")[1])
 
     @property
     def ks_triple(self) -> Tuple[int, int, int]:
@@ -67,6 +139,10 @@ class BoostConfig:
     def enc_dim2(self) -> int:
         """Embedding channel count (only valid after `resolve_sizes`)."""
         return int(float(self.enc_dim.split("_")[1]))
+
+    @property
+    def is_hnerv_family(self) -> bool:
+        return "HNeRV" in self.model
 
     def replace(self, **kw) -> "BoostConfig":
         return dataclasses.replace(self, **kw)
@@ -116,7 +192,10 @@ def resolve_sizes(cfg: BoostConfig, final_size: int, full_data_length: int
     ``enc_dim``) from the parameter budget ``modelsize`` (M) and the video
     (``final_size`` pixels a frame, ``full_data_length`` frames), then
     ``fc_dim`` as the root of a*fc_dim^2 + b*fc_dim + (c - decoder_size)
-    unless it is set."""
+    unless it is set.  The result also carries ``embed_param`` (the
+    embedding's parameter count, for the bits-per-pixel accounting),
+    ``embed_dim``, ``fc_param``, ``final_size`` and ``full_data_length``
+    as attributes, as the JAX package's does."""
     if ("pe" in cfg.embed or "le" in cfg.embed) and "HNeRV_Boost" not in cfg.model:
         embed_param = 0.0
         embed_dim = int(cfg.embed.split("_")[-1]) * 2
@@ -149,4 +228,10 @@ def resolve_sizes(cfg: BoostConfig, final_size: int, full_data_length: int
     fc_dim = cfg.fc_dim
     if fc_dim is None:
         fc_dim = int(np.roots([a, b, c - decoder_size]).max())
-    return cfg.replace(fc_dim=fc_dim, enc_dim=new_enc_dim)
+    out = cfg.replace(fc_dim=fc_dim, enc_dim=new_enc_dim)
+    out.embed_param = embed_param
+    out.embed_dim = embed_dim
+    out.fc_param = fc_param
+    out.final_size = final_size
+    out.full_data_length = full_data_length
+    return out

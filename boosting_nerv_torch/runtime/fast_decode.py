@@ -299,7 +299,9 @@ def _as_model(cfg: BoostConfig, params_or_model) -> HNeRVBoost:
     return model.to(next(iter(params_or_model.values())).device)
 
 
-def _check_config(cfg: BoostConfig) -> None:
+def check_config(cfg: BoostConfig) -> None:
+    """Raise unless the serving decodes serve ``cfg``: HNeRV-Boost in the
+    paper's decoder config."""
     if cfg.model != "HNeRV_Boost":
         raise NotImplementedError(f"serving decode of {cfg.model} is not "
                                   "ported yet (ROADMAP queue 1: other model "
@@ -354,7 +356,7 @@ def build_planar_bounds_fn(cfg: BoostConfig, params_or_model,
     stage input), "{bi}.t0" = SFT0(y), "{bi}.t1" = SFT1(gelu(conv0)) and,
     on a last stage of stride 1 (the fused head), "{bi}.h" (the head
     input)."""
-    _check_config(cfg)
+    check_config(cfg)
     model = _as_model(cfg, params_or_model)
     plan, _, switch_at, fine_at = _tail(cfg, planar_from_h, fine_from_h)
     time_embed, prefix = _prefix(model, switch_at)
@@ -483,7 +485,7 @@ def build_fast_decode(cfg: BoostConfig,
     ``decode.prefix(embed, t_embed)`` the NCHW input of that stage,
     ``decode.chw`` the tail (None without one); ``plain`` and
     ``decode.launches_per_frame`` as in v5."""
-    _check_config(cfg)
+    check_config(cfg)
     model = _as_model(cfg, params_or_model)
     plan, out_hw = _plan(cfg)
     switch_at = v1_switch(cfg, pallas_from_h)
@@ -529,7 +531,7 @@ def build_fast_decode_v5(cfg: BoostConfig,
     tail (None without one); ``decode.w8a8_stages`` / ``decode.w8a8_zc``
     list the stages served in W8A8 and those that receive int8 codes;
     ``decode.launches_per_frame`` the wrapper calls one frame makes."""
-    _check_config(cfg)
+    check_config(cfg)
     model = _as_model(cfg, params_or_model)
     plan, out_hw, switch_at, fine_at = _tail(cfg, planar_from_h,
                                              fine_from_h)
@@ -598,7 +600,7 @@ def build_fast_decode_v5(cfg: BoostConfig,
 
 def _build_fine_decode(cfg: BoostConfig, params_or_model, tile_from_h: int,
                        v3: bool, plain: bool) -> Callable:
-    _check_config(cfg)
+    check_config(cfg)
     model = _as_model(cfg, params_or_model)
     plan, out_hw = _plan(cfg)
     switch = next((bi for bi in range(len(plan))
@@ -660,7 +662,7 @@ def build_serving_decode(cfg: BoostConfig,
     ``build_fast_decode_v5``, bf16 or W8A8 (``w8a8_calib``); for a config
     with no planar tail ``build_fast_decode_v3(tile_from_h=45)``, in bf16
     only: W8A8 there raises ValueError."""
-    _check_config(cfg)
+    check_config(cfg)
     plan, out_hw = _plan(cfg)
     try:
         _planar_tail_span(cfg, plan, out_hw, planar_from_h)

@@ -1,0 +1,534 @@
+"""Regression trainer of HNeRV-Boost (port of
+boosting_nerv_tpu/training/trainer.py).
+
+The JAX trainer's orchestration: a seeded init, the seen / unseen split,
+the string-schedule learning rate set each step, the loss on (masked)
+frames, the 8-slot {pred, quant} x {seen, unseen} x {PSNR, SSIM} eval
+with 8-bit PTQ of the decoder weights and 6-bit PTQ of the embeddings,
+Huffman bits per parameter and bits per pixel, the decode fps of the
+serving decode (the encoder excluded), ``model_latest.ckpt`` each epoch
+with auto-resume, and the CSV of results.
+
+On the GPU: the clip stays on the device as uint8 and each step gathers
+and normalises its frames there; the step is eager PyTorch (cuDNN
+convolutions, autograd), as the JAX step is plain XLA, with TF32 off at
+``train_precision="highest"``; ``micro_batch`` accumulates the gradients
+of equal chunks and averages them; ``remat`` recomputes the forward in
+the backward pass (``torch.utils.checkpoint``).  The fps clock times
+``build_serving_decode``, whose decoder tail runs on the Hopper kernels:
+CUDA events around the decodes on the card, the host clock on the CPU
+(where the wrappers run their plain versions).
+
+Only the HNeRV-Boost regression and inpainting tasks are ported; the
+fields of later slices raise NotImplementedError on a non-default value
+(``check_ported``).
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+import time
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+import torch
+import torch.utils.checkpoint
+
+from ..bridge import flax_params_from_torch_state, torch_state_from_flax
+from ..compress.huffman import huffman_code_lengths
+from ..config import BoostConfig, resolve_sizes
+from ..data.video import VideoData, data_split, make_inpaint_mask
+from ..models import build_model
+from ..ops.losses import loss_fn
+from ..ops.metrics import msssim_per_frame, psnr_per_frame
+from ..ops.msssim import ssim
+from ..ops.ptq import dequant_tensor, quant_tensor
+from ..runtime import fast_decode
+from ..utils.logger import RunLogger
+from .adan import Adan
+from .checkpoint import load_checkpoint, restore, save_checkpoint
+from .schedules import lr_multiplier
+
+METRIC_NAMES = [
+    "pred_seen_psnr", "pred_seen_ssim", "pred_unseen_psnr", "pred_unseen_ssim",
+    "quant_seen_psnr", "quant_seen_ssim", "quant_unseen_psnr", "quant_unseen_ssim",
+]
+
+# config fields of later slices -> the ROADMAP item that ports them
+_LATER = {
+    "interpolation": "tasks and the script surface",
+    "embed_inter": "tasks and the script surface",
+    "eval_only": "tasks and the script surface",
+    "dump_images": "tasks and the script surface",
+    "dump_videos": "tasks and the script surface",
+    "profile": "tasks and the script surface",
+    "dp": "multi-device",
+    "sp": "multi-device",
+}
+
+
+def check_ported(cfg: BoostConfig) -> None:
+    """Raise NotImplementedError for a config field this trainer does not
+    port, naming its ROADMAP item."""
+    default = BoostConfig()
+    for name, item in _LATER.items():
+        if getattr(cfg, name) != getattr(default, name):
+            raise NotImplementedError(
+                f"{name}={getattr(cfg, name)!r} is not ported yet (ROADMAP "
+                f"queue 1: {item})")
+    if cfg.planar_train:
+        raise NotImplementedError(
+            "planar_train is not ported: the planar training forward works "
+            "around XLA's lane padding on the TPU (ROADMAP queue 1: "
+            "regression trainer for HNeRV-Boost)")
+
+
+def set_train_precision(precision: str) -> None:
+    """``"highest"``: float32 convolutions and matmuls, TF32 off (cuDNN's
+    default is on); ``"high"`` / ``"default"``: TF32 on."""
+    if precision not in ("highest", "high", "default"):
+        raise ValueError(f"unknown train_precision {precision!r}")
+    tf32 = precision != "highest"
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+
+
+class Adam(torch.optim.Optimizer):
+    """``optax.scale_by_adam`` (b1 0.9, b2 0.999, eps 1e-8) followed by
+    ``-lr * u``: u = m_hat / (sqrt(v_hat) + eps) with the bias-corrected
+    moments."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999),
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Adam takes no closure")
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                st["step"] += 1
+                k = st["step"]
+                mu = st["mu"].copy_((1 - b1) * g + b1 * st["mu"])
+                nu = st["nu"].copy_((1 - b2) * (g * g) + b2 * st["nu"])
+                mu_hat = mu / (1 - b1 ** k)
+                nu_hat = nu / (1 - b2 ** k)
+                p.add_(-group["lr"] * (mu_hat / (torch.sqrt(nu_hat)
+                                                 + group["eps"])))
+
+
+def clip_by_global_norm_(params, max_norm: float) -> None:
+    """``optax.clip_by_global_norm`` on the gradients of ``params``, in
+    place: g * max_norm / norm when norm >= max_norm, else unchanged."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    if bool(norm < max_norm):
+        return
+    for g in grads:
+        g.copy_((g / norm) * max_norm)
+
+
+def make_optimizer(optim_type: str, params,
+                   clip_max_norm: Optional[float] = 0.0
+                   ) -> torch.optim.Optimizer:
+    """Adan or Adam, matched case-insensitively, with the learning rate
+    set per step in ``param_groups``; with ``clip_max_norm`` > 0 every
+    step first clips the global gradient norm as optax does."""
+    name = optim_type.lower()
+    if name == "adan":
+        opt = Adan(params, lr=1.0)
+    elif name == "adam":
+        opt = Adam(params, lr=1.0)
+    else:
+        raise ValueError(f"unknown optim_type {optim_type}")
+    if clip_max_norm and clip_max_norm > 0:
+        opt.register_step_pre_hook(lambda o, args, kwargs: clip_by_global_norm_(
+            [p for g in o.param_groups for p in g["params"]], clip_max_norm))
+    return opt
+
+
+def _map_leaves(tree: Dict, fn, path=()) -> Dict:
+    """A nested dict with ``fn(path, leaf)`` at every leaf."""
+    return {k: (_map_leaves(v, fn, path + (k,)) if isinstance(v, dict)
+                else fn(path + (k,), v)) for k, v in tree.items()}
+
+
+class RegressionTrainer:
+    fps_decode_path = "serving"  # measure_fps times build_serving_decode
+
+    def __init__(self, cfg: BoostConfig, video: Optional[VideoData] = None,
+                 logger: Optional[RunLogger] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        check_ported(cfg)
+        if cfg.clip_max_norm is None:
+            cfg = cfg.replace(clip_max_norm=0.0)
+        self.cfg0 = cfg
+        self.device = torch.device(device)
+        set_train_precision(cfg.train_precision)
+
+        self.video = video if video is not None else VideoData.from_dir(
+            cfg.data_path, cfg.crop_list)
+        self.cfg = cfg = resolve_sizes(cfg, self.video.final_size,
+                                       self.video.n)
+        fast_decode.check_config(cfg)  # measure_fps times the serving decode
+
+        split = [int(x) for x in cfg.data_split.split("_")]
+        self.train_ind, self.val_ind = data_split(
+            list(range(self.video.n)), split, cfg.shuffle_data, 0)
+        self.val_ind_set = set(self.val_ind)
+
+        self.model = build_model(cfg, seed=cfg.manualSeed,
+                                 device=self.device)
+        # the whole clip resident on the device as uint8
+        self.frames = torch.from_numpy(self.video.frames).to(self.device)
+        self.opt = make_optimizer(cfg.optim_type, self.model.parameters(),
+                                  cfg.clip_max_norm)
+
+        h, w = self.video.frames.shape[1:3]
+        mask = make_inpaint_mask(h, w, cfg.inpanting)
+        self.inpaint_mask = (None if mask is None else torch.from_numpy(
+            mask)[None, :, :, None].to(self.device))
+        # MS-SSIM needs frames of 176+ pixels a side; single-scale SSIM
+        # with a window that fits below that
+        self._use_ms = min(h, w) >= 176
+        self._ssim_win = min(11, (min(h, w) // 2) * 2 - 1)
+
+        self.logger = logger or RunLogger(cfg.outf)
+        self.start_epoch = max(cfg.start_epoch, 0)
+
+        state = self.model.state_dict()
+        self.encoder_param = sum(v.numel() for k, v in state.items()
+                                 if k.startswith("encoder.")) / 1e6
+        self.decoder_param = (sum(v.numel() for v in state.values()) / 1e6
+                              - self.encoder_param)
+        self.total_param = self.decoder_param + cfg.embed_param / 1e6
+        self.fps = 0.0
+        self.bits_per_param = 0.0
+        self.full_bits_per_param = 0.0
+        self.total_bpp = 0.0
+        self.best_metrics = {k: 0.0 for k in METRIC_NAMES}
+        self.psnr_history: List[float] = []
+        self.train_losses: List[float] = []  # every step's loss
+        self.train_psnr: List[float] = []    # every epoch's mean PSNR
+
+    # ------------------------------------------------------------------ #
+    def gather(self, idx) -> torch.Tensor:
+        """Frames ``idx`` of the resident clip as float32 NHWC in [0, 1]."""
+        idx = torch.as_tensor(np.asarray(idx), device=self.device)
+        return self.frames[idx].to(torch.float32) / 255.0
+
+    def forward(self, img: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        if self.cfg.remat:
+            return torch.utils.checkpoint.checkpoint(
+                self.model, img, t, use_reentrant=False)
+        return self.model(img, t)
+
+    def _loss_backward(self, img: torch.Tensor, t: torch.Tensor):
+        """Loss of one chunk, its gradients added to the parameters';
+        (loss, output), both detached."""
+        mask = self.inpaint_mask
+        img_in = torch.clamp(img * mask, 0, 1) if mask is not None else img
+        out = self.forward(img_in, t)
+        if mask is not None:
+            loss = loss_fn(out * mask, img * mask, self.cfg.loss)
+        else:
+            loss = loss_fn(out, img, self.cfg.loss)
+        loss.backward()
+        return loss.detach(), out.detach()
+
+    def train_step(self, img: torch.Tensor, t: torch.Tensor, lr: float):
+        """One optimizer step on the frames ``img`` [B, H, W, 3] at indices
+        ``t`` [B]: (loss, per-frame PSNR [B]).  The step's gradients stay
+        in the parameters' ``.grad`` until the next step (clipped when the
+        optimizer clips)."""
+        self.opt.zero_grad(set_to_none=True)
+        mb = self.cfg.micro_batch
+        if mb and img.shape[0] > mb and img.shape[0] % mb == 0:
+            n_chunks = img.shape[0] // mb
+            losses, psnrs = [], []
+            for ci, ct in zip(img.split(mb), t.split(mb)):
+                loss, out = self._loss_backward(ci, ct)
+                losses.append(loss)
+                psnrs.append(psnr_per_frame(out, ci))
+            for p in self.model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(n_chunks)
+            loss = torch.stack(losses).sum() / n_chunks
+            psnr = torch.cat(psnrs)
+        else:
+            loss, out = self._loss_backward(img, t)
+            psnr = psnr_per_frame(out, img)
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        self.opt.step()
+        return loss, psnr
+
+    def train_step_idx(self, idx, t, lr: float):
+        """``train_step`` on frames ``idx`` of the resident clip."""
+        return self.train_step(self.gather(idx),
+                               torch.as_tensor(t, device=self.device), lr)
+
+    # ------------------------------------------------------------------ #
+    def maybe_resume(self):
+        cfg = self.cfg
+        if cfg.weight not in ("None", "", None):
+            ck = load_checkpoint(cfg.weight)
+            restore(self.model, ck, cfg)
+            self.logger.print(f"=> loaded checkpoint '{cfg.weight}' "
+                              f"(epoch {ck['epoch']})")
+            self.start_epoch = max(cfg.start_epoch, 0)
+        if not cfg.not_resume:
+            path = os.path.join(cfg.outf, "model_latest.ckpt")
+            if os.path.isfile(path):
+                ck = load_checkpoint(path)
+                restore(self.model, ck, cfg)
+                self.start_epoch = ck["epoch"]
+                self.logger.print(
+                    f"=> Auto resume loaded checkpoint '{path}' "
+                    f"(epoch {ck['epoch']})")
+
+    def train(self) -> Dict[str, float]:
+        cfg = self.cfg
+        self.logger.dump_config(self.cfg0)
+        self.maybe_resume()
+        n_train_batches = max(len(self.train_ind) // cfg.batchSize, 1)
+        t_start = time.time()
+        for epoch in range(self.start_epoch, cfg.epochs):
+            ep_start = time.time()
+            losses, psnrs = [], []
+            batches = self.video.epoch_batches(
+                self.train_ind, cfg.batchSize, shuffle=True,
+                seed=cfg.manualSeed + epoch)
+            for i, batch in enumerate(batches):
+                if i > 10 and cfg.debug:
+                    break
+                progress = (epoch + i / n_train_batches) / cfg.epochs
+                lr = cfg.lr * lr_multiplier(
+                    cfg.lr_type, progress, cur_iter=i, epochs=cfg.epochs,
+                    full_data_length=self.video.n, cur_epoch=epoch)
+                loss, psnr = self.train_step_idx(batch["idx"],
+                                                 batch["norm_idx"], lr)
+                # kept on the device: no host sync between steps
+                losses.append(loss)
+                psnrs.append(psnr)
+                if i % cfg.print_freq == 0 or i == n_train_batches - 1:
+                    cur = float(torch.cat(psnrs).mean())
+                    self.logger.print(
+                        f"Epoch[{epoch + 1}/{cfg.epochs}], "
+                        f"Step [{i + 1}/{n_train_batches}], lr:{lr:.2e} "
+                        f"pred_PSNR: {cur:.4f}")
+
+            ep_psnr = float(torch.cat(psnrs).mean()) if psnrs else 0.0
+            if losses:
+                self.train_losses += torch.stack(losses).tolist()
+            self.train_psnr.append(ep_psnr)
+            self.logger.scalar("Train/pred_PSNR", ep_psnr, epoch + 1)
+            self.logger.scalar("Train/lr", lr, epoch + 1)
+            self.logger.print(
+                f"Time/epoch: {time.time() - ep_start:.2f}s avg "
+                f"{(time.time() - t_start) / (epoch + 1 - self.start_epoch):.2f}s")
+
+            last = cfg.epochs - epoch
+            if (epoch + 1) % cfg.eval_freq == 0 or last in (1, 3, 5):
+                results = self.evaluate(huffman_coding=(last == 1))
+                msg = f"Eval at epoch {epoch + 1}: "
+                for k in METRIC_NAMES:
+                    v = results[k]
+                    self.best_metrics[k] = max(self.best_metrics[k], v)
+                    if "psnr" in k:
+                        self.logger.scalar(f"Val/{k}", v, epoch + 1)
+                        if k == "pred_seen_psnr":
+                            self.psnr_history.append(v)
+                    msg += f"{k}: {v:.4f} | "
+                self.logger.print(msg)
+
+            save_checkpoint(os.path.join(cfg.outf, "model_latest.ckpt"),
+                            epoch + 1, self.model, cfg, self.opt)
+
+        self.train_time = time.time() - t_start
+        self.cur_epoch = cfg.epochs
+        self.dump_csv(f"epoch{cfg.epochs}.csv")
+        self.logger.print(f"Training complete in: {self.train_time:.1f}s")
+        return self.best_metrics
+
+    # ------------------------------------------------------------------ #
+    def quantize_model_params(self):
+        """PTQ: ``quant_model_bit``-bit affine quantisation of every
+        non-encoder weight, each in its flax layout as the JAX trainer
+        quantises it.  Returns (the quantised state dict, the codes keyed by
+        flax path), or (the state dict, None) at ``quant_model_bit`` -1."""
+        cfg = self.cfg
+        state = self.model.state_dict()
+        if cfg.quant_model_bit == -1:
+            return state, None
+        quant_ckt = {}
+
+        def quant(path, v):
+            if any("encoder" in p for p in path):
+                return v
+            q, new_v = quant_tensor(v, cfg.quant_model_bit)
+            quant_ckt["/".join(path)] = q
+            return new_v
+
+        tree = _map_leaves(flax_params_from_torch_state(state, cfg), quant)
+        return torch_state_from_flax(tree, cfg), quant_ckt
+
+    def _batches(self):
+        return self.video.epoch_batches(range(self.video.n),
+                                        self.cfg.batchSize, False, 0,
+                                        drop_last=False)
+
+    def _collect_embeds(self) -> np.ndarray:
+        return np.concatenate([
+            self.model.encode(self.gather(b["idx"])).cpu().numpy()
+            for b in self._batches()], axis=0)
+
+    def _ssim_metric(self, out, img):
+        if self._use_ms:
+            return msssim_per_frame(out, img)
+        return ssim(out, img, size_average=False, win_size=self._ssim_win)
+
+    @torch.no_grad()
+    def measure_fps(self, reps: int = 20) -> float:
+        """Decodes a second of the serving decode (``build_serving_decode``
+        on the trained weights), batch 1, the encoder excluded: one warm-up
+        decode, then ``reps`` decodes at indices in [0.01, 1] timed with
+        CUDA events and one synchronisation on the card, with the host
+        clock on the CPU."""
+        decode = fast_decode.build_serving_decode(self.cfg, self.model)
+        embed = self.model.encode(self.gather([0]))
+        ts = torch.linspace(0.01, 1.0, reps, device=self.device)
+        decode(embed, ts[:1])
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(reps):
+                decode(embed, ts[i:i + 1])
+            end.record()
+            torch.cuda.synchronize(self.device)
+            dt = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            for i in range(reps):
+                decode(embed, ts[i:i + 1])
+            dt = time.perf_counter() - t0
+        return reps / dt
+
+    @torch.no_grad()
+    def evaluate(self, huffman_coding: bool = False) -> Dict[str, float]:
+        cfg = self.cfg
+        params_q, quant_ckt = self.quantize_model_params()
+        qmodel = copy.deepcopy(self.model)
+        qmodel.load_state_dict(params_q)
+
+        # 6-bit PTQ of the clip's embeddings; the quantised model decodes
+        # from their dequantised values
+        quant_embed, _ = quant_tensor(self._collect_embeds(),
+                                      cfg.quant_embed_bit)
+        dequant_embeds = dequant_tensor(quant_embed).astype(np.float32)
+
+        slots = {k: [] for k in METRIC_NAMES}
+        mask = self.inpaint_mask
+        for model_ind, model in enumerate([self.model, qmodel]):
+            for bi, batch in enumerate(self._batches()):
+                if bi > 10 and cfg.debug:
+                    break
+                img = self.gather(batch["idx"])
+                t = torch.as_tensor(batch["norm_idx"], device=self.device)
+                idx = batch["idx"]
+                if model_ind == 1:
+                    e = torch.from_numpy(dequant_embeds[idx]).to(self.device)
+                    out = model.decode(e, t)
+                else:
+                    out = model(torch.clamp(img * mask, 0, 1)
+                                if mask is not None else img, t)
+                pv = psnr_per_frame(out, img).cpu().numpy()
+                sv = self._ssim_metric(out, img).cpu().numpy()
+                for b, frame_idx in enumerate(idx):
+                    seen = int(frame_idx) not in self.val_ind_set
+                    base = (0 if seen else 2) + 4 * model_ind
+                    slots[METRIC_NAMES[base]].append(float(pv[b]))
+                    slots[METRIC_NAMES[base + 1]].append(float(sv[b]))
+
+        self.fps = self.measure_fps(reps=100 if cfg.eval_fps else 20)
+        if huffman_coding and quant_ckt is not None:
+            self._huffman_accounting(quant_ckt, quant_embed)
+
+        results = {k: (float(np.mean(v)) if v else 0.0)
+                   for k, v in slots.items()}
+        self.logger.print(
+            "Eval FPS {:.2f}, ".format(self.fps)
+            + " | ".join(f"{k}: {v:.4f}" for k, v in results.items()))
+        return results
+
+    def _huffman_accounting(self, quant_ckt, quant_embed):
+        """bits/param, bits/param with the fp16 min / scale overhead, and
+        bits per pixel of the clip."""
+        vals = []
+        tmin_scale_len = 0
+        if quant_embed is not None:
+            vals.append(quant_embed["quant"].ravel())
+            tmin_scale_len += (np.asarray(quant_embed["min"]).size
+                               + np.asarray(quant_embed["scale"]).size)
+        for q in quant_ckt.values():
+            vals.append(q["quant"].ravel())
+            tmin_scale_len += (np.asarray(q["min"]).size
+                               + np.asarray(q["scale"]).size)
+        all_vals = np.concatenate(vals)
+        unique, counts = np.unique(all_vals, return_counts=True)
+        table = {int(u): int(c) for u, c in zip(unique, counts)}
+        lengths = huffman_code_lengths(table)
+        total_bits = sum(table[s] * lengths[s] for s in table)
+        self.bits_per_param = total_bits / len(all_vals)
+        total_bits += tmin_scale_len * 16  # fp16 min / scale overhead
+        self.full_bits_per_param = total_bits / len(all_vals)
+        self.total_bpp = total_bits / self.video.final_size / self.video.n
+        self.logger.print(
+            f"After quantization and encoding: bits per parameter "
+            f"{self.full_bits_per_param:.2f}, bits per pixel "
+            f"{self.total_bpp:.4f}")
+
+    # ------------------------------------------------------------------ #
+    def dump_csv(self, filename: str):
+        cfg = self.cfg
+        row = {
+            "Vid": cfg.vid, "CurEpoch": getattr(self, "cur_epoch", 0),
+            "Time": round(getattr(self, "train_time", 0.0), 1),
+            "FPS": round(self.fps, 2), "Split": cfg.data_split,
+            "Embed": cfg.embed, "Crop": cfg.crop_list,
+            "Lr_type": cfg.lr_type, "LR (E-3)": cfg.lr * 1e3,
+            "Batch": cfg.batchSize,
+            "Size (M)": f"{round(self.encoder_param, 2)}_"
+                        f"{round(self.decoder_param, 2)}_"
+                        f"{round(self.total_param, 2)}",
+            "ModelSize": cfg.modelsize,
+            "Epoch": cfg.epochs, "Loss": cfg.loss, "Act": cfg.act,
+            "Norm": cfg.norm, "FC": cfg.fc_hw, "Reduce": cfg.reduce,
+            "ENC_type": cfg.conv_type[0],
+            "ENC_strds": ",".join(map(str, cfg.enc_strds)),
+            "KS": cfg.ks, "enc_dim": cfg.enc_dim,
+            "DEC": cfg.conv_type[1],
+            "DEC_strds": ",".join(map(str, cfg.dec_strds)),
+            "lower_width": cfg.lower_width,
+            "Quant": f"quant_M{cfg.quant_model_bit}_E{cfg.quant_embed_bit}",
+            "bits/param": round(self.bits_per_param, 4),
+            "bits/param w/ overhead": round(self.full_bits_per_param, 4),
+            "bits/pixel": round(self.total_bpp, 6),
+            f"PSNR_list_{cfg.eval_freq}": ",".join(
+                f"{v:.2f}" for v in self.psnr_history),
+        }
+        row.update({f"best_{k}": round(v, 4)
+                    for k, v in self.best_metrics.items()})
+        self.logger.dump_csv(row, filename)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the decode's device time goes, on one NVIDIA GPU.
+"""Where the decode's (or a train step's) device time goes, on one NVIDIA
+GPU.
 
-    python3 chip_profile.py [--frames 4]
+    python3 chip_profile.py [--frames 4] [--train]
 
 Builds HNeRV-Boost at the UVG-1080p serving config with seeded random
 weights (as chip_smoke.py does), the bf16 serving decode and the W8A8 one,
@@ -14,7 +15,10 @@ template arguments in a kernel's name say which launch it is:
 bf16, 1 int8 codes in, 2 bf16 in quantised to int8; R rows a
 warpgroup), ``stage_conv_kernel<KS, CK, Q>`` (bf16, KS x KS taps; Q:
 int8-code output) and ``stage_conv3x3_i8_kernel<IK, OK, CK>`` (IK/OK:
-0 int8 codes, 1 bf16).
+0 int8 codes, 1 bf16).  With ``--train`` it traces ``--frames`` steps of
+the port's RegressionTrainer instead, as chip_smoke.py's phase 11 trains
+(``train_config``: bench widths, a 4-frame 1080x1920 synthetic clip,
+batch 1, Fusion10_freq, Adan, TF32 off), per step.
 Each line carries the card's name and power limit.  Exits non-zero
 without CUDA.
 """
@@ -22,49 +26,59 @@ without CUDA.
 from __future__ import annotations
 
 import argparse
+import os
+import shutil
 import sys
 import time
 
 import numpy as np
 import torch
 
-from chip_smoke import CALIB_TS, bench_config, card
+from chip_smoke import CALIB_TS, REPO, TRAIN_LR, bench_config, card, \
+    train_config
 
 TOP = 12  # kernels listed per decode, by device time
 
 
-def profile(decode, embed, ts):
-    """(wall ms/frame, busy ms/frame, [(kernel, ms/frame, launches/frame)])
-    of one traced run over ``ts``."""
+def profile(call, n):
+    """(wall ms, busy ms, [(kernel, ms, launches)]) per call of one traced
+    run of ``call(i)`` for i < n, after one untraced run."""
     from torch.profiler import ProfilerActivity, profile as trace
 
-    for t in ts:  # warm-up
-        decode(embed, t)
+    for i in range(n):  # warm-up
+        call(i)
     torch.cuda.synchronize()
     with trace(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in ts:
-            decode(embed, t)
+        for i in range(n):
+            call(i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    # kernels only: a record_function range (Optimizer.step#Adan.step)
+    # also shows on the device as an annotation spanning its launches' gaps
+    def kernel(e):
+        return e.device_type.name == "CUDA" and not getattr(
+            e, "is_user_annotation", False)
+
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type.name == "CUDA")
+                   for e in prof.events() if kernel(e))
     busy, end = 0.0, -1.0
     for a, b in spans:  # union of the kernels' intervals, in us
         if b > end:
             busy += b - max(a, end)
             end = b
-    n = len(ts)
     rows = sorted(((k.key, k.device_time_total / 1e3 / n, k.count / n)
-                   for k in prof.key_averages()
-                   if k.device_type.name == "CUDA"), key=lambda r: -r[1])
+                   for k in prof.key_averages() if kernel(k)),
+                  key=lambda r: -r[1])
     return wall / n, busy / 1e3 / n, rows
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--train", action="store_true",
+                    help="trace train steps, not decodes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; this run needs one GPU",
@@ -74,6 +88,8 @@ def main() -> int:
     from boosting_nerv_torch.runtime.fast_decode import build_serving_decode
 
     device_line = card()
+    if args.train:
+        return profile_train(args.frames, device_line)
     cfg = bench_config()
     model = build_model(cfg, seed=0).eval()
     frame = np.random.default_rng(0).uniform(
@@ -86,15 +102,42 @@ def main() -> int:
     for name, decode in (
             ("bf16", build_serving_decode(cfg, model)),
             ("w8a8", build_serving_decode(cfg, model, w8a8_calib=calib))):
-        wall, busy, rows = profile(decode, embed, ts)
-        print(f"{name}: wall {wall:.3f} ms/frame, device busy {busy:.3f} "
-              f"ms/frame, idle {1 - busy / wall:.1%} (traced, {args.frames} "
-              f"frames) [{device_line}]")
-        for key, ms, count in rows[:TOP]:
-            print(f"  {ms:9.4f} ms/frame {count:6.1f} launches/frame  "
-                  f"{key[:120]}")
-        rest = sum(ms for _, ms, _ in rows[TOP:])
-        print(f"  {rest:9.4f} ms/frame in {len(rows[TOP:])} other kernels")
+        report(name, "frame", profile(lambda i: decode(embed, ts[i]),
+                                      args.frames),
+               f"{args.frames} frames", device_line)
+    return 0
+
+
+def report(name, per, result, traced, device_line):
+    wall, busy, rows = result
+    print(f"{name}: wall {wall:.3f} ms/{per}, device busy {busy:.3f} "
+          f"ms/{per}, idle {1 - busy / wall:.1%} (traced, {traced}) "
+          f"[{device_line}]")
+    for key, ms, count in rows[:TOP]:
+        print(f"  {ms:9.4f} ms/{per} {count:6.1f} launches/{per}  "
+              f"{key[:120]}")
+    rest = sum(ms for _, ms, _ in rows[TOP:])
+    print(f"  {rest:9.4f} ms/{per} in {len(rows[TOP:])} other kernels")
+
+
+def profile_train(steps, device_line) -> int:
+    from boosting_nerv_torch.data import VideoData, synthetic_video
+    from boosting_nerv_torch.training.trainer import RegressionTrainer
+    from boosting_nerv_torch.utils.logger import RunLogger
+
+    outf = os.path.join(REPO, "output", "chip_profile_train")  # gitignored
+    try:
+        cfg = train_config(outf)
+        tr = RegressionTrainer(
+            cfg, video=VideoData(synthetic_video(4, 1080, 1920, seed=0)),
+            logger=RunLogger(outf, enable_tb=False))
+        n = tr.video.n
+        report("train step", "step", profile(
+            lambda i: tr.train_step_idx([i % n], tr.video.norm_idx([i % n]),
+                                        TRAIN_LR), steps),
+            f"{steps} steps", device_line)
+    finally:
+        shutil.rmtree(outf, ignore_errors=True)
     return 0
 
 

@@ -115,11 +115,32 @@ Phases, one line of output each (or one line per shape):
    every variant through the entry point and prints one line per TPU site
    and the phase breakdown of each stage (K1 on the stage kernel, K2 on
    the W8A8 stage kernel, K5 on conv_sm90.cu and on its int8 form
-   conv_sm90_i8.cu at the W8A8 stage 7 + head and stage 6).
+   conv_sm90_i8.cu at the W8A8 stage 7 + head and stage 6);
+11. the training slice: the port's ``RegressionTrainer`` at bench.py's
+   widths (fc_dim pinned at 127) on a 4-frame 1080x1920
+   ``synthetic_video``, batch 1, Fusion10_freq, Adan, lr 0.003 (the UVG
+   recipe's), TF32 off, 3 epochs (12 steps; evals at epochs 1 and 3, each
+   timing the serving decode); checks (a) the first step's loss against
+   ``loss_fn(model(img, t), img)`` just before it (1e-5 relative), (b)
+   every loss finite and the last epoch's mean train PSNR above the
+   first's, the training run's launches (fused_upconv_rsft and
+   fused_conv_rsft 3 a decode, one warm-up and 20 timed decodes an eval,
+   nothing else), (c) ``evaluate(huffman_coding=True)``: 8 finite slots,
+   bits/param > 0, fps > 0, (d) ``measure_fps``'s launches (the same, 3 a
+   decode) and the serving decode of the trained weights at t = 0.37
+   within 1e-2 of their fp32 decode, (e) a checkpoint written by the
+   port loads back to identical parameters; prints the median train-step
+   ms (CUDA events), the peak allocation of a step without and with
+   ``remat``, the eval's seconds and the fps; then one step at the same
+   widths on a 120x240 frame on the card and on the CPU from the same
+   weights, TF32 off (L1_freq: MS-SSIM needs more than 160 pixels a
+   side): the losses within 1e-4 relative, every gradient within 1e-3 of
+   its leaf's max |g| (the CPU on torch's own convolutions; the CPU on
+   oneDNN's, its default, printed beside it and not gated).
 
 The launch counts are set to 0 just before each slice's frames (the
-planar phase's stage-7 calls, the probe phase's timed run) and read just
-after.  Before the last two lines the run's seconds are printed.  The
+planar phase's stage-7 calls, the probe phase's timed run, the training
+run) and read just after.  Before the last two lines the run's seconds are printed.  The
 line before the
 last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero without
@@ -130,7 +151,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -182,6 +206,16 @@ HYBRID_LAUNCHES = {"fused_upconv_rsft": 2, "fused_conv_rsft": 2,
 V1_LAUNCHES = {"conv3x3_act_chw": 1, "resblock_sft_chw": 2,
                "head_conv_chw": 1}
 PLANAR_LAUNCHES = {"conv_planar": 2, "rsft_planar": 1}
+REPO = os.path.dirname(os.path.abspath(__file__))
+# phase 11, the training slice
+TRAIN_FRAMES = 4     # a 4-frame 1080x1920 synthetic clip, batch 1
+TRAIN_EPOCHS = 3     # 12 steps; evals at epochs 1 and 3 (last 3 and 1)
+TRAIN_LR = 0.003     # scripts/regression/UVG/hnerv_boost.sh
+FPS_REPS = 20        # measure_fps's timed decodes (eval_fps off)
+SERVING_LAUNCHES = {"fused_upconv_rsft": 3, "fused_conv_rsft": 3}
+FIRST_LOSS_RTOL = 1e-5  # the first step's loss vs a forward just before
+STEP_LOSS_RTOL = 1e-4   # card vs CPU, TF32 off on the card
+STEP_GRAD_TOL = 1e-3    # x the leaf's max |g|, card vs CPU
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and
 # tensor-core operations/s of the kernels' operand types
 HBM_BYTES_S = 3.35e12
@@ -1312,6 +1346,213 @@ def run_probe_phase(device_line):
     return launches, entries
 
 
+
+def train_config(outf, **kw):
+    """bench_config()'s model (fc_dim pinned at 127: resolve_sizes would
+    solve it again from the clip's frame count) as the UVG recipe trains
+    it, batch 1, Fusion10_freq, Adan, TF32 off."""
+    return bench_config().replace(**{
+        "fc_dim": 127, "batchSize": 1, "epochs": TRAIN_EPOCHS,
+        "lr": TRAIN_LR, "loss": "Fusion10_freq", "optim_type": "Adan",
+        "train_precision": "highest", "not_resume": True, "outf": outf,
+        **kw})
+
+
+def _step_ms_and_peak(trainer, steps):
+    """Median ms of ``steps`` train steps (CUDA events each), and the peak
+    allocation of one step above what was allocated before it (bytes)."""
+    n = trainer.video.n
+    times = []
+    for i in range(steps + 1):
+        idx = [i % n]
+        if i == 0:  # the peak of one step, untimed
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step_idx(idx, trainer.video.norm_idx(idx), TRAIN_LR)
+        end.record()
+        torch.cuda.synchronize()
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated() - before
+        else:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times), peak
+
+
+def run_train_phase(device_line):
+    """Phase 11: the port's RegressionTrainer at the bench config's full
+    widths; returns the launch counts of its training run (the evals'
+    measure_fps)."""
+    from boosting_nerv_torch.data import VideoData, synthetic_video
+    from boosting_nerv_torch.models import build_model
+    from boosting_nerv_torch.ops import kernels
+    from boosting_nerv_torch.ops.losses import loss_fn
+    from boosting_nerv_torch.runtime.fast_decode import build_serving_decode
+    from boosting_nerv_torch.training import checkpoint
+    from boosting_nerv_torch.training.trainer import (METRIC_NAMES,
+                                                      RegressionTrainer)
+    from boosting_nerv_torch.utils.logger import RunLogger
+
+    root = os.path.join(REPO, "output", "chip_smoke_train")  # gitignored
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(name, video, device="cuda", **kw):
+        cfg = train_config(os.path.join(root, name), **kw)
+        return RegressionTrainer(cfg, video=video, device=device,
+                                 logger=RunLogger(cfg.outf, enable_tb=False))
+
+    try:
+        video = VideoData(synthetic_video(TRAIN_FRAMES, 1080, 1920, seed=0))
+        tr = trainer("run", video)
+        cfg = tr.cfg
+        first = next(video.epoch_batches(tr.train_ind, cfg.batchSize, True,
+                                         cfg.manualSeed))
+        with torch.no_grad():
+            img = tr.gather(first["idx"])
+            want = float(loss_fn(tr.model(img, torch.as_tensor(
+                first["norm_idx"], device="cuda")), img, cfg.loss))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        n_evals = 2
+        expect = {k: SERVING_LAUNCHES.get(k, 0) * n_evals * (FPS_REPS + 1)
+                  for k in launches}
+        losses, psnrs = tr.train_losses, tr.train_psnr
+        print(f"train phase: HNeRV-Boost at bench widths (fc_dim "
+              f"{cfg.fc_dim}, {sum(p.numel() for p in tr.model.parameters())}"
+              f" params), {video.n} frames {video.frames.shape[1]}x"
+              f"{video.frames.shape[2]}, batch 1, "
+              f"{cfg.loss}, Adan, TF32 off: {len(losses)} steps and "
+              f"{n_evals} evals in {train_s:.1f} s; loss {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f}, train PSNR by epoch "
+              f"{[round(p, 3) for p in psnrs]}; launches "
+              f"{ {k: v for k, v in launches.items() if v} } "
+              f"[{device_line}]", flush=True)
+        if launches != expect:
+            raise SmokeFailure(f"train phase launches {launches}, expected "
+                               f"{expect}")
+        rel = abs(losses[0] - want) / abs(want)
+        print(f"train (a) first step's loss {losses[0]:.7g} vs loss_fn of "
+              f"the model just before it {want:.7g}: rel err {rel:.3g} (tol "
+              f"{FIRST_LOSS_RTOL})", flush=True)
+        if not rel <= FIRST_LOSS_RTOL:
+            raise SmokeFailure(f"first step's loss rel err {rel}")
+        if not (len(losses) == TRAIN_FRAMES * TRAIN_EPOCHS
+                and all(math.isfinite(v) for v in losses)
+                and psnrs[-1] > psnrs[0]):
+            raise SmokeFailure(f"(b) losses {losses}, PSNR by epoch {psnrs}")
+
+        t0 = time.perf_counter()
+        res = tr.evaluate(huffman_coding=True)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        print(f"train (c) evaluate: {eval_s:.2f} s; " + ", ".join(
+            f"{k} {res[k]:.4f}" for k in METRIC_NAMES) + f"; bits/param "
+            f"{tr.bits_per_param:.4f} ({tr.full_bits_per_param:.4f} with "
+            f"overhead), bpp {tr.total_bpp:.6f}, fps {tr.fps:.2f} "
+            f"[{device_line}]", flush=True)
+        if not (list(res) == METRIC_NAMES
+                and all(math.isfinite(v) for v in res.values())
+                and tr.bits_per_param > 0 and tr.fps > 0):
+            raise SmokeFailure(f"(c) eval {res}, bits/param "
+                               f"{tr.bits_per_param}, fps {tr.fps}")
+
+        kernels.reset_launch_counts()
+        fps = tr.measure_fps(reps=FPS_REPS)
+        fps_launches = dict(kernels.LAUNCHES)
+        want_fps = {k: SERVING_LAUNCHES.get(k, 0) * (FPS_REPS + 1)
+                    for k in fps_launches}
+        decode = build_serving_decode(cfg, tr.model)
+        t = torch.tensor([T_HOLD], device="cuda")
+        with torch.no_grad():
+            embed = tr.model.encode(tr.gather([0]))
+            out, ref = decode(embed, t).float(), tr.model.decode(embed, t)
+        err = (out - ref).abs().max().item()
+        print(f"train (d) measure_fps on the trained weights: {fps:.2f} "
+              f"decodes/s (batch 1, encoder excluded, {FPS_REPS} decodes and "
+              f"one warm-up), launches "
+              f"{ {k: v for k, v in fps_launches.items() if v} }; serving "
+              f"decode at t "
+              f"{T_HOLD} vs the trained model's fp32 decode: max_abs_err "
+              f"{err:.6g} (tol {SLICE_TOL}) [{device_line}]", flush=True)
+        if fps_launches != want_fps or not (
+                tuple(out.shape) == (1, 1080, 1920, 3) and err <= SLICE_TOL):
+            raise SmokeFailure(f"(d) launches {fps_launches}, expected "
+                               f"{want_fps}; err {err}")
+
+        path = os.path.join(root, "check.ckpt")
+        checkpoint.save_checkpoint(path, cfg.epochs, tr.model, cfg, tr.opt)
+        back = build_model(cfg, seed=None, device="cuda")
+        checkpoint.restore(back, checkpoint.load_checkpoint(path), cfg)
+        state, got = tr.model.state_dict(), back.state_dict()
+        same = state.keys() == got.keys() and all(
+            torch.equal(state[k], got[k]) for k in state)
+        print(f"train (e) checkpoint ({os.path.getsize(path)} bytes, flax "
+              f"layout) loads back identical: {same}", flush=True)
+        if not same:
+            raise SmokeFailure("(e) checkpoint round trip changed params")
+
+        step_ms, peak = _step_ms_and_peak(tr, 5)
+        del tr, back
+        remat = trainer("remat", video, remat=True)
+        remat_ms, remat_peak = _step_ms_and_peak(remat, 3)
+        del remat
+        print(f"train step at UVG-1080p (bench widths, batch 1, "
+              f"Fusion10_freq, Adan, TF32 off): {step_ms:.2f} ms median of 5 "
+              f"(CUDA events), peak allocation of a step "
+              f"{peak / 2**30:.3f} GiB; with remat {remat_ms:.2f} ms median "
+              f"of 3, {remat_peak / 2**30:.3f} GiB [{device_line}]",
+              flush=True)
+
+        small = VideoData(synthetic_video(1, 120, 240, seed=1))
+        # the CPU reference on torch's own convolutions; oneDNN's float32
+        # ones (the CPU default) are printed beside it, not gated
+        step, params = {}, {}
+        for key, dev, onednn in (("card", "cuda", False),
+                                 ("cpu", "cpu", False),
+                                 ("cpu_onednn", "cpu", True)):
+            # L1_freq: MS-SSIM needs frames of more than 160 pixels a side
+            t = trainer(f"step_{key}", small, device=dev, loss="L1_freq")
+            with torch.backends.mkldnn.flags(enabled=onednn):
+                step[key] = float(t.train_step_idx(
+                    [0], small.norm_idx([0]), TRAIN_LR)[0])
+            params[key] = dict(t.model.named_parameters())
+
+        def worst_grad(key):
+            """(error, leaf) of the largest gradient difference between
+            the card and ``key``, in the leaf's max |g| there."""
+            errs = []
+            for n, p in params["card"].items():
+                want = params[key][n].grad
+                errs.append((((p.grad.cpu() - want).abs().max()
+                              / want.abs().max().clamp_min(1e-30)).item(),
+                             n))
+            return max(errs)
+
+        rel = abs(step["card"] - step["cpu"]) / abs(step["cpu"])
+        worst, worst_name = worst_grad("cpu")
+        onednn, onednn_name = worst_grad("cpu_onednn")
+        print(f"train step card vs CPU (bench widths, 120x240, L1_freq, same "
+              f"weights, TF32 off): loss {step['card']:.7g} vs "
+              f"{step['cpu']:.7g}, rel err {rel:.3g} (tol {STEP_LOSS_RTOL}); "
+              f"worst gradient error {worst:.3g} of its leaf's max |g| "
+              f"({worst_name}; tol {STEP_GRAD_TOL}); against the CPU on "
+              f"oneDNN's convolutions {onednn:.3g} ({onednn_name}; not "
+              f"gated) [{device_line}]", flush=True)
+        if not (rel <= STEP_LOSS_RTOL and worst <= STEP_GRAD_TOL):
+            raise SmokeFailure(f"card vs CPU step: loss rel {rel}, gradient "
+                               f"{worst} at {worst_name}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def print_ptxas(log_path):
     """One line per source of ptxas's report in the build log: kernel
     instances, the range of their registers and their spill bytes."""
@@ -1447,6 +1688,7 @@ def main() -> int:
     runs.append(run_planar_phase(v1, refs, embed, ts, device_line))
     probe_launches, probe_entries = run_probe_phase(device_line)
     runs.append(probe_launches)
+    runs.append(run_train_phase(device_line))
 
     leaked = [m for m in ("jax", "flax", "boosting_nerv_tpu")
               if m in sys.modules]

@@ -144,7 +144,7 @@ def test_not_ported_errors_name_the_roadmap_item(site):
     calls = {
         "registry": lambda: build_model(_cfg().replace(model="HNeRV"),
                                         device="cpu"),
-        "serving decode": lambda: fast_decode._check_config(
+        "serving decode": lambda: fast_decode.check_config(
             _cfg().replace(model="ENeRV_Boost")),
         "UpConv": lambda: blocks.UpConv("conv", 4, 4, 3, 2),
         "DownConv": lambda: blocks.DownConv("pshuffel", 4, 4, 0, 1),
