@@ -3,39 +3,54 @@
 The JAX trainer saves checkpoints as a pickle of numpy trees,
 ``{"epoch", "params", "opt_state"?, "extra"?}``
 (boosting_nerv_tpu/training/checkpoint.py), so reading one needs no jax.
-``torch_state_from_flax`` maps the flax ``params`` tree of HNeRV-Boost onto
-the state dict of ``models.hnerv.HNeRVBoost``, and
-``flax_params_from_torch_state`` is its exact inverse (the port's
+``torch_state_from_flax`` maps the flax ``params`` tree of any of the five
+families onto the state dict of the port's model (``models.build_model``),
+and ``flax_params_from_torch_state`` is its exact inverse (the port's
 checkpoints hold flax-layout params, so the JAX trainer reads them):
 
 - conv kernels HWIO -> OIHW (no flip: both frameworks cross-correlate);
   the depthwise (7, 7, 1, C) kernel becomes (C, 1, 7, 7) by the same rule;
+  a transposed conv's (k, k, in, out) kernel becomes ConvTranspose2d's
+  (in, out, k, k);
 - Dense kernels (in, out) -> Linear weights (out, in);
-- every upsampling conv's output channels (and bias) go from the JAX
-  PixelShuffle order (r1, r2, c) to torch's (c, r1, r2);
-- inside an SFTLayer flax numbers the Dense layers by construction order,
-  so TDense_0/TDense_2 are the outer scale/shift projections and
-  TDense_1/TDense_3 the inner ones.
+- every PixelShuffle upsampling conv's output channels (and bias) go from
+  the JAX order (r1, r2, c) to torch's (c, r1, r2), and a PixelUnshuffle
+  encoder conv's input channels likewise;
+- every module is named explicitly, per family (``_torch_name`` /
+  ``_flax_path``): inside an SFTLayer flax numbers the Dense layers by
+  construction order, so TDense_0/TDense_2 are the outer scale/shift
+  projections and TDense_1/TDense_3 the inner ones; E-NeRV's stage-0
+  ConvUpBlock holds an UpConv_0 (``upconv``) beside its own TConv_0
+  (``conv``); a transformer block's Attention_0 holds the qkv Dense
+  (TDense_0) and the output one (TDense_1), its FeedForward_0 two Denses.
 """
 
 from __future__ import annotations
 
 import pickle
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .config import BoostConfig, decoder_stage_plan
+from .config import BoostConfig, model_stage_plan
 from .ops.pixelshuffle import jax_to_torch_shuffle_perm
 
 _SFT_DENSE = {"TDense_0": "scale_out", "TDense_1": "scale_in",
               "TDense_2": "shift_out", "TDense_3": "shift_in"}
+_SFT_FLAX = {v: k for k, v in _SFT_DENSE.items()}
 _CONVNEXT = {"Conv_0": "dwconv", "LayerNorm_0": "norm", "Dense_0": "fc1",
              "Dense_1": "fc2"}
+_CONVNEXT_FLAX = {v: k for k, v in _CONVNEXT.items()}
+_TRANSFORMER = {("Attention_0", "TDense_0"): "attn.qkv",
+                ("Attention_0", "TDense_1"): "attn.out",
+                ("FeedForward_0", "TDense_0"): "ff.fc1",
+                ("FeedForward_0", "TDense_1"): "ff.fc2"}
+_TRANSFORMER_FLAX = {v: k for k, v in _TRANSFORMER.items()}
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "gamma": "gamma"}
+_FAMILIES = ("HNeRV_Boost", "HNeRV", "NeRV_Boost", "ENeRV", "ENeRV_Boost")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -50,143 +65,241 @@ def _index(name: str) -> str:
     return name.rsplit("_", 1)[1]
 
 
-def _torch_name(path: Tuple[str, ...]) -> str:
+def _unmapped(path) -> KeyError:
+    return KeyError(f"unmapped flax path {'/'.join(path)}")
+
+
+def _is_convup(cfg: BoostConfig, i: int) -> bool:
+    """Decoder block i is E-NeRV's stage-0 ConvUpBlock."""
+    return cfg.model in ("ENeRV", "ENeRV_Boost") and i < cfg.dec_blks[0]
+
+
+# ------------------------------------------------------- flax -> torch ---
+
+def _mlp(rest, path) -> str:   # TDense_j/Dense_0
+    if len(rest) != 2 or not rest[0].startswith("TDense_") or \
+            rest[1] != "Dense_0":
+        raise _unmapped(path)
+    return f"layers.{_index(rest[0])}"
+
+
+def _updown(rest, path) -> str:  # the conv of an UpConv / DownConv
+    if tuple(rest) in (("TConv_0", "Conv_0"), ("TConvTranspose_0",)):
+        return "conv"
+    raise _unmapped(path)
+
+
+def _rsft(rest, path) -> str:
+    if len(rest) == 3 and rest[0].startswith("SFTLayer_") and \
+            rest[1] in _SFT_DENSE and rest[2] == "Dense_0":
+        return f"sft{_index(rest[0])}.{_SFT_DENSE[rest[1]]}"
+    if len(rest) == 2 and rest[0].startswith("TConv_") and \
+            rest[1] == "Conv_0":
+        return f"conv{_index(rest[0])}"
+    raise _unmapped(path)
+
+
+def _block(rest, path, convup: bool) -> str:
+    """A NeRVBlock (UpConv_0 / DownConv_0 -> conv) or a ConvUpBlock
+    (UpConv_0 -> upconv, its own TConv_0 -> conv), with ResBlockSFT_0."""
+    head, tail = rest[0], rest[1:]
+    if head == "ResBlockSFT_0":
+        return "rsft." + _rsft(tail, path)
+    if head in ("UpConv_0", "DownConv_0"):
+        return ("upconv." if convup else "conv.") + _updown(tail, path)
+    if convup and tuple(rest) == ("TConv_0", "Conv_0"):
+        return "conv"
+    raise _unmapped(path)
+
+
+def _torch_name(path: Tuple[str, ...], cfg: BoostConfig) -> str:
     """flax path (without the leaf) -> torch module path."""
     top, rest = path[0], path[1:]
-    if top == "encoder":
-        out = ["encoder"]
+    if top == "encoder":  # the ConvNeXt encoder
         if rest[0].startswith("ConvNeXtBlock_"):
-            out += ["blocks", _index(rest[0])] + [_CONVNEXT[r] for r in rest[1:]]
-        elif rest[0].startswith("Conv_"):
-            out += ["convs", _index(rest[0])]
-        else:  # LayerNorm_i
-            out += ["norms", _index(rest[0])]
-        return ".".join(out)
-    if top == "stem_t":  # MLP: TDense_i/Dense_0
-        return f"stem_t.layers.{_index(rest[0])}"
-    if top == "head":  # TConv: Conv_0
+            return ".".join(["encoder.blocks", _index(rest[0])]
+                            + [_CONVNEXT[r] for r in rest[1:]])
+        kind = {"Conv": "convs", "LayerNorm": "norms"}[rest[0].rsplit("_")[0]]
+        return f"encoder.{kind}.{_index(rest[0])}"
+    if top.startswith("encoder_"):  # HNeRV's NeRVBlock encoder
+        return f"encoder.{_index(top)}." + _block(rest, path, False)
+    if top in ("stem_t", "t_branch") or (top == "stem"
+                                         and cfg.model == "NeRV_Boost"):
+        return f"{top}." + _mlp(rest, path)
+    if top.startswith("t_layers_"):
+        return f"t_layers.{_index(top)}." + _mlp(rest, path)
+    if top == "trunk":
+        if rest[0] in ("stem_t", "stem_xy", "to_conv"):
+            return f"trunk.{rest[0]}." + _mlp(rest[1:], path)
+        if rest[0] in ("trans1", "trans2") and len(rest) == 4 and \
+                tuple(rest[1:3]) in _TRANSFORMER and rest[3] == "Dense_0":
+            return f"trunk.{rest[0]}.{_TRANSFORMER[tuple(rest[1:3])]}"
+        raise _unmapped(path)
+    if top == "head" and tuple(rest) == ("Conv_0",):
         return "head"
-    out = [top] if top == "stem" else ["blocks", _index(top)]
-    for r in rest:
-        if r in ("UpConv_0", "DownConv_0"):
-            out.append("conv")
-        elif r == "ResBlockSFT_0":
-            out.append("rsft")
-        elif r.startswith("SFTLayer_"):
-            out.append(f"sft{_index(r)}")
-        elif r.startswith("TDense_") and out[-1].startswith("sft"):
-            out.append(_SFT_DENSE[r])
-        elif r.startswith("TConv_") and out[-1] == "rsft":
-            out.append(f"conv{_index(r)}")
-        elif r == "TConv_0":  # the conv inside UpConv / DownConv
-            out.append("conv")
-        elif r not in ("Conv_0", "Dense_0"):  # flax wrappers of TConv/TDense
-            raise KeyError(f"unmapped flax path {'/'.join(path)}")
-    return ".".join(out)
+    if top == "stem":
+        return "stem." + _block(rest, path, False)
+    if top.startswith("blocks_"):
+        i = int(_index(top))
+        return f"blocks.{i}." + _block(rest, path, _is_convup(cfg, i))
+    raise _unmapped(path)
+
+
+def _upconv_block(name: str, cfg: BoostConfig) -> Optional[int]:
+    """The decoder block whose UpConv's conv holds the weight or bias
+    ``name`` (``blocks.i.conv.conv``, or a ConvUpBlock's
+    ``blocks.i.upconv.conv``), None for any other entry."""
+    m = re.fullmatch(r"blocks\.(\d+)\.(conv|upconv)\.conv\.(weight|bias)",
+                     name)
+    if m and (m.group(2) == "upconv") == _is_convup(cfg, int(m.group(1))):
+        return int(m.group(1))
+    return None
+
+
+def _permutation(name: str, cfg: BoostConfig, shape) -> Tuple[int, Any]:
+    """(axis, p) with ``torch = jax.take(p, axis)`` for a weight or bias
+    ``name`` whose channels a PixelShuffle or PixelUnshuffle rearranges;
+    (0, None) for any other entry."""
+    bi = _upconv_block(name, cfg)
+    if bi is not None and cfg.conv_type[1] in ("pshuffel", "pshuffel_3x3"):
+        r = model_stage_plan(cfg)[bi].strd
+        if r > 1:
+            return 0, jax_to_torch_shuffle_perm(shape[0] // (r * r), r)
+    m = re.fullmatch(r"encoder\.(\d+)\.conv\.conv\.weight", name)
+    if m and cfg.conv_type[0] == "pshuffel":
+        r = cfg.enc_strds[int(m.group(1))]
+        if r > 1:
+            return 1, jax_to_torch_shuffle_perm(shape[1] // (r * r), r)
+    return 0, None
+
+
+def _check_family(cfg: BoostConfig) -> None:
+    if cfg.model not in _FAMILIES:
+        raise KeyError(f"Unknown model {cfg.model!r}; available: "
+                       f"{sorted(_FAMILIES)}")
 
 
 def torch_state_from_flax(params: Mapping, cfg: BoostConfig
                           ) -> Dict[str, torch.Tensor]:
-    """flax HNeRV-Boost params (numpy or jax leaves; with or without the
-    top-level ``"params"`` key) -> float32 state dict for
-    ``HNeRVBoost(cfg).load_state_dict``."""
-    if cfg.model != "HNeRV_Boost":
-        raise NotImplementedError(f"the bridge covers HNeRV_Boost only, not "
-                                  f"{cfg.model}")
+    """flax params of ``cfg.model`` (numpy or jax leaves; with or without
+    the top-level ``"params"`` key) -> float32 state dict for the port's
+    model of ``cfg`` (``load_state_dict``)."""
+    _check_family(cfg)
     if "params" in params:
         params = params["params"]
-    strds = [s.strd for s in decoder_stage_plan(cfg, cfg.fc_dim,
-                                                hnerv_style=True)]
     state: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(params):
         arr = np.asarray(leaf, dtype=np.float32)
-        name = f"{_torch_name(path[:-1])}.{_LEAF[path[-1]]}"
+        name = f"{_torch_name(path[:-1], cfg)}.{_LEAF[path[-1]]}"
         if path[-1] == "kernel":
-            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-        r = _upconv_stride(name, strds)
-        if r > 1:
-            arr = arr[jax_to_torch_shuffle_perm(arr.shape[0] // (r * r), r)]
+            if path[-2] == "TConvTranspose_0":
+                arr = arr.transpose(2, 3, 0, 1)
+            else:
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        axis, perm = _permutation(name, cfg, arr.shape)
+        if perm is not None:
+            arr = np.take(arr, perm, axis=axis)
         state[name] = torch.from_numpy(np.array(arr))  # writable copy
     return state
 
 
-def _upconv_stride(name: str, strds) -> int:
-    """The PixelShuffle factor of an upsampling conv's weight or bias
-    ``name``, 1 for any other entry."""
-    m = re.fullmatch(r"blocks\.(\d+)\.conv\.conv\.(weight|bias)", name)
-    return strds[int(m.group(1))] if m else 1
+# ------------------------------------------------------- torch -> flax ---
+
+def _flax_block(mod, convup: bool):
+    """The inverse of ``_block``: torch parts of a block -> flax path."""
+    if mod[0] == "rsft":
+        sub = mod[1]
+        if sub.startswith("sft"):
+            return ["ResBlockSFT_0", f"SFTLayer_{sub[3:]}",
+                    _SFT_FLAX[mod[2]], "Dense_0"]
+        return ["ResBlockSFT_0", f"TConv_{sub[4:]}", "Conv_0"]
+    if convup and mod == ["conv"]:
+        return ["TConv_0", "Conv_0"]
+    return None  # the UpConv / DownConv, resolved by the caller
 
 
-_FLAX_LEAF = {"weight": "kernel", "bias": "bias", "gamma": "gamma"}
-_CONVNEXT_FLAX = {v: k for k, v in _CONVNEXT.items()}
-_SFT_FLAX = {v: k for k, v in _SFT_DENSE.items()}
-
-
-def _flax_path(name: str) -> Tuple[str, ...]:
+def _flax_path(name: str, cfg: BoostConfig,
+               transposed: bool) -> Tuple[str, ...]:
     """torch state-dict key -> flax path (with the leaf); the inverse of
-    ``_torch_name`` plus ``_LEAF``."""
+    ``_torch_name`` plus ``_LEAF``.  ``transposed``: the entry is a
+    ConvTranspose2d's."""
     parts = name.split(".")
     mod, leaf = parts[:-1], parts[-1]
     top = mod[0]
-    if top == "encoder":
-        kind, i, rest = mod[1], mod[2], mod[3:]
-        if kind == "blocks":
-            path = ["encoder", f"ConvNeXtBlock_{i}"] + [
-                _CONVNEXT_FLAX[r] for r in rest]
+    norm = False
+    if top == "encoder" and mod[1] in ("blocks", "convs", "norms"):
+        if mod[1] == "blocks":
+            path = ["encoder", f"ConvNeXtBlock_{mod[2]}"] + [
+                _CONVNEXT_FLAX[r] for r in mod[3:]]
         else:
-            path = ["encoder", {"convs": "Conv", "norms": "LayerNorm"}[kind]
-                    + f"_{i}"]
-        norm = (path[-1].startswith("LayerNorm_"))
-    elif top == "stem_t":
-        path, norm = ["stem_t", f"TDense_{mod[2]}", "Dense_0"], False
+            path = ["encoder", {"convs": "Conv", "norms": "LayerNorm"}[
+                mod[1]] + f"_{mod[2]}"]
+        norm = path[-1].startswith("LayerNorm_")
+    elif top in ("stem_t", "t_branch") or (top == "stem"
+                                           and cfg.model == "NeRV_Boost"):
+        path = [top, f"TDense_{mod[2]}", "Dense_0"]
+    elif top == "t_layers":
+        path = [f"t_layers_{mod[1]}", f"TDense_{mod[3]}", "Dense_0"]
+    elif top == "trunk":
+        if mod[1] in ("stem_t", "stem_xy", "to_conv"):
+            path = ["trunk", mod[1], f"TDense_{mod[3]}", "Dense_0"]
+        else:
+            path = ["trunk", mod[1],
+                    *_TRANSFORMER_FLAX[".".join(mod[2:4])], "Dense_0"]
     elif top == "head":
-        path, norm = ["head", "Conv_0"], False
-    else:
-        path = ["stem"] if top == "stem" else [f"blocks_{mod[1]}"]
-        rest = mod[1:] if top == "stem" else mod[2:]
-        if rest[0] == "conv":  # UpConv_0 / DownConv_0 -> TConv_0 -> Conv_0
-            path += ["DownConv_0" if top == "stem" else "UpConv_0",
-                     "TConv_0", "Conv_0"]
-        else:  # rsft
-            path.append("ResBlockSFT_0")
-            sub = rest[1]
-            if sub.startswith("sft"):
-                path += [f"SFTLayer_{sub[3:]}", _SFT_FLAX[rest[2]],
-                         "Dense_0"]
-            else:
-                path += [f"TConv_{sub[4:]}", "Conv_0"]
-        norm = False
+        path = ["head", "Conv_0"]
+    else:  # stem, blocks.i, encoder.i
+        if top == "stem":
+            path, rest, convup, conv = ["stem"], mod[1:], False, "DownConv_0"
+        elif top == "encoder":
+            path, rest, convup, conv = ([f"encoder_{mod[1]}"], mod[2:], False,
+                                        "DownConv_0")
+        else:
+            i = int(mod[1])
+            path, rest, conv = [f"blocks_{i}"], mod[2:], "UpConv_0"
+            convup = _is_convup(cfg, i)
+        sub = _flax_block(rest, convup)
+        if sub is None:  # conv.conv or upconv.conv
+            sub = [conv] + (["TConvTranspose_0"] if transposed
+                            else ["TConv_0", "Conv_0"])
+        path += sub
     return tuple(path) + ("scale" if norm and leaf == "weight"
-                          else _FLAX_LEAF[leaf],)
+                          else {"weight": "kernel", "bias": "bias",
+                                "gamma": "gamma"}[leaf],)
 
 
 def flax_params_from_torch_state(state: Mapping[str, torch.Tensor],
                                  cfg: BoostConfig) -> Dict[str, Any]:
-    """HNeRVBoost state dict -> the flax params tree
-    ``{"params": {...}}`` in float32 numpy: OIHW -> HWIO, Linear -> Dense,
-    the torch PixelShuffle channel order of every upsampling conv back to
-    JAX's, and the SFT Dense names.  ``torch_state_from_flax`` of the
-    result gives ``state`` back."""
-    if cfg.model != "HNeRV_Boost":
-        raise NotImplementedError(f"the bridge covers HNeRV_Boost only, not "
-                                  f"{cfg.model}")
-    strds = [s.strd for s in decoder_stage_plan(cfg, cfg.fc_dim,
-                                                hnerv_style=True)]
+    """State dict of the port's model of ``cfg`` -> the flax params tree
+    ``{"params": {...}}`` in float32 numpy: OIHW -> HWIO, ConvTranspose2d
+    -> the flax (k, k, in, out), Linear -> Dense, the torch PixelShuffle
+    channel orders back to JAX's, and the module names.
+    ``torch_state_from_flax`` of the result gives ``state`` back."""
+    _check_family(cfg)
     tree: Dict[str, Any] = {}
     for name, t in state.items():
         arr = t.detach().to("cpu", torch.float32).numpy()
-        r = _upconv_stride(name, strds)
-        if r > 1:
-            perm = jax_to_torch_shuffle_perm(arr.shape[0] // (r * r), r)
-            arr = arr[np.argsort(perm)]
-        path = _flax_path(name)
+        axis, perm = _permutation(name, cfg, arr.shape)
+        if perm is not None:
+            arr = np.take(arr, np.argsort(perm), axis=axis)
+        transposed = _transposed(name, cfg)
+        path = _flax_path(name, cfg, transposed)
         if path[-1] == "kernel":
-            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            if transposed:
+                arr = arr.transpose(2, 3, 0, 1)
+            else:
+                arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(arr)
     return {"params": tree}
+
+
+def _transposed(name: str, cfg: BoostConfig) -> bool:
+    """The entry is the ConvTranspose2d of a decoder UpConv of kind
+    ``conv``."""
+    return cfg.conv_type[1] == "conv" and _upconv_block(name, cfg) is not None
 
 
 def load_flax_checkpoint(path: str) -> Dict[str, Any]:

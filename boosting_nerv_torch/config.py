@@ -9,7 +9,7 @@ package's compute knobs those that mean something on one GPU
 (``train_precision``, ``micro_batch``, ``remat``) or that the port's
 trainer refuses until their slice lands (``dp``, ``sp``, ``profile``,
 ``planar_train``).  The CEM quantiser fields come with the compression
-slice.  ``decoder_stage_plan`` and ``resolve_sizes`` are the same
+slice.  ``decoder_stage_plan``, ``resolve_sizes`` and ``model_expansion`` are the same
 arithmetic as there (the reference's channel schedule and model-sizing
 solver), so that one set of flags gives both packages the same model;
 ``tests/test_torch_config.py`` holds them to it.  The port keeps its own
@@ -37,7 +37,7 @@ class BoostConfig:
     resize_list: str = "-1"
 
     # architecture
-    model: str = "HNeRV_Boost"  # NeRV_Boost | ENeRV_Boost | HNeRV_Boost | HNeRV
+    model: str = "HNeRV_Boost"  # NeRV_Boost | ENeRV | ENeRV_Boost | HNeRV_Boost | HNeRV
     embed: str = "pe_1.25_80"
     ks: str = "0_1_5"
     enc_blks: int = 1
@@ -144,6 +144,13 @@ class BoostConfig:
     def is_hnerv_family(self) -> bool:
         return "HNeRV" in self.model
 
+    @property
+    def uses_frame_input(self) -> bool:
+        """True when the model consumes frames (the encoder path), as the
+        reference selects its input (train_nerv_all.py:337-340); the
+        index-only models take the normalised frame index."""
+        return "pe" not in self.embed or "HNeRV_Boost" in self.model
+
     def replace(self, **kw) -> "BoostConfig":
         return dataclasses.replace(self, **kw)
 
@@ -235,3 +242,18 @@ def resolve_sizes(cfg: BoostConfig, final_size: int, full_data_length: int
     out.final_size = final_size
     out.full_data_length = full_data_length
     return out
+
+
+def model_expansion(model: str) -> float:
+    """Channel expansion of decoder stage 0 (train_nerv_all.py:220-227)."""
+    return {"NeRV_Boost": 1, "ENeRV_Boost": 3}.get(model, 1)
+
+
+def model_stage_plan(cfg: BoostConfig) -> List[StageSpec]:
+    """The decoder stage plan of ``cfg.model``: HNeRV style for the HNeRV
+    families, else stage 0 widened by the family's expansion (E-NeRV's 3,
+    models/enerv.py)."""
+    if cfg.model in ("HNeRV_Boost", "HNeRV"):
+        return decoder_stage_plan(cfg, cfg.fc_dim, hnerv_style=True)
+    expansion = 3 if cfg.model == "ENeRV" else model_expansion(cfg.model)
+    return decoder_stage_plan(cfg, cfg.fc_dim, expansion=expansion)

@@ -1,4 +1,4 @@
-from .hnerv import HNeRVBoost, decoder_only_params
+from .enerv import ENeRV, ENeRVBoost
+from .hnerv import HNeRV, HNeRVBoost, decoder_only_params
+from .nerv import NeRVBoost
 from .registry import build_model
-
-__all__ = ["HNeRVBoost", "build_model", "decoder_only_params"]

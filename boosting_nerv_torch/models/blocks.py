@@ -1,12 +1,20 @@
-"""HNeRV-Boost building blocks in PyTorch (port of the parts of
-boosting_nerv_tpu/models/blocks.py that HNeRV-Boost uses).
+"""Model building blocks in PyTorch (port of
+boosting_nerv_tpu/models/blocks.py): every block of the five model
+families.
 
-Modules run NCHW inside; the model's public tensors keep the JAX layout
+Modules run NCHW inside; the models' public tensors keep the JAX layout
 (see models/hnerv.py).  Conv and Linear layers use torch's default init,
 which is the distribution the JAX package reproduces
-(``models/initializers.py``: U(+-1/sqrt(fan_in)) for weights and biases);
-ConvNeXt layers use trunc_normal(0.02) and zero biases.  ``init_weights``
-draws all of them from one explicit ``torch.Generator``.
+(``models/initializers.py``: U(+-1/sqrt(fan_in)) for weights and biases;
+a transposed conv's fan_in is its input channels times its taps, as
+there); ConvNeXt layers use trunc_normal(0.02) and zero biases.
+``init_weights`` draws all of them from one explicit ``torch.Generator``.
+
+Where a block rearranges channels its torch channel order is torch's own:
+``UpConv``'s PixelShuffle and ``DownConv``'s PixelUnshuffle pack the
+r x r block positions inside each channel, (c, r1, r2), where the JAX
+package packs them outside, (r1, r2, c); ``bridge.py`` reorders the convs'
+output (or input) channels once when flax weights are loaded.
 """
 
 from __future__ import annotations
@@ -53,41 +61,123 @@ class MLP(nn.Module):
         return x
 
 
+def _resize_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """[n_out, n_in] float32 weights of ``jax.image.resize``'s "bilinear"
+    along one axis (jax/_src/image/scale.py::compute_weight_mat): half-pixel
+    centres, the triangle kernel widened by the downsampling factor
+    (antialias), each output's weights normalised to sum 1."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float64) + 0.5) * inv_scale \
+        - 0.5
+    x = (sample[:, None] - torch.arange(n_in, dtype=torch.float64)[None, :]
+         ).abs() / kernel_scale
+    w = (1.0 - x).clamp(min=0.0)
+    total = w.sum(dim=1, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[:, None], w, 0.0).to(torch.float32)
+
+
+def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """NCHW x resized to h x w as ``jax.image.resize(..., "bilinear")``
+    resizes NHWC (antialiased when it downsamples)."""
+    wy = _resize_weights(x.shape[2], h).to(x.device, x.dtype)
+    wx = _resize_weights(x.shape[3], w).to(x.device, x.dtype)
+    return torch.einsum("nchw,yh,xw->ncyx", x, wy, wx)
+
+
+class TConvTranspose(nn.ConvTranspose2d):
+    """Transposed conv with torch ConvTranspose2d geometry, out = (in - 1)
+    * stride - 2 * pad + kernel (the flax module applies its (k, k, in,
+    out) kernel flipped to the stride-dilated input: the same function,
+    whose torch weight is ``kernel.transpose(2, 3, 0, 1)``)."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int, stride: int,
+                 pad: int):
+        super().__init__(in_ch, features, kernel, stride=stride, padding=pad)
+
+
 class UpConv(nn.Module):
-    """``pshuffel_3x3`` upsampling conv: conv (kernel clamped to 3) ->
-    PixelShuffle(strd), torch channel order."""
+    """Upsampling conv.  ``pshuffel`` / ``pshuffel_3x3`` (kernel clamped
+    to 3; every Boost config): conv -> PixelShuffle(strd), torch channel
+    order; ``conv``: the transposed conv of kernel ks + strd, stride strd,
+    pad ceil(ks / 2); ``interpolate``: bilinear upsampling by strd, then a
+    conv of kernel strd + ks, pad ceil((ks + strd - 1) / 2)."""
 
     def __init__(self, conv_type: str, ngf: int, new_ngf: int, ks: int,
                  strd: int):
         super().__init__()
-        if conv_type != "pshuffel_3x3":
-            raise NotImplementedError(
-                f"UpConv {conv_type!r} is not ported yet (ROADMAP queue 1: "
-                "other model families)")
-        ks = min(ks, 3)
-        self.strd = strd
-        self.conv = TConv(ngf, new_ngf * strd * strd, ks, 1, (ks - 1) // 2)
+        self.conv_type, self.strd = conv_type, strd
+        if conv_type in ("pshuffel", "pshuffel_3x3"):
+            if conv_type == "pshuffel_3x3":
+                ks = min(ks, 3)
+            self.conv = TConv(ngf, new_ngf * strd * strd, ks, 1,
+                              (ks - 1) // 2)
+        elif conv_type == "conv":
+            self.conv = TConvTranspose(ngf, new_ngf, ks + strd, strd,
+                                       math.ceil(ks / 2))
+        elif conv_type == "interpolate":
+            self.conv = TConv(ngf, new_ngf, strd + ks, 1,
+                              math.ceil((ks + strd - 1) / 2))
+        else:
+            raise KeyError(f"unknown upconv type {conv_type}")
 
     def forward(self, x):
+        if self.conv_type == "conv":
+            return self.conv(x)
+        if self.conv_type == "interpolate":
+            return self.conv(resize_bilinear(x, x.shape[2] * self.strd,
+                                             x.shape[3] * self.strd))
         return F.pixel_shuffle(self.conv(x), self.strd)
 
 
 class DownConv(nn.Module):
-    """``conv`` downsampling conv: kernel ks+strd, stride strd,
-    pad ceil(ks/2).  HNeRV-Boost's decoder stem is this with ks=0, strd=1:
-    a 1x1 conv."""
+    """Downsampling conv.  ``conv``: kernel ks + strd, stride strd, pad
+    ceil(ks / 2) (HNeRV-Boost's decoder stem is this with ks 0, strd 1: a
+    1x1 conv); ``pshuffel``: PixelUnshuffle(strd), torch channel order,
+    then a conv of kernel ks, pad (ks - 1) // 2; ``interpolate``: bilinear
+    (antialiased) downsampling by strd, then a conv of kernel ks + strd,
+    pad ceil((ks + strd - 1) / 2)."""
 
     def __init__(self, conv_type: str, ngf: int, new_ngf: int, ks: int,
                  strd: int):
         super().__init__()
-        if conv_type != "conv":
-            raise NotImplementedError(
-                f"DownConv {conv_type!r} is not ported yet (ROADMAP queue 1: "
-                "other model families)")
-        self.conv = TConv(ngf, new_ngf, ks + strd, strd, math.ceil(ks / 2))
+        self.conv_type, self.strd = conv_type, strd
+        if conv_type == "conv":
+            self.conv = TConv(ngf, new_ngf, ks + strd, strd,
+                              math.ceil(ks / 2))
+        elif conv_type == "pshuffel":
+            self.conv = TConv(ngf * strd * strd, new_ngf, ks, 1,
+                              (ks - 1) // 2)
+        elif conv_type == "interpolate":
+            self.conv = TConv(ngf, new_ngf, ks + strd, 1,
+                              math.ceil((ks + strd - 1) / 2))
+        else:
+            raise KeyError(f"unknown downconv type {conv_type}")
 
     def forward(self, x):
+        if self.conv_type == "pshuffel" and self.strd != 1:
+            x = F.pixel_unshuffle(x, self.strd)
+        elif self.conv_type == "interpolate":
+            x = resize_bilinear(x, x.shape[2] // self.strd,
+                                x.shape[3] // self.strd)
         return self.conv(x)
+
+
+def norm_layer(norm: str, x: torch.Tensor) -> torch.Tensor:
+    """none | in (InstanceNorm, no affine) | bn (batch-statistics norm, no
+    running statistics, as the JAX package's) of NCHW x; biased variance,
+    (x - mean) * rsqrt(var + 1e-5)."""
+    if norm == "none":
+        return x
+    if norm not in ("in", "bn"):
+        raise NotImplementedError(norm)
+    dims = (2, 3) if norm == "in" else (0, 2, 3)
+    mean = x.mean(dim=dims, keepdim=True)
+    var = x.var(dim=dims, keepdim=True, unbiased=False)
+    return (x - mean) * torch.rsqrt(var + 1e-5)
 
 
 class SFTLayer(nn.Module):
@@ -135,27 +225,68 @@ class ResBlockSFT(nn.Module):
 
 
 class NeRVBlock(nn.Module):
-    """Upsample (decoder) or downsample (stem) conv -> activation ->
-    optional TAT block.  Only norm 'none' is ported (every Boost config)."""
+    """Upsample (decoder) or downsample (stem, encoder) conv -> norm ->
+    activation -> optional TAT block (``cond_ch`` > 0).  With ``fc_hw``
+    (an encoder-less stem, ``has_encoder`` False) the activation's
+    channels are rearranged into an fc_h x fc_w pixel block before the TAT
+    block, whose width is then new_ngf / (fc_h fc_w)."""
 
     def __init__(self, dec_block: bool, conv_type: str, ngf: int,
                  new_ngf: int, ks: int, strd: int, norm: str = "none",
-                 act: str = "gelu", cond_ch: int = 0):
+                 act: str = "gelu", cond_ch: int = 0,
+                 has_encoder: bool = True, fc_hw=None):
         super().__init__()
-        if norm != "none":
-            raise NotImplementedError(
-                f"norm {norm!r} is not ported yet (ROADMAP queue 1: other "
-                "model families)")
+        if norm not in ("none", "in", "bn"):
+            raise NotImplementedError(norm)
         conv_cls = UpConv if dec_block else DownConv
         self.conv = conv_cls(conv_type, ngf, new_ngf, ks, strd)
+        self.norm = norm
+        self.act = get_activation(act)
+        self.fc_hw = (None if dec_block or has_encoder else tuple(fc_hw))
+        ch = new_ngf // (self.fc_hw[0] * self.fc_hw[1]) if self.fc_hw \
+            else new_ngf
+        self.rsft = ResBlockSFT(cond_ch, ch) if cond_ch else None
+
+    def forward(self, x, t_embed=None):
+        y = self.act(norm_layer(self.norm, self.conv(x)))
+        if self.rsft is None or t_embed is None:
+            return y
+        if self.fc_hw:  # channel (i fc_w + j) c' + k -> pixel (i, j), k
+            fh, fw = self.fc_hw
+            b, c, h, w = y.shape
+            y = y.reshape(b, fh, fw, c // (fh * fw), h, w).permute(
+                0, 3, 4, 1, 5, 2).reshape(b, c // (fh * fw), h * fh, w * fw)
+        return self.rsft(y, t_embed)
+
+
+class ConvUpBlock(nn.Module):
+    """E-NeRV's stage 0, a factorised conv and upsample: with ngf <=
+    new_ngf an UpConv to ngf // 4 channels then a 3x3 conv to new_ngf,
+    else a 3x3 conv to new_ngf then an UpConv at new_ngf; norm,
+    activation, optional TAT block (``cond_ch`` > 0)."""
+
+    def __init__(self, conv_type: str, ngf: int, new_ngf: int, ks: int,
+                 strd: int, norm: str = "none", act: str = "gelu",
+                 cond_ch: int = 0):
+        super().__init__()
+        self.up_first = ngf <= new_ngf
+        if self.up_first:
+            self.upconv = UpConv(conv_type, ngf, ngf // 4, ks, strd)
+            self.conv = TConv(ngf // 4, new_ngf, 3, 1, 1)
+        else:
+            self.conv = TConv(ngf, new_ngf, 3, 1, 1)
+            self.upconv = UpConv(conv_type, new_ngf, new_ngf, ks, strd)
+        self.norm = norm
         self.act = get_activation(act)
         self.rsft = ResBlockSFT(cond_ch, new_ngf) if cond_ch else None
 
     def forward(self, x, t_embed=None):
-        y = self.act(self.conv(x))
-        if self.rsft is None or t_embed is None:
-            return y
-        return self.rsft(y, t_embed)
+        x = (self.conv(self.upconv(x)) if self.up_first
+             else self.upconv(self.conv(x)))
+        x = self.act(norm_layer(self.norm, x))
+        if self.rsft is not None and t_embed is not None:
+            x = self.rsft(x, t_embed)
+        return x
 
 
 def _layer_norm_channels(norm: nn.LayerNorm, x):
@@ -228,7 +359,9 @@ def _trunc_normal_(t: torch.Tensor, std: float, g: torch.Generator):
 
 def init_weights(module: nn.Module, g: torch.Generator) -> None:
     """Re-draw every parameter of ``module`` from ``g``: torch-default
-    U(+-1/sqrt(fan_in)) for TConv/TDense, trunc_normal(0.02) and zero bias
+    U(+-1/sqrt(fan_in)) for TConv/TDense/TConvTranspose (fan_in of the
+    last: its input channels times its taps), trunc_normal(0.02) and zero
+    bias
     for the ConvNeXt encoder's convs and dense layers, LayerNorm 1/0, and
     layer-scale gamma 1e-6."""
     convnext = set()
@@ -237,12 +370,14 @@ def init_weights(module: nn.Module, g: torch.Generator) -> None:
             convnext.update(id(c) for c in m.modules())
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
                 if id(m) in convnext:
                     _trunc_normal_(m.weight, 0.02, g)
                     m.bias.zero_()
                     continue
-                fan_in = m.weight[0].numel()
+                fan_in = (m.weight[:, 0].numel()
+                          if isinstance(m, nn.ConvTranspose2d)
+                          else m.weight[0].numel())
                 bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
                 m.weight.uniform_(-bound, bound, generator=g)
                 if m.bias is not None:

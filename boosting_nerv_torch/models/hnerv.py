@@ -1,8 +1,15 @@
-"""HNeRV-Boost in PyTorch (port of boosting_nerv_tpu/models/hnerv.py).
+"""HNeRV-Boost and the HNeRV baseline in PyTorch (port of
+boosting_nerv_tpu/models/hnerv.py).
 
-A ConvNeXt encoder maps a frame to a small per-frame embedding; the decoder
-(1x1-conv stem, then sinusoidal NeRV blocks, each modulated through its
-ResBlockSFT by stem_t(PE(t))) maps embedding + frame index to the frame.
+HNeRV-Boost: a ConvNeXt encoder maps a frame to a small per-frame
+embedding; the decoder (1x1-conv stem, then sinusoidal NeRV blocks, each
+modulated through its ResBlockSFT by stem_t(PE(t))) maps embedding + frame
+index to the frame.
+
+HNeRV (no TAT): the encoder (ConvNeXt, or strided NeRVBlocks of
+``conv_type[0]``), or with no ``enc_strds`` the PE of the frame index as a
+[B, 1, 1, 2L] embedding; a 1x1-conv stem to fc_dim fc_h fc_w channels,
+rearranged into an fc_h x fc_w pixel block; plain NeRV blocks; a 3x3 head.
 
 Public tensors keep the JAX layout: frame [B, H, W, 3], embedding
 [B, h, w, C], t [B].  Inside, the modules run NCHW.
@@ -12,10 +19,11 @@ from __future__ import annotations
 
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 
-from ..config import BoostConfig, decoder_stage_plan
+from ..config import BoostConfig, model_stage_plan
 from ..ops.losses import out_img
 from ..ops.pe import PEConfig, position_encoding
 from .blocks import MLP, ConvNeXtEncoder, NeRVBlock, TConv
@@ -40,7 +48,7 @@ class HNeRVBoost(nn.Module):
         self.stem = NeRVBlock(False, "conv", dims[-1], cfg.fc_dim, ks=0,
                               strd=1, norm=cfg.norm, act=cfg.act,
                               cond_ch=cond)
-        plan = decoder_stage_plan(cfg, cfg.fc_dim, hnerv_style=True)
+        plan = model_stage_plan(cfg)
         self.blocks = nn.ModuleList(
             NeRVBlock(True, cfg.conv_type[1], s.ngf, s.new_ngf, s.ks, s.strd,
                       norm=cfg.norm, act=cfg.act, cond_ch=cond)
@@ -75,3 +83,69 @@ def decoder_only_params(state: Dict[str, torch.Tensor]
     decode-only artifact.  Load it with ``load_state_dict(..., strict=False)``
     into a model that only decodes."""
     return {k: v for k, v in state.items() if not k.startswith("encoder.")}
+
+
+class HNeRV(nn.Module):
+    """Baseline HNeRV (no TAT), with the encoder-less PE variant."""
+
+    def __init__(self, cfg: BoostConfig):
+        super().__init__()
+        self.cfg = cfg
+        ks_enc = cfg.ks_triple[0]
+        self.pe = None
+        if len(cfg.enc_strds):
+            dims = _encoder_dims(cfg)
+            if cfg.conv_type[0] == "convnext":
+                self.encoder = ConvNeXtEncoder(3, cfg.enc_blks,
+                                               cfg.enc_strds, dims)
+            else:
+                self.encoder = nn.ModuleList(
+                    NeRVBlock(False, cfg.conv_type[0], i, d, ks_enc, s,
+                              norm=cfg.norm, act=cfg.act)
+                    for i, d, s in zip([3, *dims[:-1]], dims, cfg.enc_strds))
+            hw = int(np.prod(cfg.enc_strds) // np.prod(cfg.dec_strds))
+            self.fc_h = self.fc_w = hw
+            embed_ch = dims[-1]
+        else:
+            self.pe = PEConfig.from_string(cfg.embed, cfg.lfreq)
+            self.fc_h, self.fc_w = cfg.fc_h, cfg.fc_w
+            self.encoder = None
+            embed_ch = self.pe.embed_length
+        out_f = int(cfg.fc_dim * self.fc_h * self.fc_w)
+        self.stem = NeRVBlock(False, "conv", embed_ch, out_f, ks=0, strd=1,
+                              norm=cfg.norm, act=cfg.act)
+        plan = model_stage_plan(cfg)
+        self.blocks = nn.ModuleList(
+            NeRVBlock(True, cfg.conv_type[1], s.ngf, s.new_ngf, s.ks, s.strd,
+                      norm=cfg.norm, act=cfg.act)
+            for s in plan)
+        self.head = TConv(plan[-1].new_ngf, 3, 3, 1, 1)
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """Frame [B, H, W, 3] -> embedding [B, h, w, C]; or, encoder-less,
+        the normalised index [B] -> its PE as [B, 1, 1, 2L]."""
+        if self.encoder is None:
+            pe = position_encoding(x, self.pe).to(self.head.weight.dtype)
+            return pe[:, None, None, :]
+        x = x.permute(0, 3, 1, 2)
+        if isinstance(self.encoder, nn.ModuleList):
+            for blk in self.encoder:
+                x = blk(x)
+        else:
+            x = self.encoder(x)
+        return x.permute(0, 2, 3, 1)
+
+    def decode(self, embed: torch.Tensor) -> torch.Tensor:
+        """Embedding [B, h, w, C] -> frame [B, H, W, 3]."""
+        x = self.stem(embed.permute(0, 3, 1, 2))
+        fh, fw = self.fc_h, self.fc_w
+        if fh * fw > 1:  # channel c' fh fw + i fw + j -> pixel (i, j), c'
+            b, c, h, w = x.shape
+            x = x.reshape(b, c // (fh * fw), fh, fw, h, w).permute(
+                0, 1, 4, 2, 5, 3).reshape(b, c // (fh * fw), h * fh, w * fw)
+        for blk in self.blocks:
+            x = blk(x)
+        return out_img(self.head(x), self.cfg.out_bias).permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decode(self.encode(x))

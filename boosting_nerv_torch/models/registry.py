@@ -1,35 +1,41 @@
-"""Model registry (port of boosting_nerv_tpu/models/registry.py).
-
-Only HNeRV-Boost, the serving model, is ported; the other families raise
-NotImplementedError naming their ROADMAP item."""
+"""Model registry (port of boosting_nerv_tpu/models/registry.py): the five
+trainable families."""
 
 from __future__ import annotations
 
 from typing import Optional, Union
 
 import torch
+import torch.nn as nn
 
 from ..config import BoostConfig
 from .blocks import init_weights
-from .hnerv import HNeRVBoost
+from .enerv import ENeRV, ENeRVBoost
+from .hnerv import HNeRV, HNeRVBoost
+from .nerv import NeRVBoost
 
-_NOT_PORTED = ("NeRV_Boost", "ENeRV", "ENeRV_Boost", "HNeRV")
+_REGISTRY = {
+    "NeRV_Boost": NeRVBoost,
+    "ENeRV": ENeRV,
+    "ENeRV_Boost": ENeRVBoost,
+    "HNeRV_Boost": HNeRVBoost,
+    "HNeRV": HNeRV,
+}
 
 
 def build_model(cfg: BoostConfig, seed: Optional[int] = 0,
-                device: Union[str, torch.device] = "cuda") -> HNeRVBoost:
+                device: Union[str, torch.device] = "cuda") -> nn.Module:
     """The model for ``cfg`` on ``device``: the card unless the caller asks
     for the CPU (``device="cpu"``).  With ``seed`` not None every
     parameter is drawn from ``torch.Generator().manual_seed(seed)`` on the
     CPU first, so the weights do not depend on the device or on torch's
-    global RNG."""
-    if cfg.model in _NOT_PORTED:
-        raise NotImplementedError(f"{cfg.model} is not ported yet (ROADMAP "
-                                  "queue 1: other model families)")
-    if cfg.model != "HNeRV_Boost":
-        raise KeyError(f"Unknown model {cfg.model!r}; available: "
-                       f"{['HNeRV_Boost', *sorted(_NOT_PORTED)]}")
-    model = HNeRVBoost(cfg)
+    global RNG.  An unknown ``cfg.model`` raises KeyError."""
+    try:
+        cls = _REGISTRY[cfg.model]
+    except KeyError:
+        raise KeyError(f"Unknown model {cfg.model!r}; "
+                       f"available: {sorted(_REGISTRY)}") from None
+    model = cls(cfg)
     if seed is not None:
         init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device)

@@ -1,5 +1,6 @@
 // The Hopper bf16 conv kernel: a same-padded KS x KS convolution (KS in
-// {1, 3, 5}, Cin <= 128) of NHWC bf16 with an OHWI weight, fp32
+// {1, 3, 5}, Cin <= 128; up to 256 on the K-loop instances of
+// conv_sm90_kloop.cu) of NHWC bf16 with an OHWI weight, fp32
 // accumulation on the tensor cores with wgmma, and the fused prologue and
 // epilogue of the stage kernel (stage_conv.cu):
 //

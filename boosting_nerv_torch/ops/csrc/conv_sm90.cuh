@@ -58,6 +58,10 @@
 // and no residual), the planar conv (conv_sm90_planar.cu).  A planar
 // tensor (4 Cp, Hc, Wd) holds the fine (C, 2 hc, 2 wc) one as
 // planar[(2 r1 + r2) Cp + c, y, x] = fine[c, 2 y + r1, 2 x + r2].
+// MODE_KLOOP takes an input of more than MAX_CIN_PAD channels (padded, up
+// to MAX_CIN_KLOOP) in bf16 with every epilogue option of MODE_NONE: a K
+// loop over chunks of KC input channels inside the kernel
+// (consume_kloop; conv_sm90_kloop.cu).
 
 #pragma once
 
@@ -73,6 +77,8 @@ constexpr int TW = 64;                // output columns per tile: one m64
 constexpr int ROWS_PER_WG = 2;        // output rows per consumer warpgroup
 constexpr int ROWS_S8_64 = 3;         // the int8 form's at N 64 (rows_of)
 constexpr int MAX_CIN_PAD = 128;
+constexpr int MAX_CIN_KLOOP = 256;    // MODE_KLOOP's Cin (padded to 16)
+constexpr int KC = 64;                // MODE_KLOOP's input channels a chunk
 constexpr int MAX_WS = 8;             // weight ring depth when streamed
 constexpr int PRODUCER = 32;          // producer threads (one warp)
 
@@ -121,7 +127,8 @@ enum Mode {
   MODE_SIN_RESIDUAL = 2,
   MODE_PLANAR_IN = 3,
   MODE_PLANAR_OUT = 4,
-  MODE_PLANAR_IO = 5
+  MODE_PLANAR_IO = 5,
+  MODE_KLOOP = 6
 };
 
 __host__ __device__ constexpr bool planar_mode(int m) {
@@ -155,13 +162,30 @@ struct ParamsPlanarIO : ParamsPlanar {
   int cpo;
 };
 
+// A MODE_KLOOP launch: Params with cin_pad the channels of one chunk
+// (KC: the operand tile and a weight ring slot hold one chunk's) and raw
+// rows of all Cin channels, and
+struct ParamsKloop : Params {
+  int cin_all;                     // Cin padded to KC: the conv's K
+  int nkc;                         // chunks of KC channels
+};
+
 template <int F, int M = MODE_NONE>
 using ParamsOf = std::conditional_t<
     F == FORM_BF16,
     std::conditional_t<
         M == MODE_PLANAR_IO, ParamsPlanarIO,
-        std::conditional_t<planar_mode(M), ParamsPlanar, Params>>,
+        std::conditional_t<
+            planar_mode(M), ParamsPlanar,
+            std::conditional_t<M == MODE_KLOOP, ParamsKloop, Params>>>,
     ParamsS8>;
+
+// The chunk that slice s of a MODE_KLOOP tile takes cc-th: even slices
+// walk the chunks forward, odd ones backward, so that a slice starts on
+// the chunk its predecessor ended on, which the operand tile still holds.
+__host__ __device__ inline int chunk_at(int s, int cc, int nkc) {
+  return s & 1 ? nkc - 1 - cc : cc;
+}
 
 // Planar columns of a MODE_PLANAR_IN box: a tile's TW + 2 fine columns
 // span planar columns tx0 / 2 - 1 .. tx0 / 2 + TW / 2; a tensor copy's
@@ -618,12 +642,34 @@ __device__ __forceinline__ void produce(const Params& p, const Layout& L,
       raw_phase ^= 1;
     }
     if (p.resident) continue;
-    for (int kb = 0; kb < kblocks; ++kb) {
-      bar_wait(&empty_w[wr.slot], wr.phase ^ 1);
-      bar_expect(&full_w[wr.slot], wbytes);
-      bulk_load(smem + L.wgt + wr.slot * wbytes, wpk + (size_t)kb * wbytes,
-                wbytes, &full_w[wr.slot]);
-      wr.next(p.ws);
+    if constexpr (M == MODE_KLOOP) {
+      // block (slice s, chunk ci, tap) of [slice][chunk][tap][kstep]...,
+      // in the order the consumers take them (chunk_at)
+      const ParamsKloop& q = static_cast<const ParamsKloop&>(p);
+      const int taps = p.ks * p.ks;
+      for (int s = 0; s < p.nslices; ++s) {
+        for (int cc = 0; cc < q.nkc; ++cc) {
+          const int ci = chunk_at(s, cc, q.nkc);
+          const unsigned char* src =
+              wpk +
+              ((size_t)s * q.cin_all + (size_t)ci * KC) * taps * ns * 2;
+          for (int tap = 0; tap < taps; ++tap) {
+            bar_wait(&empty_w[wr.slot], wr.phase ^ 1);
+            bar_expect(&full_w[wr.slot], wbytes);
+            bulk_load(smem + L.wgt + wr.slot * wbytes,
+                      src + (size_t)tap * wbytes, wbytes, &full_w[wr.slot]);
+            wr.next(p.ws);
+          }
+        }
+      }
+    } else {
+      for (int kb = 0; kb < kblocks; ++kb) {
+        bar_wait(&empty_w[wr.slot], wr.phase ^ 1);
+        bar_expect(&full_w[wr.slot], wbytes);
+        bulk_load(smem + L.wgt + wr.slot * wbytes, wpk + (size_t)kb * wbytes,
+                  wbytes, &full_w[wr.slot]);
+        wr.next(p.ws);
+      }
     }
   }
 }
@@ -1031,6 +1077,157 @@ __device__ __forceinline__ void repack_planar(
   }
 }
 
+// The consumers of a MODE_KLOOP launch (bf16, 2 rows a warpgroup, the
+// weights streamed): per tile and N slice, a K loop over the chunks of KC
+// input channels in chunk_at's order.  A chunk that the operand tile does
+// not hold is repacked into it from the raw rows (which hold all Cin
+// channels: the producer's copies are MODE_NONE's) once the GEMM is done
+// with the tile; the tile's last repack releases the raw buffer.  Each
+// chunk's taps run wgmma over its KC / 16 K steps into the same
+// accumulators, which the epilogue (MODE_NONE's) takes after the last
+// chunk.  Every chunk is KC wide (Cin is padded to KC, zeros beyond it):
+// a K-step count that changed from chunk to chunk made ptxas serialise
+// the wgmmas (C7520, on an H100's toolkit).
+template <int NS>
+__device__ __forceinline__ void consume_kloop(const ParamsKloop& p,
+                                              const Layout& L,
+                                              unsigned char* smem) {
+  constexpr int R = ROWS_PER_WG, G = 8;
+  uint64_t* full_raw = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty_raw = full_raw + 1;
+  uint64_t* full_w = empty_raw + 1;
+  uint64_t* empty_w = full_w + p.ws;
+  const int consumers = 128 * p.nwg, cwarps = 4 * p.nwg;
+  const int ph = tile_h(p.nwg) + p.ks - 1, pw = TW + p.ks - 1;
+  const int gs = group_stride(p.ks, p.nwg);
+  const uint32_t lbo_a = gs * 16;
+  const int halo = (p.ks - 1) / 2, taps = p.ks * p.ks;
+  const int tiles = p.tiles_w * p.tiles_h * p.n;
+  const int wbytes = wblock_bytes(NS, p.cin_pad);  // a ring slot
+  __nv_bfloat16* s_pad = reinterpret_cast<__nv_bfloat16*>(smem + L.pad);
+  const unsigned char* s_w = smem + L.wgt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wq = warp & 3;
+  const int g = lane >> 2, tq = lane & 3;
+  Ring wr;
+  uint32_t raw_phase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const TileAt t = tile_at<R>(p, tile);
+    const int xs = max(t.tx0 - halo, 0);
+    int have = -1;  // the chunk the operand tile holds
+    for (int s = 0; s < p.nslices; ++s) {
+      float acc[R][NS / 2];
+#pragma unroll
+      for (int mt = 0; mt < R; ++mt)
+#pragma unroll
+        for (int i = 0; i < NS / 2; ++i) acc[mt][i] = 0.0f;
+      int held = -1;  // the weight slot the last tap read
+      for (int cc = 0; cc < p.nkc; ++cc) {
+        const int ci = chunk_at(s, cc, p.nkc);
+        const int k0 = ci * KC;
+        if (ci != have) {
+          // the GEMM is done with the operand tile and its weight slot
+          wgmma_wait<0>();
+          if (held >= 0 && lane == 0) bar_arrive(&empty_w[held]);
+          held = -1;
+          if (have < 0) bar_wait(full_raw, raw_phase);
+          consumer_sync(consumers);
+          // a lane repacks chunk channels 2 lane and 2 lane + 1 of a pixel
+          float mul[2], add[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = k0 + 2 * lane + e;
+            const bool aff = p.in_scale != nullptr && k < p.cin;
+            mul[e] = aff ? p.in_scale[k] + 1.0f : 1.0f;
+            add[e] = aff ? p.in_shift[k] : 0.0f;
+          }
+          const unsigned char* rbuf = smem + L.raw;
+          for (int r = 0; r < ph; ++r) {
+            const int iy = t.ty0 - halo + r;
+            const bool row_in = iy >= 0 && iy < p.h;
+            // channel k0 of pixel ix of this row: row + ix * cin
+            const __nv_bfloat16* row =
+                reinterpret_cast<const __nv_bfloat16*>(rbuf +
+                                                       r * p.raw_pitch) +
+                (row_in ? row_span<__nv_bfloat16>(p, t.b, iy, xs, xs).mis
+                        : 0) -
+                xs * p.cin + k0;
+            for (int c = warp; c < pw; c += cwarps) {
+              const int ix = t.tx0 - halo + c;
+              const bool inside = row_in && ix >= 0 && ix < p.w;
+              const __nv_bfloat16* src = row + ix * p.cin;
+              const int k = 2 * lane;  // KC = 64: a lane's two channels
+              float v0 = 0.0f, v1 = 0.0f;
+              if (inside && k0 + k < p.cin)
+                v0 = __bfloat162float(src[k]) * mul[0] + add[0];
+              if (inside && k0 + k + 1 < p.cin)
+                v1 = __bfloat162float(src[k + 1]) * mul[1] + add[1];
+              *reinterpret_cast<__nv_bfloat162*>(
+                  s_pad + (r * pw + c) * G + (k >> 3) * gs * 8 + (k & 7)) =
+                  __floats2bfloat162_rn(v0, v1);
+            }
+          }
+          fence_async_smem();
+          if (s == p.nslices - 1 && cc == p.nkc - 1) {  // the last repack
+            __syncwarp();
+            if (lane == 0) bar_arrive(empty_raw);
+            raw_phase ^= 1;
+          }
+          consumer_sync(consumers);  // the operand tile is complete
+          have = ci;
+        }
+        for (int tap = 0; tap < taps; ++tap) {
+          bar_wait(&full_w[wr.slot], wr.phase);
+          const int slot = wr.slot;
+          const unsigned char* wblk = s_w + slot * wbytes;
+          wr.next(p.ws);
+          const int dy = tap / p.ks, dx = tap - dy * p.ks;
+          const __nv_bfloat16* a0 = s_pad + ((wg * R + dy) * pw + dx) * G;
+          wgmma_fence();
+          for (int k = 0; k < KC / 16; ++k) {
+            const uint64_t db = desc(wblk + k * NS * 32, 128, 256);
+            const __nv_bfloat16* ak = a0 + 2 * k * gs * G;
+            wgmma_ss<NS>(acc[0], desc(ak, lbo_a, 128), db);
+            wgmma_ss<NS>(acc[1], desc(ak + pw * G, lbo_a, 128), db);
+          }
+          wgmma_commit();
+          // the previous tap's wgmmas are done: release its weight slot
+          wgmma_wait<1>();
+          if (held >= 0 && lane == 0) bar_arrive(&empty_w[held]);
+          held = slot;
+        }
+      }
+      wgmma_wait<0>();
+      if (held >= 0 && lane == 0) bar_arrive(&empty_w[held]);
+#pragma unroll
+      for (int mt = 0; mt < R; ++mt)
+#pragma unroll
+        for (int i = 0; i < NS / 2; ++i) fence_reg(acc[mt][i]);
+
+      // the epilogue of MODE_NONE, once after the last chunk
+      const int n0 = s * NS;
+      float* s_acc = reinterpret_cast<float*>(smem + L.stage) +
+                     wg * stage_floats(NS, MODE_KLOOP);
+#pragma unroll
+      for (int mt = 0; mt < R; ++mt) {
+        const int oy = t.ty0 + wg * R + mt;
+        if (oy >= p.h) continue;  // uniform over the warpgroup
+#pragma unroll
+        for (int i = 0; i < NS / 2; i += 2) {
+          const int j = i >> 2, e = i & 3;
+          const int px = wq * 16 + g + (e >> 1) * 8;
+          *reinterpret_cast<float2*>(s_acc + px * (NS + 4) + j * 8 + tq * 2) =
+              make_float2(acc[mt][i], acc[mt][i + 1]);
+        }
+        wg_sync(wg);
+        epilogue_row<NS, PHASE_ALL, FORM_BF16>(p, s_acc, t.b, oy, t.tx0, n0,
+                                                wq, lane);
+        wg_sync(wg);
+      }
+    }
+  }
+}
+
 // SPLIT: the block takes one group of the launch's N slices (slice_range),
 // in the bf16 form only; the other instances take them all.  M: the mode
 // (Mode), in the bf16 form at 2 rows a warpgroup and without SPLIT only;
@@ -1044,6 +1241,7 @@ conv_sm90_kernel(const __grid_constant__ ParamsOf<F, M> p) {
   static_assert(M == MODE_NONE ||
                     (F == FORM_BF16 && R == ROWS_PER_WG && !SPLIT),
                 "modes in bf16, at 2 rows a warpgroup, one slice group");
+  static_assert(M != MODE_KLOOP || P == PHASE_ALL, "no K loop probes");
   constexpr bool kStage = (P & PHASE_STAGE) != 0;
   constexpr bool kGemm = (P & PHASE_GEMM) != 0;
   constexpr int E = op_bytes(F);
@@ -1074,6 +1272,10 @@ conv_sm90_kernel(const __grid_constant__ ParamsOf<F, M> p) {
 
   if (threadIdx.x >= consumers) {
     if (threadIdx.x == consumers) produce<F, R, SPLIT, M>(p, L, smem, NS);
+    return;
+  }
+  if constexpr (M == MODE_KLOOP) {
+    consume_kloop<NS>(p, L, smem);
     return;
   }
 
@@ -1361,13 +1563,15 @@ inline int rows_of(int ns, int f) {
 // the deepest ring up to MAX_WS that fits, at least 2); in a planar-input
 // mode the raw pitch of the planar box at those warpgroups.
 // Fills p and returns the bytes, or -1 where nothing fits.
+// MODE_KLOOP streams its weights (a chunk's blocks are not resident).
 inline int fit(Params& p, int ns, int f = FORM_BF16, int max_nwg = 2,
                int m = MODE_NONE) {
   const int rows = rows_of(ns, f);
   const int kblocks = p.nslices * p.ks * p.ks;
+  const bool stream = m == MODE_KLOOP;
   for (int nwg = max_nwg; nwg >= 1; --nwg) {
     if (planar_in(m)) p.raw_pitch = planar_raw_pitch(p.cin, nwg);
-    for (int ws = kblocks; ws >= 1;) {
+    for (int ws = stream ? MAX_WS : kblocks; ws >= 1;) {
       const Layout l = mode_layout(
           layout(p.ks, p.cin_pad, p.raw_pitch, nwg, ws, ns, rows,
                  op_bytes(f)),
@@ -1375,10 +1579,10 @@ inline int fit(Params& p, int ns, int f = FORM_BF16, int max_nwg = 2,
       if (l.total <= MAX_SMEM) {
         p.nwg = nwg;
         p.ws = ws;
-        p.resident = ws == kblocks;
+        p.resident = !stream && ws == kblocks;
         return l.total;
       }
-      ws = ws == kblocks ? std::min(kblocks - 1, MAX_WS) : ws - 1;
+      ws = !stream && ws == kblocks ? std::min(kblocks - 1, MAX_WS) : ws - 1;
       if (ws < 2) break;
     }
   }
@@ -1393,8 +1597,10 @@ inline bool valid_ns(int ns, int f = FORM_BF16) {
 
 // Fills the shape fields of p; false for a shape the kernel does not
 // take.  Cin is padded to whole K steps: 16 channels in bf16, 32 in int8.
+// In MODE_KLOOP (bf16, Cin padded beyond MAX_CIN_PAD, up to
+// MAX_CIN_KLOOP) cin_pad is a chunk's KC.
 inline bool shape(Params& p, int cin, int cout, int ks, int ns,
-                  int f = FORM_BF16) {
+                  int f = FORM_BF16, int m = MODE_NONE) {
   const int kstep = 32 / op_bytes(f);
   p.cin = cin;
   p.cout = cout;
@@ -1402,14 +1608,19 @@ inline bool shape(Params& p, int cin, int cout, int ks, int ns,
   p.cin_pad = (cin + kstep - 1) / kstep * kstep;
   p.nslices = (cout + ns - 1) / ns;
   p.raw_pitch = raw_pitch(ks, cin, in_bytes(f));
+  const int max_cin = m == MODE_KLOOP ? MAX_CIN_KLOOP : MAX_CIN_PAD;
+  const bool wide = p.cin_pad > MAX_CIN_PAD;
+  if (m == MODE_KLOOP) p.cin_pad = KC;
   return (ks == 1 || ks == 3 || ks == 5) && cin >= 1 && cout >= 1 &&
-         p.cin_pad <= MAX_CIN_PAD && valid_ns(ns, f);
+         (cin + kstep - 1) / kstep * kstep <= max_cin &&
+         wide == (m == MODE_KLOOP) && valid_ns(ns, f);
 }
 
 // Fills p from a C entry point's arguments and plans its shared memory
 // (at most max_nwg warpgroups; mode m): the bytes, or -1 for a launch the
 // kernel does not take (a mode takes bf16 only, a planar one 3 x 3 on one
-// image of even height and width, no shuffle and no int8 store).
+// image of even height and width; a mode other than MODE_KLOOP no shuffle
+// and no int8 store).
 inline int prepare(Params& p, const void* x, const void* wpk,
                    const void* bias, const void* in_scale,
                    const void* in_shift, const void* out_scale,
@@ -1432,10 +1643,11 @@ inline int prepare(Params& p, const void* x, const void* wpk,
   p.w = w;
   p.act = act;
   p.shuffle = shuffle;
-  if (!shape(p, cin, cout, ks, ns, f) || n < 1 || h < 1 || w < 1 ||
+  if (!shape(p, cin, cout, ks, ns, f, m) || n < 1 || h < 1 || w < 1 ||
       (shuffle && cout % 4 != 0) || act < ACT_NONE || act > ACT_OUTIMG ||
       (reinterpret_cast<uintptr_t>(wpk) & 15) != 0 ||
-      (m != MODE_NONE && (f != FORM_BF16 || shuffle || out_inv)) ||
+      (m != MODE_NONE &&
+       (f != FORM_BF16 || (m != MODE_KLOOP && (shuffle || out_inv)))) ||
       (planar_mode(m) && (ks != 3 || n != 1 || h % 2 || w % 2)))
     return -1;
   const int smem =

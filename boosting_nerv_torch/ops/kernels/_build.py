@@ -110,6 +110,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bnt_conv_sm90_at.argtypes = [vp] * 10 + [ci] * 11 + [vp]
     lib.bnt_conv_sm90_groups.restype = ci
     lib.bnt_conv_sm90_groups.argtypes = [ci] * 7 + [vp]
+    lib.bnt_conv_sm90_kloop.restype = ci
+    lib.bnt_conv_sm90_kloop.argtypes = [vp] * 10 + [ci] * 9 + [vp] * 2
+    lib.bnt_conv_sm90_kloop_smem.restype = ci
+    lib.bnt_conv_sm90_kloop_smem.argtypes = [ci] * 4
     lib.bnt_conv_sm90_sin.restype = ci
     lib.bnt_conv_sm90_sin.argtypes = [vp] * 9 + [ci] * 9 + [vp] * 2
     lib.bnt_conv_sm90_planar.restype = ci

@@ -23,7 +23,8 @@ the wrapper's own name (the 51 -> 3 head takes the N 8 slice, as
 ``conv_tile_v3``'s head does).  The stage kernel ``stage_conv.cu``, which
 served them before, serves only the K1 probes and chip_smoke.py's A/B.  On
 a CUDA tensor a wrapper launches or raises ValueError (for example for
-more than 128 input channels), it never falls back.  ``LAUNCHES`` counts
+more than 256 input channels, beyond the kernel's K loop), it never falls
+back.  ``LAUNCHES`` counts
 the wrapper calls that launched.
 """
 

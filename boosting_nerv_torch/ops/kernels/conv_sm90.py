@@ -58,6 +58,16 @@ here:
   ``PLANAR_OUT``, ``PLANAR_IO``; ``mode_of``), bf16 only, one slice group
   a launch (``groups`` gives 1); ``fit`` mirrors the planar box's raw
   buffer and the transposed staging of the planar output.
+- the K loop (``KLOOP``, ``conv_sm90_kloop.cu``): a bf16 launch of no
+  other mode whose Cin, padded to 16, lies beyond 128 (``wide``; up to
+  256) runs it, one slice group, its weights streamed: each slice's K is
+  a loop over chunks of ``KC`` (64) input channels (``chunks``, Cin padded
+  to whole chunks, ``kloop_pad``; walked in ``chunk_at``'s order), each
+  repacked into the operand tile from the raw rows of all Cin channels;
+  ``pack_weight`` packs its weight [slice][chunk][tap][K step of the
+  chunk]...; ``fit`` mirrors its plan (the operand tile and a ring slot
+  of one chunk) and ``emulate`` its chunks.  The int8 form and the other
+  modes keep 128.
 
 ``launch`` is one kernel launch; ``rsft`` the two launches of a
 ResBlockSFT (of sin(y) with ``input_sin``), ``rsft_planar`` those of the
@@ -87,11 +97,13 @@ TH, TW = 4, 64                     # output tile (rows, columns)
 ACT_CODES = {"none": 0, "sin": 1, "gelu": 2, "outimg": 3}
 MAX_SMEM = 232448                  # the card's opt-in shared memory a block
 MAX_CIN_PAD, MAX_WS = 128, 8
+MAX_CIN_KLOOP, KC = 256, 64        # the K loop's Cin (padded) and chunk
 ROWS_S8_64 = 3                     # int8 rows a warpgroup at N 64
 FULL_WAVES = 4                     # the slice-group plan's (groups)
 REPACK_COST, SLICE_COST = 1, 4
 # the modes of a bf16 launch (conv_sm90.cuh::Mode)
 NONE, SIN_INPUT, SIN_RESIDUAL, PLANAR_IN, PLANAR_OUT, PLANAR_IO = range(6)
+KLOOP = 6                          # Cin beyond MAX_CIN_PAD: mode_of gives it
 PLANAR_MODES = (PLANAR_IN, PLANAR_OUT, PLANAR_IO)
 PBX, PBX_LEAD = 48, 8              # a planar input's box: columns, lead
 
@@ -106,6 +118,32 @@ def mode_of(sin: Optional[str] = None, planar: Optional[str] = None) -> int:
         return {"input": SIN_INPUT, "residual": SIN_RESIDUAL}[sin]
     return {None: NONE, "in": PLANAR_IN, "out": PLANAR_OUT,
             "io": PLANAR_IO}[planar]
+
+
+def wide(cin: int, form: int = BF16, mode: int = NONE) -> bool:
+    """True where a launch takes the K loop (``KLOOP``, conv_sm90_kloop.cu):
+    bf16, no other mode, Cin padded beyond ``MAX_CIN_PAD``."""
+    return form == BF16 and mode in (NONE, KLOOP) and cin_pad(cin) > \
+        MAX_CIN_PAD
+
+
+def kloop_pad(cin: int) -> int:
+    """The K loop's K: Cin padded to whole chunks of ``KC`` (zeros beyond
+    Cin), so that every chunk has the same K steps
+    (conv_sm90_kloop.cu's ``cin_all``)."""
+    return -(-cin // KC) * KC
+
+
+def chunks(cin: int):
+    """The K loop's chunks of ``cin`` input channels: (first channel,
+    channels) of each, KC wide."""
+    return [(k0, KC) for k0 in range(0, kloop_pad(cin), KC)]
+
+
+def chunk_at(s: int, cc: int, nkc: int) -> int:
+    """The chunk that slice s takes cc-th (conv_sm90.cuh::chunk_at): even
+    slices forward, odd ones backward."""
+    return nkc - 1 - cc if s & 1 else cc
 
 
 def form_of(x: torch.Tensor, w: torch.Tensor) -> int:
@@ -158,6 +196,8 @@ def plan(lib, cin: int, cout: int, ks: int, form: int = BF16,
         if mode in PLANAR_MODES:
             smem = (lib.bnt_conv_sm90_planar_smem(cin, cout, ns, mode)
                     if ks == 3 else -1)
+        elif wide(cin, form, mode):
+            smem = lib.bnt_conv_sm90_kloop_smem(cin, cout, ks, ns)
         elif form == BF16:
             smem = lib.bnt_conv_sm90_smem(cin, cout, ks, ns)
         else:
@@ -176,15 +216,22 @@ def cin_pad(cin: int, form: int = BF16) -> int:
 def pack_weight(w: torch.Tensor, ns: int) -> torch.Tensor:
     """OHWI [Cout, k, k, Cin] -> the flat packed B operand, in w's dtype:
     [slice][tap][K step][NS/8][2][8][16 bytes] (int8 codes: 16 elements,
-    bf16 or any other weight: 8), zero beyond Cout and Cin."""
+    bf16 or any other weight: 8), zero beyond Cout and Cin; for the K loop
+    (``wide``) [slice][chunk][tap][K step of the chunk]..."""
     cout, k, _, cin = w.shape
     form = S8 if w.dtype == torch.int8 else BF16
     kstep, chunk = 32 // op_bytes(form), 16 // op_bytes(form)
-    nsl, cp = -(-cout // ns), cin_pad(cin, form)
+    loop = wide(cin, form)
+    nsl = -(-cout // ns)
+    cp = kloop_pad(cin) if loop else cin_pad(cin, form)
     wp = torch.zeros((nsl * ns, k * k, cp), dtype=w.dtype, device=w.device)
     wp[:cout, :, :cin] = w.reshape(cout, k * k, cin)
-    wp = wp.reshape(nsl, ns // 8, 8, k * k, cp // kstep, 2, chunk)
-    return wp.permute(0, 3, 4, 1, 5, 2, 6).contiguous().reshape(-1)
+    parts = chunks(cin) if loop else [(0, cp)]
+    return torch.cat([
+        wp[:, :, k0:k0 + kc].reshape(nsl, ns // 8, 8, k * k, kc // kstep, 2,
+                                     chunk)
+        .permute(0, 3, 4, 1, 5, 2, 6).reshape(nsl, -1)
+        for k0, kc in parts], dim=1).reshape(-1)
 
 
 def packed(w: torch.Tensor, ns: int) -> torch.Tensor:
@@ -268,7 +315,9 @@ def fit(cin: int, cout: int, k: int, ns: int, form: int = BF16,
     warpgroups, weight ring depth, resident, bytes), or None for a shape it
     does not take."""
     cp = cin_pad(cin, form)
-    if (k not in (1, 3, 5) or cin < 1 or cout < 1 or cp > MAX_CIN_PAD
+    stream = wide(cin, form, mode)   # the K loop: streamed, KC a chunk
+    if (k not in (1, 3, 5) or cin < 1 or cout < 1
+            or cp > (MAX_CIN_KLOOP if stream else MAX_CIN_PAD)
             or ns not in ns_choices(form)
             or (mode != NONE and form != BF16)
             or (mode in PLANAR_MODES and k != 3)):
@@ -278,13 +327,14 @@ def fit(cin: int, cout: int, k: int, ns: int, form: int = BF16,
     for nwg in (2, 1):
         if mode in (PLANAR_IN, PLANAR_IO):
             raw = planar_raw_pitch(cin, nwg)
-        ws = kblocks
+        ws = MAX_WS if stream else kblocks
         while True:
-            total = _smem_bytes(cp * op_bytes(form), k, raw, ns, nwg, ws,
-                                rows_at(ns, form), mode)
+            total = _smem_bytes((KC if stream else cp) * op_bytes(form), k,
+                                raw, ns, nwg, ws, rows_at(ns, form), mode)
             if total <= MAX_SMEM:
-                return nwg, ws, ws == kblocks, total
-            ws = min(kblocks - 1, MAX_WS) if ws == kblocks else ws - 1
+                return nwg, ws, not stream and ws == kblocks, total
+            ws = (min(kblocks - 1, MAX_WS) if not stream and ws == kblocks
+                  else ws - 1)
             if ws < 2:
                 break
     return None
@@ -350,6 +400,9 @@ def launch_plan(lib, n: int, h: int, w: int, cin: int, cout: int, ks: int,
     if mode in (SIN_INPUT, SIN_RESIDUAL):
         g = lib.bnt_conv_sm90_sin(*[None] * 9, n, h, w, cin, cout, 0, ks, ns,
                                   mode, info, None)
+    elif wide(cin, BF16, mode):
+        g = lib.bnt_conv_sm90_kloop(*[None] * 10, n, h, w, cin, cout, 0, 0,
+                                    ks, ns, info, None)
     elif mode != NONE:
         cp, cpo = (-(-c // 16) * 16 for c in (cin, cout))
         g = lib.bnt_conv_sm90_planar(
@@ -415,6 +468,14 @@ def launch(lib, x, w, b, out, *, act="none", shuffle=False, in_affine=None,
         _build.check(err, "conv_sm90 planar launch")
         return
     n, h, wd, _ = x.shape
+    if wide(cin, form, mode):
+        if schedule is not None:
+            raise ValueError("a K-loop launch takes the plan's schedule")
+        err = lib.bnt_conv_sm90_kloop(
+            *ptrs, _ptr(out_inv), _ptr(out), n, h, wd, cin, cout,
+            ACT_CODES[act], int(shuffle), k, ns, None, stream)
+        _build.check(err, "conv_sm90 K-loop launch")
+        return
     if mode != NONE:
         err = lib.bnt_conv_sm90_sin(*ptrs, _ptr(out), n, h, wd, cin, cout,
                                     ACT_CODES[act], k, ns, mode, None,
@@ -451,11 +512,12 @@ def _operand(tile, k, form):
 
 def _stage_tile(virt, base, shape, b, ty0, tx0, k, in_mul, in_add,
                 form=BF16, in_inv=None, sin_input=False):
-    """The flat operand tile (``_operand``) of the output tile at (ty0,
-    tx0) of image b, staged from the 16-byte-widened flat span of each
-    in-image row of ``virt`` (x flat, ``base`` elements after a 16-byte
-    boundary, NaN elsewhere): with ``sin_input`` sin(x), then the prologue
-    affine; in ``S8Q`` quantised at ``in_inv`` after the prologue."""
+    """The staged tile [TH + k - 1, TW + k - 1, cin_pad] (the operand tile
+    before ``_operand``) of the output tile at (ty0, tx0) of image b,
+    staged from the 16-byte-widened flat span of each in-image row of
+    ``virt`` (x flat, ``base`` elements after a 16-byte boundary, NaN
+    elsewhere): with ``sin_input`` sin(x), then the prologue affine; in
+    ``S8Q`` quantised at ``in_inv`` after the prologue."""
     _, h, w, c = shape
     halo, ph, pw = (k - 1) // 2, TH + k - 1, TW + k - 1
     per16 = 16 // in_bytes(form)         # input elements in 16 bytes
@@ -476,7 +538,7 @@ def _stage_tile(virt, base, shape, b, ty0, tx0, k, in_mul, in_add,
             v = quant.quant_act(v, in_inv).float()
         col = xs - (tx0 - halo)
         tile[r, col:col + xe - xs, :c] = v
-    return _operand(tile, k, form)
+    return tile
 
 
 def _stage_planar(xp, image, ty0, tx0, in_mul, in_add):
@@ -578,25 +640,36 @@ def emulate(x: torch.Tensor, wpk: torch.Tensor, b: torch.Tensor, *,
     acc = torch.zeros((n, -(-h // TH) * TH, -(-w // TW) * TW, nsl * ns),
                       dtype=dtype)
     tw, th = -(-w // TW), -(-h // TH)
+    # the K loop's chunks (one chunk of every channel without it), each
+    # repacked from the staged rows into an operand tile of its own
+    loop = wide(c, form, mode)
+    parts = chunks(c) if loop else [(0, cp)]
+    cp = kloop_pad(c) if loop else cp
     for t, s0, s1 in work_items(n * th * tw, nsl, groups):
         bi, ty0, tx0 = t // (th * tw), t // tw % th * TH, t % tw * TW
         if mode in (PLANAR_IN, PLANAR_IO):
-            tile = _stage_planar(x, image, ty0, tx0, in_mul, in_add)
+            ops = [_stage_planar(x, image, ty0, tx0, in_mul,
+                                 in_add).to(dtype)]
         else:
-            tile = _stage_tile(virt, base, x.shape, bi, ty0, tx0, k, in_mul,
-                               in_add, form, in_inv, mode == SIN_INPUT)
-        tile = tile.to(dtype)
+            staged = _stage_tile(virt, base, x.shape, bi, ty0, tx0, k, in_mul,
+                                 in_add, form, in_inv, mode == SIN_INPUT)
+            staged = F.pad(staged, (0, cp - staged.shape[-1]))
+            ops = [_operand(staged[..., k0:k0 + kc], k, form).to(dtype)
+                   for k0, kc in parts]
         for s in range(s0, s1):
-            for tap in range(k * k):
-                dy, dx = divmod(tap, k)
-                blk = (s * k * k + tap) * ns * cp
-                for kk in range(cp // kstep):
-                    bmat = wf[blk + kk * ns * kstep + b_offs]
-                    for r in range(TH):  # one m64 tile a row
-                        p0 = (r + dy) * pw + dx
-                        a = tile[(p0 + 2 * kk * gs) * chunk + a_offs]
-                        acc[bi, ty0 + r, tx0:tx0 + TW,
-                            s * ns:(s + 1) * ns] += a @ bmat.T
+            for cc in range(len(parts)):
+                ci = chunk_at(s, cc, len(parts))
+                (k0, kc), tile = parts[ci], ops[ci]
+                for tap in range(k * k):
+                    dy, dx = divmod(tap, k)
+                    blk = ((s * cp + k0) * k * k + tap * kc) * ns
+                    for kk in range(kc // kstep):
+                        bmat = wf[blk + kk * ns * kstep + b_offs]
+                        for r in range(TH):  # one m64 tile a row
+                            p0 = (r + dy) * pw + dx
+                            a = tile[(p0 + 2 * kk * gs) * chunk + a_offs]
+                            acc[bi, ty0 + r, tx0:tx0 + TW,
+                                s * ns:(s + 1) * ns] += a @ bmat.T
     acc = acc[:, :h, :w, :cout].float()
     if form != BF16:
         acc = acc * scale.float()
@@ -719,7 +792,8 @@ def upconv_rsft(conv: Conv, x, weights, sft, out_inv=None) -> torch.Tensor:
 def conv_rsft(conv: Conv, x, weights, sft, head=False, out_inv=None
               ) -> torch.Tensor:
     """The stride-1 stage as three convs, four with the head: y =
-    sin(conv(x) + b), then ``rsft(y)``; with ``head`` the 3x3 conv to 3
+    sin(conv(x) + b), then ``rsft(y)``; with ``head`` the conv (3x3 or
+    1x1) to 3
     channels with act outimg (tanh(v) * 0.5 + 0.5) on it (N slice 8), whose
     input is, in W8A8, int8 codes at ``inv_h``."""
     c = weights.w0.shape[0]

@@ -6,7 +6,8 @@ bf16 and W8A8 forms.
   y = sin(PixelShuffle2(conv3x3(x) + b)); out = ResBlockSFT(y).
 - ``fused_conv_rsft`` (stride-1 stage): y = sin(conv3x3(x) + b);
   out = ResBlockSFT(y); with ``head`` also
-  rgb = tanh(conv3x3_{c->3}(out) + b_h) * 0.5 + 0.5.
+  rgb = tanh(conv_{c->3}(out) + b_h) * 0.5 + 0.5, the head's kernel 3 x 3
+  (HNeRV-Boost) or 1 x 1 (NeRV-Boost, E-NeRV-Boost).
 - ``fused_upconv_rsft_i8`` / ``fused_conv_rsft_i8``: the same functions in
   W8A8 (``StageWeightsI8``): every conv input is quantised per channel to
   int8 codes, the weights are int8 with the activation scale folded in, and
@@ -27,9 +28,11 @@ subpixel-planar layout served Mosaic and is not part of their contract.
 Each wrapper runs its plain PyTorch version for a tensor on the CPU and its
 CUDA kernel for a tensor on the card: three or four launches of one fused
 3x3 convolution, the chains ``conv_sm90.upconv_rsft`` / ``conv_rsft`` on
-the Hopper kernel, in its bf16 form (``ops/csrc/conv_sm90.cu``) for the
-bf16 wrappers and its int8 form (``ops/csrc/conv_sm90_i8.cu``) for the
-W8A8 ones.  On a CUDA tensor it launches or raises, it never falls back.
+the Hopper kernel, in its bf16 form (``ops/csrc/conv_sm90.cu``; a stage
+conv of more than 128 input channels, up to 256, on its K loop,
+``ops/csrc/conv_sm90_kloop.cu``: E-NeRV-Boost's stage 2) for the bf16
+wrappers and its int8 form (``ops/csrc/conv_sm90_i8.cu``, 128 input
+channels at most) for the W8A8 ones.  On a CUDA tensor it launches or raises, it never falls back.
 The W8A8 stage kernel ``ops/csrc/stage_conv_i8.cu``, which served the
 W8A8 wrappers before, serves no wrapper: it stays built for the K2 probes
 and the same-call A/B (``probes.conv_rsft_i8_stage``).  ``LAUNCHES``
@@ -259,7 +262,7 @@ def _conv_i8(q, codes, scale, bias):
     The integer sum is taken in float64, which is exact for it (|sum| <
     9 * 128 * 127^2 < 2^53) on the CPU and on the card alike."""
     acc = F.conv2d(nchw(q).double(), codes.permute(0, 3, 1, 2).double(),
-                   padding=1)
+                   padding=codes.shape[1] // 2)
     return nhwc(acc).float() * scale + bias
 
 
@@ -404,8 +407,10 @@ def check_fit(smem_fn, convs) -> None:
     smem = smem_fn(_build.load_library())
     for conv in convs:
         if smem(*conv) < 0:
-            raise ValueError(f"a {conv[0]}->{conv[1]} conv does not fit the "
-                             "kernel's shared-memory tile (Cin <= 128)")
+            raise ValueError(
+                f"a {conv[0]}->{conv[1]} conv does not fit the kernel's "
+                "shared-memory tile (Cin <= 128 in the int8 form and the "
+                "modes, <= 256 in bf16 through the K loop)")
 
 
 def sm90_smem(lib):
@@ -454,10 +459,19 @@ def _check_rsft(x, w0, b0, w1, b1, sft, smem_fn=sm90_smem):
                          [(c, c, 3)])
 
 
-def _stage_convs(c_in, c, up, head):
-    """(Cin, Cout, 3) of each conv of a stage."""
+def _head_k(head_w) -> int:
+    """The head's kernel: 3 (HNeRV-Boost) or 1 (NeRV-Boost, E-NeRV-Boost);
+    0 for a weight that is no [3, k, k, C] head."""
+    if head_w is None or head_w.dim() != 4 or head_w.shape[1] not in (1, 3):
+        return 0
+    return head_w.shape[1]
+
+
+def _stage_convs(c_in, c, up, head_k):
+    """(Cin, Cout, k) of each conv of a stage; ``head_k`` the head's kernel
+    (0: no head)."""
     return [(c_in, 4 * c if up else c, 3), (c, c, 3)] + (
-        [(c, 3, 3)] if head else [])
+        [(c, 3, head_k)] if head_k else [])
 
 
 def _check_bf16(x, w: StageWeights, sft, out_inv, c_in, c, head, up):
@@ -471,10 +485,11 @@ def _check_bf16(x, w: StageWeights, sft, out_inv, c_in, c, head, up):
                ("weights.w1", w.w1, (c, 3, 3, c), bf),
                ("weights.b1", w.b1, (c,), bf)]
     if head:
-        tensors += [("weights.head_w", w.head_w, (3, 3, 3, c), bf),
+        k = _head_k(w.head_w)
+        tensors += [("weights.head_w", w.head_w, (3, k, k, c), bf),
                     ("weights.head_b", w.head_b, (3,), bf)]
     return _check_inputs(x, sft, out_inv, c_in, c, head, tensors, (bf,),
-                         sm90_smem, _stage_convs(c_in, c, up, head))
+                         sm90_smem, _stage_convs(c_in, c, up, head and k))
 
 
 def _check_i8(x, w: StageWeightsI8, sft, out_inv, c_in, c, head, up):
@@ -493,13 +508,14 @@ def _check_i8(x, w: StageWeightsI8, sft, out_inv, c_in, c, head, up):
                     (f"w.b{k}", getattr(w, "b" + k), (c,), f32),
                     (f"w.inv_t{k}", getattr(w, "inv_t" + k), (c,), f32)]
     if head:
-        tensors += [("w.head_w", w.head_w, (3, 3, 3, c), i8),
+        k = _head_k(w.head_w)
+        tensors += [("w.head_w", w.head_w, (3, k, k, c), i8),
                     ("w.head_scale", w.head_scale, (3,), f32),
                     ("w.head_b", w.head_b, (3,), f32),
                     ("w.inv_h", w.inv_h, (c,), f32)]
     s8, s8q = conv_sm90.S8, conv_sm90.S8Q
     convs = [(c_in, cout, 3, s8 if x.dtype == i8 else s8q), (c, c, 3, s8q),
-             (c, c, 3, s8)] + ([(c, 3, 3, s8)] if head else [])
+             (c, c, 3, s8)] + ([(c, 3, k, s8)] if head else [])
     return _check_inputs(x, sft, out_inv, c_in, c, head, tensors,
                          (torch.int8, torch.bfloat16), sm90_smem, convs)
 

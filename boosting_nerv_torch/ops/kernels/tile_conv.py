@@ -28,8 +28,9 @@ ResBlockSFT, of the Hopper kernel ``ops/csrc/conv_sm90.cu``
 epilogue.  Its launches of few tiles and many N slices (the 45 x 80 and
 135 x 240 calls at the bench config) split the slices over more blocks
 (``conv_sm90.groups``).  On a CUDA tensor a wrapper launches or raises
-ValueError (for example for more than 128 input channels, which no
-shared-memory tile of the kernel takes); it never falls back.
+ValueError (for example for more than 256 input channels, which no
+shared-memory tile of the kernel takes: up to 256 a launch runs the
+kernel's K loop, ``conv_sm90_kloop.cu``); it never falls back.
 ``LAUNCHES`` counts the wrapper calls that launched.
 """
 

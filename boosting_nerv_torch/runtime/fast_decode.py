@@ -1,18 +1,24 @@
-"""Serving decodes of HNeRV-Boost (port of
+"""Serving decodes of the Boost families (port of
 boosting_nerv_tpu/runtime/fast_decode.py: ``build_serving_decode``,
-``build_fast_decode_v5`` in its bf16, W8A8 and hybrid forms,
-``build_fast_decode_v3``, ``build_fast_decode_v2`` and the v1
-``build_fast_decode``).
+``build_fast_decode_v5`` in its bf16, W8A8 and hybrid forms, for
+HNeRV-Boost, NeRV-Boost and E-NeRV-Boost; ``build_fast_decode_v3``,
+``build_fast_decode_v2`` and the v1 ``build_fast_decode``, for HNeRV-Boost
+alone, as in JAX).
 
 Every builder returns ``decode(embed, t)``: embedding [1, h, w, C] +
 normalised index [1] -> frame [1, H, W, 3] bf16, batch 1, as the JAX
 serving path (the decode-fps convention: the encoder is not part of it).
+The index-only families ignore ``embed`` (None is allowed) and run their
+stem in the decode, as in JAX.
 
 - The prefix runs in plain PyTorch (F.linear / F.conv2d through the model's
-  own modules, in bf16), as the JAX package leaves it to XLA: the PE, the
-  stem_t sin MLP, the 1x1 stem + sin + ResBlockSFT, and the decoder stages
-  before the kernel tail.  The per-stage SFT scale/shift vectors come from
-  F.linear.
+  own modules, in bf16), as the JAX package leaves it to XLA: the PE and
+  the time MLP (stem_t; E-NeRV-Boost's t_branch), the stem (HNeRV-Boost's
+  1x1 stem + sin + ResBlockSFT; NeRV-Boost's stem MLP on PE(t), reshaped
+  NHWC; E-NeRV-Boost's transformer trunk), and the decoder stages before
+  the kernel tail (E-NeRV-Boost's stage-0 ConvUpBlock among them).  The
+  per-stage SFT scale/shift vectors come from F.linear, on the time MLP's
+  output.
 - v5 (``build_fast_decode_v5``): the tail is every stage from the first
   stride-2 3x3 stage whose fine output height reaches ``planar_from_h``
   (``_planar_tail_span``, the JAX selection rule).  Each tail stage is one
@@ -74,14 +80,22 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..config import BoostConfig, decoder_stage_plan
+from ..config import BoostConfig, model_stage_plan
+from ..models.enerv import ENeRVBoost
 from ..models.hnerv import HNeRVBoost
+from ..models.nerv import NeRVBoost, grid_nchw
 from ..ops.kernels import conv_chw, fused_sft, planar, quant, tile_conv
 from ..ops.kernels.planar import nchw, nhwc
 from ..ops.pe import position_encoding
 
 DT = torch.bfloat16
 NO_FINE = 10 ** 9   # fine_from_h that no stage reaches: no hybrid tail
+# the families each decode serves: v5 (and its calibration) the three
+# Boost families, v1 / v2 / v3 HNeRV-Boost (as the JAX builders)
+V5_MODELS = {"HNeRV_Boost": HNeRVBoost, "NeRV_Boost": NeRVBoost,
+             "ENeRV_Boost": ENeRVBoost}
+TILE_MODELS = ("HNeRV_Boost",)
+Model = Union[HNeRVBoost, NeRVBoost, ENeRVBoost]
 
 
 def _planar_tail_span(cfg, plan, out_hw, planar_from_h,
@@ -118,7 +132,7 @@ def stage_out_hw(cfg: BoostConfig, plan) -> List[Tuple[int, int]]:
 
 
 def _plan(cfg: BoostConfig):
-    plan = decoder_stage_plan(cfg, cfg.fc_dim, hnerv_style=True)
+    plan = model_stage_plan(cfg)
     return plan, stage_out_hw(cfg, plan)
 
 
@@ -128,6 +142,17 @@ def _tail(cfg: BoostConfig, planar_from_h: int, fine_from_h: int = NO_FINE):
     plan, out_hw = _plan(cfg)
     return (plan, out_hw,
             *_planar_tail_span(cfg, plan, out_hw, planar_from_h, fine_from_h))
+
+
+def has_planar_tail(cfg: BoostConfig, planar_from_h: int = 200) -> bool:
+    """True when ``cfg``'s decoder has a v5 planar tail at
+    ``planar_from_h`` (``_planar_tail_span``)."""
+    plan, out_hw = _plan(cfg)
+    try:
+        _planar_tail_span(cfg, plan, out_hw, planar_from_h)
+    except ValueError:
+        return False
+    return True
 
 
 def _round16(c: int) -> int:
@@ -258,7 +283,7 @@ class FineTail:
         return (torch.tanh(y.float()) * 0.5 + 0.5).to(DT)
 
 
-def _fine_stages(model: HNeRVBoost, first: int, out_hw, *,
+def _fine_stages(model: Model, first: int, out_hw, *,
                  switch: bool) -> Tuple[FineStage, ...]:
     """Stages ``first``.. of ``model`` in bf16 with OHWI weights; with
     ``switch`` the first one's upconv (conv + PixelShuffle) runs in
@@ -276,7 +301,7 @@ def _fine_stages(model: HNeRVBoost, first: int, out_hw, *,
     return tuple(stages)
 
 
-def _fine_tail(model: HNeRVBoost, first: int, out_hw, *, switch: bool,
+def _fine_tail(model: Model, first: int, out_hw, *, switch: bool,
                v3: bool, plain: bool) -> FineTail:
     """Stages ``first``.. of ``model`` on the tile wrappers; with
     ``switch`` the first one's upconv runs in torch."""
@@ -284,13 +309,14 @@ def _fine_tail(model: HNeRVBoost, first: int, out_hw, *, switch: bool,
                     _ohwi(model.head), _bias(model.head), v3, plain)
 
 
-def _as_model(cfg: BoostConfig, params_or_model) -> HNeRVBoost:
-    if isinstance(params_or_model, HNeRVBoost):
+def _as_model(cfg: BoostConfig, params_or_model) -> Model:
+    cls = V5_MODELS[cfg.model]
+    if isinstance(params_or_model, cls):
         return params_or_model
     if not isinstance(params_or_model, Mapping):
-        raise TypeError("pass an HNeRVBoost or its state dict, got "
+        raise TypeError(f"pass a {cls.__name__} or its state dict, got "
                         f"{type(params_or_model).__name__}")
-    model = HNeRVBoost(cfg)
+    model = cls(cfg)
     res = model.load_state_dict(params_or_model, strict=False)
     missing = [k for k in res.missing_keys if not k.startswith("encoder.")]
     if missing or res.unexpected_keys:
@@ -299,40 +325,55 @@ def _as_model(cfg: BoostConfig, params_or_model) -> HNeRVBoost:
     return model.to(next(iter(params_or_model.values())).device)
 
 
-def check_config(cfg: BoostConfig) -> None:
-    """Raise unless the serving decodes serve ``cfg``: HNeRV-Boost in the
-    paper's decoder config."""
-    if cfg.model != "HNeRV_Boost":
-        raise NotImplementedError(f"serving decode of {cfg.model} is not "
-                                  "ported yet (ROADMAP queue 1: other model "
-                                  "families)")
-    if not (cfg.conv_type[1] == "pshuffel_3x3" and cfg.act == "sin"
-            and cfg.sft_block == "res_sft" and cfg.norm == "none"
-            and cfg.ch_t):
-        raise ValueError("fast decode supports the HNeRV-Boost paper config "
-                         "(pshuffel_3x3 / sin / res_sft / no norm)")
+def check_config(cfg: BoostConfig, models=tuple(V5_MODELS)) -> None:
+    """Raise ValueError unless the decodes serve ``cfg``: one of ``models``
+    (by default the v5 decode's: HNeRV-Boost, NeRV-Boost, E-NeRV-Boost) in
+    the paper's decoder config."""
+    if not (cfg.model in models and cfg.conv_type[1] == "pshuffel_3x3"
+            and cfg.act == "sin" and cfg.sft_block == "res_sft"
+            and cfg.norm == "none" and cfg.ch_t):
+        names = " / ".join(m.replace("_", "-").replace("ENeRV", "E-NeRV")
+                           for m in models)
+        raise ValueError(f"fast decode supports the {names} paper config "
+                         "(pshuffel_3x3 / sin / res_sft / no norm), not "
+                         f"{cfg.model}")
 
 
 def _bf16(m: nn.Module) -> nn.Module:
     return copy.deepcopy(m).to(DT).eval()
 
 
-def _prefix(model: HNeRVBoost, switch_at: int):
-    """(time_embed(t), prefix(embed, t_embed) -> NCHW bf16 output of stage
-    ``switch_at - 1`` (the stem for 0)), both in bf16 on the model's
-    device."""
-    stem_t, stem = _bf16(model.stem_t), _bf16(model.stem)
+def _prefix(model: Model, switch_at: int):
+    """(time_embed(t), prefix(embed, t_embed, t) -> NCHW bf16 output of
+    stage ``switch_at - 1`` (the stem for 0)), both in bf16 on the model's
+    device.  t_embed is the SFT condition: stem_t(PE(t)), or E-NeRV-Boost's
+    t_branch(PE(t)); the index-only families ignore ``embed`` and take
+    their stem from t."""
+    cfg = model.cfg
     blocks = [_bf16(model.blocks[bi]) for bi in range(switch_at)]
     device = model.head.weight.device
+    if cfg.model == "ENeRV_Boost":
+        trunk, t_mlp = _bf16(model.trunk), _bf16(model.t_branch)
+        pe = model.trunk.pe
+    else:
+        stem, t_mlp, pe = _bf16(model.stem), _bf16(model.stem_t), model.pe
 
     def time_embed(t: torch.Tensor) -> torch.Tensor:
-        return stem_t(position_encoding(t.to(device), model.pe).to(DT))
+        return t_mlp(position_encoding(t.to(device), pe).to(DT))
 
-    def prefix(embed: torch.Tensor, t_embed: torch.Tensor) -> torch.Tensor:
-        if embed.shape[0] != 1 or t_embed.shape[0] != 1:
+    def prefix(embed: Optional[torch.Tensor], t_embed: torch.Tensor,
+               t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if t_embed.shape[0] != 1 or (cfg.model == "HNeRV_Boost"
+                                     and embed.shape[0] != 1):
             raise ValueError("the serving decode runs batch 1: embed "
                              "[1, h, w, C] and t [1]")
-        x = stem(embed.to(device, DT).permute(0, 3, 1, 2), t_embed)
+        if cfg.model == "HNeRV_Boost":
+            x = stem(embed.to(device, DT).permute(0, 3, 1, 2), t_embed)
+        elif cfg.model == "NeRV_Boost":
+            x = grid_nchw(stem(position_encoding(t.to(device), pe).to(DT)),
+                          cfg.fc_h, cfg.fc_w)
+        else:
+            x = trunk(t.to(device))[0]
         for blk in blocks:
             x = blk(x, t_embed)
         return x
@@ -367,10 +408,10 @@ def build_planar_bounds_fn(cfg: BoostConfig, params_or_model,
         return v.float().abs().amax(dim=(0, 2, 3))
 
     @torch.no_grad()
-    def calib(embed: torch.Tensor, t: torch.Tensor
+    def calib(embed: Optional[torch.Tensor], t: torch.Tensor
               ) -> Dict[str, torch.Tensor]:
         t_embed = time_embed(t)
-        x = prefix(embed, t_embed)
+        x = prefix(embed, t_embed, t)
         bounds = {}
         for bi, blk in blocks.items():
             rs = blk.rsft
@@ -408,7 +449,8 @@ def calibrate_planar_bounds(cfg: BoostConfig, params_or_model,
         if not (isinstance(item, (tuple, list)) and len(item) == 2):
             raise ValueError("w8a8_calib must hold (embed, t) pairs, got "
                              f"{type(item).__name__}")
-        b = calib(torch.as_tensor(item[0]), torch.as_tensor(item[1]))
+        b = calib(None if item[0] is None else torch.as_tensor(item[0]),
+                  torch.as_tensor(item[1]))
         acc = b if acc is None else {k: torch.maximum(acc[k], b[k])
                                      for k in acc}
     if acc is None:
@@ -485,7 +527,7 @@ def build_fast_decode(cfg: BoostConfig,
     ``decode.prefix(embed, t_embed)`` the NCHW input of that stage,
     ``decode.chw`` the tail (None without one); ``plain`` and
     ``decode.launches_per_frame`` as in v5."""
-    check_config(cfg)
+    check_config(cfg, TILE_MODELS)
     model = _as_model(cfg, params_or_model)
     plan, out_hw = _plan(cfg)
     switch_at = v1_switch(cfg, pallas_from_h)
@@ -513,15 +555,17 @@ def build_fast_decode(cfg: BoostConfig,
 
 
 def build_fast_decode_v5(cfg: BoostConfig,
-                         params_or_model: Union[HNeRVBoost,
+                         params_or_model: Union[Model,
                                                 Mapping[str, torch.Tensor]],
                          w8a8_calib: Optional[Iterable] = None, *,
                          planar_from_h: int = 200,
                          fine_from_h: int = NO_FINE,
                          plain: bool = False) -> Callable:
-    """The planar-tail decode for ``cfg`` on the device that holds the
-    parameters: bf16, or W8A8 on the int8-eligible planar stages when
-    ``w8a8_calib`` gives calibration frames ((embed, t) pairs); the stages
+    """The planar-tail decode for ``cfg`` (HNeRV-Boost, NeRV-Boost or
+    E-NeRV-Boost) on the device that holds the parameters: bf16, or W8A8
+    on the int8-eligible planar stages when ``w8a8_calib`` gives
+    calibration frames ((embed, t) pairs; embed None for the index-only
+    families); the stages
     whose fine output height reaches ``fine_from_h`` and the head on the v3
     tile wrappers (the hybrid).  With ``plain`` every wrapper runs its
     plain version: for measurements and checks of the kernels, not for
@@ -572,10 +616,11 @@ def build_fast_decode_v5(cfg: BoostConfig,
            for name in planar.WRAPPERS}
 
     @torch.no_grad()
-    def decode(embed: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def decode(embed: Optional[torch.Tensor], t: torch.Tensor
+               ) -> torch.Tensor:
         _check_batch(t)
         t_embed = time_embed(t)
-        x = nhwc(prefix(embed, t_embed))
+        x = nhwc(prefix(embed, t_embed, t))
         for st in tail:
             kw = {"head": True} if st.head else {}
             if st.out_inv is not None:
@@ -600,7 +645,7 @@ def build_fast_decode_v5(cfg: BoostConfig,
 
 def _build_fine_decode(cfg: BoostConfig, params_or_model, tile_from_h: int,
                        v3: bool, plain: bool) -> Callable:
-    check_config(cfg)
+    check_config(cfg, TILE_MODELS)
     model = _as_model(cfg, params_or_model)
     plan, out_hw = _plan(cfg)
     switch = next((bi for bi in range(len(plan))
@@ -653,7 +698,7 @@ def build_fast_decode_v2(cfg: BoostConfig,
 
 
 def build_serving_decode(cfg: BoostConfig,
-                         params_or_model: Union[HNeRVBoost,
+                         params_or_model: Union[Model,
                                                 Mapping[str, torch.Tensor]],
                          w8a8_calib: Optional[Iterable] = None, *,
                          planar_from_h: int = 200,
@@ -661,12 +706,11 @@ def build_serving_decode(cfg: BoostConfig,
     """The serving decode for ``cfg`` (port of fast_decode.py:470-602):
     ``build_fast_decode_v5``, bf16 or W8A8 (``w8a8_calib``); for a config
     with no planar tail ``build_fast_decode_v3(tile_from_h=45)``, in bf16
-    only: W8A8 there raises ValueError."""
+    only: W8A8 there raises ValueError.  HNeRV-Boost, NeRV-Boost and
+    E-NeRV-Boost in the paper config; any other model raises ValueError
+    (the JAX builder's v3 fallback refuses it too)."""
     check_config(cfg)
-    plan, out_hw = _plan(cfg)
-    try:
-        _planar_tail_span(cfg, plan, out_hw, planar_from_h)
-    except ValueError:
+    if not has_planar_tail(cfg, planar_from_h):
         if w8a8_calib is not None:
             raise ValueError("W8A8 serving needs a planar tail (a stride-2 "
                              "3x3 stage): this config serves bf16 on the v3 "

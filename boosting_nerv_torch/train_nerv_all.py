@@ -1,6 +1,7 @@
 #!/usr/bin/env python
-"""Training entry point of the port: video regression and inpainting of
-HNeRV-Boost on one GPU.
+"""Training entry point of the port: video regression and inpainting of any
+of the five model families (``--model`` NeRV_Boost, ENeRV, ENeRV_Boost,
+HNeRV_Boost or HNeRV) on one GPU.
 
     python -m boosting_nerv_torch.train_nerv_all --data_path <dir of frames> \\
         --model HNeRV_Boost ... [--device cpu]

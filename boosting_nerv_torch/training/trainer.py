@@ -1,4 +1,4 @@
-"""Regression trainer of HNeRV-Boost (port of
+"""Regression trainer of the five model families (port of
 boosting_nerv_tpu/training/trainer.py).
 
 The JAX trainer's orchestration: a seeded init, the seen / unseen split,
@@ -7,7 +7,12 @@ frames, the 8-slot {pred, quant} x {seen, unseen} x {PSNR, SSIM} eval
 with 8-bit PTQ of the decoder weights and 6-bit PTQ of the embeddings,
 Huffman bits per parameter and bits per pixel, the decode fps of the
 serving decode (the encoder excluded), ``model_latest.ckpt`` each epoch
-with auto-resume, and the CSV of results.
+with auto-resume, and the CSV of results.  The forward dispatches by family
+as JAX's ``_forward``: HNeRV-Boost takes (frame, t), HNeRV the frame (or t
+without an encoder), the index-only families t.  The HNeRV families with
+an encoder quantise their embeddings for the quantised eval; E-NeRV and
+E-NeRV-Boost default to ``train_precision="highest"`` and a global clip of
+1.0, as in JAX.
 
 On the GPU: the clip stays on the device as uint8 and each step gathers
 and normalises its frames there; the step is eager PyTorch (cuDNN
@@ -15,13 +20,14 @@ convolutions, autograd), as the JAX step is plain XLA, with TF32 off at
 ``train_precision="highest"``; ``micro_batch`` accumulates the gradients
 of equal chunks and averages them; ``remat`` recomputes the forward in
 the backward pass (``torch.utils.checkpoint``).  The fps clock times
-``build_serving_decode``, whose decoder tail runs on the Hopper kernels:
-CUDA events around the decodes on the card, the host clock on the CPU
-(where the wrappers run their plain versions).
+``build_serving_decode`` for the three served Boost families, whose
+decoder tail runs on the Hopper kernels, and the eager model's decode for
+HNeRV and E-NeRV (as JAX times its flax decode for them;
+``fps_decode_path``): CUDA events around the decodes on the card, the host
+clock on the CPU (where the wrappers run their plain versions).
 
-Only the HNeRV-Boost regression and inpainting tasks are ported; the
-fields of later slices raise NotImplementedError on a non-default value
-(``check_ported``).
+The regression and inpainting tasks are ported; the fields of later slices
+raise NotImplementedError on a non-default value (``check_ported``).
 """
 
 from __future__ import annotations
@@ -164,13 +170,34 @@ def _map_leaves(tree: Dict, fn, path=()) -> Dict:
                 else fn(path + (k,), v)) for k, v in tree.items()}
 
 
-class RegressionTrainer:
-    fps_decode_path = "serving"  # measure_fps times build_serving_decode
+def enerv_defaults(cfg: BoostConfig) -> BoostConfig:
+    """E-NeRV's training defaults (the JAX trainer's, trainer.py:122-140):
+    ``train_precision`` forced to "highest" (its transformer trunk
+    diverges below full matmul precision) and an unset ``clip_max_norm``
+    set to 1.0 (its norm-free residuals need the clip), each with the
+    JAX trainer's printed note; other families unchanged."""
+    if not cfg.model.startswith("ENeRV"):
+        return cfg
+    if cfg.train_precision != "highest":
+        print(f"train_precision {cfg.train_precision!r} -> 'highest': the "
+              "E-NeRV transformer trunk diverges below full matmul "
+              "precision (measured, BASELINE.md)")
+        cfg = cfg.replace(train_precision="highest")
+    if cfg.clip_max_norm is None:
+        print("clip_max_norm unset -> 1.0: the E-NeRV trunk's norm-free "
+              "residuals need grad clipping on this stack (measured, "
+              "BASELINE.md round 4); pass an explicit --clip_max_norm 0 to "
+              "disable")
+        cfg = cfg.replace(clip_max_norm=1.0)
+    return cfg
 
+
+class RegressionTrainer:
     def __init__(self, cfg: BoostConfig, video: Optional[VideoData] = None,
                  logger: Optional[RunLogger] = None,
                  device: Union[str, torch.device] = "cuda"):
         check_ported(cfg)
+        cfg = enerv_defaults(cfg)
         if cfg.clip_max_norm is None:
             cfg = cfg.replace(clip_max_norm=0.0)
         self.cfg0 = cfg
@@ -181,7 +208,19 @@ class RegressionTrainer:
             cfg.data_path, cfg.crop_list)
         self.cfg = cfg = resolve_sizes(cfg, self.video.final_size,
                                        self.video.n)
-        fast_decode.check_config(cfg)  # measure_fps times the serving decode
+        # measure_fps times the serving decode of the families it serves
+        # (which must be in its paper config), the eager decode of the
+        # others and of an index-only config with no planar tail, which
+        # the serving decode refuses (the JAX trainer times its flax
+        # decode where its serving decode fails, trainer.py:545-590)
+        self.fps_decode_path = "eager"
+        if cfg.model in fast_decode.V5_MODELS:
+            fast_decode.check_config(cfg)
+            if (cfg.model == "HNeRV_Boost"
+                    or fast_decode.has_planar_tail(cfg)):
+                self.fps_decode_path = "serving"
+        # the HNeRV families with an encoder: embeddings to quantise
+        self.has_embed = cfg.is_hnerv_family and bool(cfg.enc_strds)
 
         split = [int(x) for x in cfg.data_split.split("_")]
         self.train_ind, self.val_ind = data_split(
@@ -229,10 +268,22 @@ class RegressionTrainer:
         return self.frames[idx].to(torch.float32) / 255.0
 
     def forward(self, img: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """The model's output for frames ``img`` at indices ``t``, by
+        family (JAX's ``_forward``): HNeRV-Boost (img, t), HNeRV img (t
+        without an encoder), the index-only families t."""
         if self.cfg.remat:
             return torch.utils.checkpoint.checkpoint(
-                self.model, img, t, use_reentrant=False)
-        return self.model(img, t)
+                self._forward_of, self.model, img, t, use_reentrant=False)
+        return self._forward_of(self.model, img, t)
+
+    def _forward_of(self, model, img: torch.Tensor, t: torch.Tensor
+                    ) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.model == "HNeRV_Boost":
+            return model(img, t)
+        if cfg.model == "HNeRV" and cfg.enc_strds:
+            return model(img)
+        return model(t)
 
     def _loss_backward(self, img: torch.Tensor, t: torch.Tensor):
         """Loss of one chunk, its gradients added to the parameters';
@@ -399,15 +450,34 @@ class RegressionTrainer:
             return msssim_per_frame(out, img)
         return ssim(out, img, size_average=False, win_size=self._ssim_win)
 
+    def _decoder(self):
+        """(decode(embed, t), embed, frames a decode): the serving decode
+        (``build_serving_decode`` on the trained weights), batch 1; or, for
+        HNeRV, E-NeRV and an index-only config with no planar tail, the
+        eager model's decode of batchSize frames, as JAX times its flax
+        decode (trainer.py:495-541): HNeRV's ``decode`` of the encoder's
+        embedding, the index-only forward.  The encoder is excluded; embed
+        is None for the index-only families."""
+        cfg = self.cfg
+        if self.fps_decode_path == "serving":
+            decode = fast_decode.build_serving_decode(cfg, self.model)
+            embed = (self.model.encode(self.gather([0]))
+                     if cfg.model == "HNeRV_Boost" else None)
+            return decode, embed, 1
+        b = min(cfg.batchSize, self.video.n)
+        if self.has_embed:
+            embed = self.model.encode(self.gather(list(range(b))))
+            return (lambda e, t: self.model.decode(e)), embed, b
+        return (lambda e, t: self.model(t.expand(b))), None, b
+
     @torch.no_grad()
     def measure_fps(self, reps: int = 20) -> float:
-        """Decodes a second of the serving decode (``build_serving_decode``
-        on the trained weights), batch 1, the encoder excluded: one warm-up
-        decode, then ``reps`` decodes at indices in [0.01, 1] timed with
-        CUDA events and one synchronisation on the card, with the host
-        clock on the CPU."""
-        decode = fast_decode.build_serving_decode(self.cfg, self.model)
-        embed = self.model.encode(self.gather([0]))
+        """Frames a second of the decode that ``fps_decode_path`` names
+        (``_decoder``), the encoder excluded: one warm-up decode, then
+        ``reps`` decodes at indices in [0.01, 1] timed with CUDA events and
+        one synchronisation on the card, with the host clock on the
+        CPU."""
+        decode, embed, b = self._decoder()
         ts = torch.linspace(0.01, 1.0, reps, device=self.device)
         decode(embed, ts[:1])
         if self.device.type == "cuda":
@@ -424,7 +494,7 @@ class RegressionTrainer:
             for i in range(reps):
                 decode(embed, ts[i:i + 1])
             dt = time.perf_counter() - t0
-        return reps / dt
+        return reps * b / dt
 
     @torch.no_grad()
     def evaluate(self, huffman_coding: bool = False) -> Dict[str, float]:
@@ -433,11 +503,14 @@ class RegressionTrainer:
         qmodel = copy.deepcopy(self.model)
         qmodel.load_state_dict(params_q)
 
-        # 6-bit PTQ of the clip's embeddings; the quantised model decodes
-        # from their dequantised values
-        quant_embed, _ = quant_tensor(self._collect_embeds(),
-                                      cfg.quant_embed_bit)
-        dequant_embeds = dequant_tensor(quant_embed).astype(np.float32)
+        # 6-bit PTQ of the clip's embeddings (the HNeRV families with an
+        # encoder); the quantised model decodes from their dequantised
+        # values
+        quant_embed = dequant_embeds = None
+        if self.has_embed:
+            quant_embed, _ = quant_tensor(self._collect_embeds(),
+                                          cfg.quant_embed_bit)
+            dequant_embeds = dequant_tensor(quant_embed).astype(np.float32)
 
         slots = {k: [] for k in METRIC_NAMES}
         mask = self.inpaint_mask
@@ -448,12 +521,14 @@ class RegressionTrainer:
                 img = self.gather(batch["idx"])
                 t = torch.as_tensor(batch["norm_idx"], device=self.device)
                 idx = batch["idx"]
-                if model_ind == 1:
+                if model_ind == 1 and dequant_embeds is not None:
                     e = torch.from_numpy(dequant_embeds[idx]).to(self.device)
-                    out = model.decode(e, t)
+                    out = (model.decode(e, t) if cfg.model == "HNeRV_Boost"
+                           else model.decode(e))
                 else:
-                    out = model(torch.clamp(img * mask, 0, 1)
-                                if mask is not None else img, t)
+                    img_in = (torch.clamp(img * mask, 0, 1)
+                              if mask is not None else img)
+                    out = self._forward_of(model, img_in, t)
                 pv = psnr_per_frame(out, img).cpu().numpy()
                 sv = self._ssim_metric(out, img).cpu().numpy()
                 for b, frame_idx in enumerate(idx):

@@ -10,8 +10,9 @@ Phases, one line of output each (or one line per shape):
 2. builds the hand-written kernels from ``boosting_nerv_torch/ops/csrc``
    and prints the build's seconds and ptxas's register and spill report of
    every kernel instance, then one line per instance of the int8 form of
-   the Hopper kernel (``conv_sm90_i8*.cu``) and of its sin and planar
-   modes (``conv_sm90_sin.cu``, ``conv_sm90_planar.cu``): registers, spill
+   the Hopper kernel (``conv_sm90_i8*.cu``) and of its sin, planar and
+   K-loop modes (``conv_sm90_sin.cu``, ``conv_sm90_planar.cu``,
+   ``conv_sm90_kloop.cu``): registers, spill
    bytes and its wgmma instructions in ``cuobjdump -sass`` (each instance
    must have some, and no spills);
 3. builds HNeRV-Boost at the UVG-1080p serving config of bench.py with
@@ -45,9 +46,9 @@ Phases, one line of output each (or one line per shape):
    dequantising with 1/inv; prints the share of codes that differ; times
    both with CUDA events, F.conv2d for conv_tile and, beside
    conv_tile_v3, F.conv2d of its conv alone (no act); then checks that a
-   conv with more than 128 input channels, which the kernel does not
-   take, raises ValueError on the card from the tile, v1 and planar
-   wrappers; checks conv_sm90.cu's and conv_sm90_i8.cu's shared-memory
+   conv with more input channels than the kernel takes (264: beyond its
+   K loop's 256 in bf16, and beyond the modes' 128) raises ValueError on
+   the card from the tile, v1 and planar wrappers; checks conv_sm90.cu's and conv_sm90_i8.cu's shared-memory
    plan of every conv shape they serve, and conv_sm90.cu's slice-group
    plan G at every launch grid, and those of the sin instances at the v1
    ResBlockSFT's grid and of the planar instances at the planar phase's
@@ -136,7 +137,33 @@ Phases, one line of output each (or one line per shape):
    weights, TF32 off (L1_freq: MS-SSIM needs more than 160 pixels a
    side): the losses within 1e-4 relative, every gradient within 1e-3 of
    its leaf's max |g| (the CPU on torch's own convolutions; the CPU on
-   oneDNN's, its default, printed beside it and not gated).
+   oneDNN's, its default, printed beside it and not gated);
+12. the other families: NeRV-Boost and E-NeRV-Boost at UVG-1080p 10M full
+   width (scripts/regression/UVG/{nerv_boost,enerv_boost}.sh, modelsize
+   5.2 / 4.3: fc_dim 131 / 115; seeded random weights): the bf16 serving
+   decode and the W8A8 one (calibrated as phase 3's, t in CALIB_TS,
+   margin 1.05), each also on its wrappers' plain versions; the W8A8
+   stages ([3] / [3, 7], int8 codes into each) and each decode's launches
+   a frame (bf16: fused_upconv_rsft 3, fused_conv_rsft 3; W8A8 3 / 2 / 1
+   and 3 / 1 / 2 of fused_upconv_rsft / fused_conv_rsft /
+   fused_conv_rsft_i8); the plans of their convs (E-NeRV-Boost's stage-2
+   upconv, 172 -> 4 x 86, on the K loop of conv_sm90_kloop.cu); every
+   stage wrapper against its plain version at every tail shape, with
+   phase 4's tolerance, ms and bound (stage 2's K-loop upconv alone and
+   with int8 codes out, and the K loop's widest served input, stage 2 of
+   E-NeRV-Boost 15M, Cin 213, with random weights, alone and with codes
+   out); 8 frames of each decode (bf16 within 1e-2 of the
+   fp32 model, TF32 off; W8A8 within 2e-2 of its plain stages and >= 35 dB
+   against bf16 at t = 0.37) with their launch counts, and the timing
+   turns (plain, kernels; bf16, W8A8); then ``train()`` of each for one
+   epoch of a 4-frame 1080x1920 clip (4 steps and its eval; its recipe's
+   lr, Fusion10_freq, Adan, TF32 off, E-NeRV-Boost's clip 1.0): the
+   first loss against a forward just before it (1e-5 relative), every
+   loss finite, ``measure_fps``'s launches (3 + 3 a decode), the median
+   step ms and the peak allocation; and one step of the HNeRV baseline
+   (scripts/regression/UVG/hnerv.sh, modelsize 3, fc_dim 83), whose fps
+   clock times its eager decode (no kernel launch); then the phase's
+   seconds.
 
 The launch counts are set to 0 just before each slice's frames (the
 planar phase's stage-7 calls, the probe phase's timed run, the training
@@ -216,6 +243,18 @@ SERVING_LAUNCHES = {"fused_upconv_rsft": 3, "fused_conv_rsft": 3}
 FIRST_LOSS_RTOL = 1e-5  # the first step's loss vs a forward just before
 STEP_LOSS_RTOL = 1e-4   # card vs CPU, TF32 off on the card
 STEP_GRAD_TOL = 1e-3    # x the leaf's max |g|, card vs CPU
+# phase 12, the other families at UVG-1080p 10M (scripts/regression/UVG)
+FAMILY_SIZES = {"NeRV_Boost": 5.2, "ENeRV_Boost": 4.3}
+FAMILY_LR = {"NeRV_Boost": 0.003, "ENeRV_Boost": 0.0015}
+FAMILY_W8A8 = {"NeRV_Boost": [3], "ENeRV_Boost": [3, 7]}
+ENERV_15M = 5.8     # enerv_boost.sh's 15M: stage 2 takes Cin 213
+FAMILY_LAUNCHES = {  # a frame's launches, bf16 (False) and W8A8 (True)
+    ("NeRV_Boost", False): SERVING_LAUNCHES,
+    ("NeRV_Boost", True): {"fused_upconv_rsft": 3, "fused_conv_rsft": 2,
+                           "fused_conv_rsft_i8": 1},
+    ("ENeRV_Boost", False): SERVING_LAUNCHES,
+    ("ENeRV_Boost", True): {"fused_upconv_rsft": 3, "fused_conv_rsft": 1,
+                            "fused_conv_rsft_i8": 2}}
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and
 # tensor-core operations/s of the kernels' operand types
 HBM_BYTES_S = 3.35e12
@@ -308,8 +347,10 @@ def bound(name, args, kw, out):
         cout, c = w.conv_w.shape[0], w.w0.shape[0]
         hf, wf = (2 * h, 2 * wd) if name.startswith("fused_upconv") else (
             h, wd)
-        ops = 2 * 9 * (h * wd * c_in * cout + 2 * hf * wf * c * c
-                       + (hf * wf * c * 3 if kw.get("head") else 0))
+        taps = w.head_w.shape[1] * w.head_w.shape[2] if kw.get("head") \
+            else 0   # the head: 3x3 (HNeRV-Boost) or 1x1
+        ops = 2 * (9 * (h * wd * c_in * cout + 2 * hf * wf * c * c)
+                   + taps * hf * wf * c * 3)
         nbytes = _nbytes(x, out, args[2], *vars(w).values(),
                          kw.get("out_inv"))
     return _bound(ops, nbytes, "int8" if name.endswith("_i8") else "bf16")
@@ -361,16 +402,12 @@ def ragged_i8(gen, c_in, c, up, head):
         conv(c, 3) if head else None, bounds=bounds)
 
 
-def stage_cases(decode, decode_i8, gen):
+def tail_cases(decode, decode_i8, gen, prefix=""):
     """(label, wrapper, args, kwargs, per_frame) for every tail stage of
-    the bf16 serving decode and for stage 4 (bf16, int8-code output) and the
-    int8 stages of the W8A8 one, each with its own weights and the SFT
-    vectors of t = 0.5, plus one small ragged stage of each wrapper with
-    random weights.  per_frame: the case is one call of a frame of the
-    decode that serves the wrapper (the bf16 wrappers the bf16 decode, the
-    int8 ones the W8A8 decode)."""
-    from boosting_nerv_torch.ops.kernels import planar
-
+    the bf16 serving decode and for the W8A8 one's stages that run int8
+    or store int8 codes, each with its own weights and the SFT vectors of
+    t = 0.5; per_frame: the case is one call of a frame of the decode that
+    serves the wrapper."""
     t_embed = decode.time_embed(torch.tensor([0.5], device="cuda"))
     cases = []
     zc = set(decode_i8.w8a8_zc)
@@ -383,10 +420,23 @@ def stage_cases(decode, decode_i8, gen):
         kw = {"head": True} if st.head else {}
         if st.out_inv is not None:
             kw["out_inv"] = st.out_inv
-        cases.append((f"stage {st.index}{tag}", st.kernel,
+        cases.append((f"{prefix}stage {st.index}{tag}", st.kernel,
                       (x, st.weights, st.sft(t_embed)), kw,
                       st.kernel.endswith("_i8") or not tag))
+    return cases
 
+
+def stage_cases(decode, decode_i8, gen):
+    """(label, wrapper, args, kwargs, per_frame) for every tail stage of
+    the bf16 serving decode and for stage 4 (bf16, int8-code output) and the
+    int8 stages of the W8A8 one, each with its own weights and the SFT
+    vectors of t = 0.5, plus one small ragged stage of each wrapper with
+    random weights.  per_frame: the case is one call of a frame of the
+    decode that serves the wrapper (the bf16 wrappers the bf16 decode, the
+    int8 ones the W8A8 decode)."""
+    from boosting_nerv_torch.ops.kernels import planar
+
+    cases = tail_cases(decode, decode_i8, gen)
     c_in, c, h, w = 6, 5, 9, 50   # width 50: not a multiple of the tile
     sft = (torch.rand((4, c), generator=gen, device="cuda") - 0.5) * 0.6
     up = planar.StageWeights(
@@ -584,10 +634,11 @@ def library_ms(args, kw):
         xc, wc, b, padding=kw["k"] // 2))
 
 
-def check_kernels(cases, device_line):
+def check_kernels(cases, device_line, v3_line=True):
     """Phase 4: kernel vs plain at every case; per-kernel summaries
     (errors over all shapes; times and bounds summed over one frame's calls
-    of the decode that serves the kernel)."""
+    of the decode that serves the kernel); with ``v3_line`` the v3 frame's
+    conv_tile_v3 time beside F.conv2d's."""
     summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                    "bound_ms": 0.0, "bound_by": "operations",
                    "library_ms": 0.0 if k in LIBRARY else None}
@@ -634,9 +685,10 @@ def check_kernels(cases, device_line):
                 s["library_ms"] += lib_ms
             if b_by == "bytes":
                 s["bound_by"] = "bytes"
-    print(f"conv_tile_v3 over the v3 frame's calls: "
-          f"{summary['conv_tile_v3']['ms']:.4f} ms, F.conv2d of the conv "
-          f"alone {alone:.4f} ms [{device_line}]", flush=True)
+    if v3_line:
+        print(f"conv_tile_v3 over the v3 frame's calls: "
+              f"{summary['conv_tile_v3']['ms']:.4f} ms, F.conv2d of the "
+              f"conv alone {alone:.4f} ms [{device_line}]", flush=True)
     return summary
 
 
@@ -899,23 +951,10 @@ def check_plans(decode, decode_i8, v2, v3, v1, device_line):
     (``bnt_conv_sm90_groups``, or a mode's entry point's) equals its mirror
     ``conv_sm90.groups`` at the library's tiles, SMs and blocks an SM; each
     plan is printed."""
-    from boosting_nerv_torch.ops.kernels import _build, conv_sm90
+    from boosting_nerv_torch.ops.kernels import conv_sm90
 
-    bf, s8, s8q = conv_sm90.BF16, conv_sm90.S8, conv_sm90.S8Q
-    grids = {}  # (cin, cout, k, form, mode) -> launch grids (n, h, w)
-
-    def add(w, grid, form=bf, mode=conv_sm90.NONE):
-        grids.setdefault((w.shape[3], w.shape[0], w.shape[1], form, mode),
-                         set()).add(tuple(grid))
-
-    for st in decode.tail:
-        w = st.weights
-        n, h, wd, _ = st.in_shape
-        out = (n, 2 * h, 2 * wd) if st.strd == 2 else (n, h, wd)
-        add(w.conv_w, (n, h, wd))
-        add(w.w0, out)
-        if st.head:
-            add(w.head_w, out)
+    grids = tail_grids(decode, decode_i8)
+    add = grids.add
     for fine in (v2.fine, v3.fine):
         for st in fine.stages:
             h, wd = st.out_hw
@@ -923,18 +962,6 @@ def check_plans(decode, decode_i8, v2, v3, v1, device_line):
                 add(st.conv_w, (1, h // st.strd, wd // st.strd))
             add(st.rsft[0], (1, h, wd))
         add(fine.head_w, (1, *fine.stages[-1].out_hw))
-    for st in decode_i8.tail:
-        if not st.kernel.endswith("_i8"):
-            continue
-        w, c = st.weights, st.weights.w0.shape[0]
-        n, h, wd, _ = st.in_shape
-        out = (n, 2 * h, 2 * wd) if st.strd == 2 else (n, h, wd)
-        add(w.conv_w, (n, h, wd), s8 if st.index in decode_i8.w8a8_zc
-            else s8q)
-        add(w.w0, out, s8q)
-        add(w.w1, out, s8)
-        if st.head:
-            add(w.head_w, out, s8)
     for st in v1.chw.stages:  # the ResBlockSFT of sin(x) at the switch
         if st.upconv is not None:
             add(st.rsft[0], (1, *st.out_hw), mode=conv_sm90.SIN_INPUT)
@@ -945,6 +972,60 @@ def check_plans(decode, decode_i8, v2, v3, v1, device_line):
     for w in (st7.conv_w, v1.chw.head_w):  # conv3x3_act_chw, head_conv_chw
         add(w, (1, *st7.out_hw))           # and the planar phase's
         add(w, (1, *st7.out_hw), mode=conv_sm90.PLANAR_IO)  # conv_planar
+    verify_plans(grids, device_line)
+
+
+class Grids(dict):
+    """(cin, cout, k, form, mode) -> the launch grids (n, h, w) of a conv
+    of the decodes; a conv of more than 128 padded input channels in the
+    K loop's mode."""
+
+    def add(self, w, grid, form=None, mode=None):
+        from boosting_nerv_torch.ops.kernels import conv_sm90
+
+        form = conv_sm90.BF16 if form is None else form
+        mode = conv_sm90.NONE if mode is None else mode
+        if conv_sm90.wide(w.shape[3], form, mode):
+            mode = conv_sm90.KLOOP
+        self.setdefault((w.shape[3], w.shape[0], w.shape[1], form, mode),
+                        set()).add(tuple(grid))
+
+
+def tail_grids(decode, decode_i8) -> Grids:
+    """The conv launches of the bf16 serving decode's tail stages and of
+    the W8A8 decode's int8 stages."""
+    from boosting_nerv_torch.ops.kernels import conv_sm90
+
+    s8, s8q = conv_sm90.S8, conv_sm90.S8Q
+    grids = Grids()
+    for st in decode.tail:
+        w = st.weights
+        n, h, wd, _ = st.in_shape
+        out = (n, 2 * h, 2 * wd) if st.strd == 2 else (n, h, wd)
+        grids.add(w.conv_w, (n, h, wd))
+        grids.add(w.w0, out)
+        if st.head:
+            grids.add(w.head_w, out)
+    for st in decode_i8.tail:
+        if not st.kernel.endswith("_i8"):
+            continue
+        w = st.weights
+        n, h, wd, _ = st.in_shape
+        out = (n, 2 * h, 2 * wd) if st.strd == 2 else (n, h, wd)
+        grids.add(w.conv_w, (n, h, wd), s8 if st.index in decode_i8.w8a8_zc
+                  else s8q)
+        grids.add(w.w0, out, s8q)
+        grids.add(w.w1, out, s8)
+        if st.head:
+            grids.add(w.head_w, out, s8)
+    return grids
+
+
+def verify_plans(grids, device_line):
+    """check_plans' checks and "plan" lines of every conv in ``grids``."""
+    from boosting_nerv_torch.ops.kernels import _build, conv_sm90
+
+    bf, s8, s8q = conv_sm90.BF16, conv_sm90.S8, conv_sm90.S8Q
     lib = _build.load_library()
     names = {bf: "conv_sm90", s8: "conv_sm90_i8 codes in",
              s8q: "conv_sm90_i8 bf16 in"}
@@ -952,7 +1033,8 @@ def check_plans(decode, decode_i8, v2, v3, v1, device_line):
              conv_sm90.SIN_RESIDUAL: " sin residual",
              conv_sm90.PLANAR_IN: " planar in",
              conv_sm90.PLANAR_OUT: " planar out",
-             conv_sm90.PLANAR_IO: " planar io"}
+             conv_sm90.PLANAR_IO: " planar io",
+             conv_sm90.KLOOP: " K loop"}
     for (cin, cout, k, form, mode), shapes in sorted(grids.items()):
         ns, smem = conv_sm90.plan(lib, cin, cout, k, form, mode)
         mirror = conv_sm90.fit(cin, cout, k, ns, form, mode)
@@ -1041,11 +1123,12 @@ def run_schedules(decode, v3, gen, device_line):
 
 
 def check_refusal(gen, device_line):
-    """A conv with more than 128 input channels fits no shared-memory tile
-    of the kernel: the tile, v1 and planar wrappers raise ValueError on the
-    card."""
-    c = 200
-    xp = torch.zeros((4 * 208, 2, 128), dtype=torch.bfloat16, device="cuda")
+    """A conv with more input channels than the kernel takes (264: beyond
+    the K loop's 256 in bf16, beyond 128 in the modes) fits no
+    shared-memory tile of the kernel: the tile, v1 and planar wrappers
+    raise ValueError on the card."""
+    c = 264
+    xp = torch.zeros((4 * 272, 2, 128), dtype=torch.bfloat16, device="cuda")
 
     def rsft_args():
         return (rnd(gen, c, 3, 3, c), rnd(gen, c), rnd(gen, c, 3, 3, c),
@@ -1553,6 +1636,252 @@ def run_train_phase(device_line):
     return launches
 
 
+def family_config(model, size=None):
+    """scripts/regression/UVG/{nerv_boost,enerv_boost}.sh at ``size``, by
+    default the paper's 10M (modelsize 5.2 / 4.3), sized for a 120-frame
+    1080p clip: fc_dim 131 / 115 (the index-only families' fc_dim does not
+    depend on the clip)."""
+    from boosting_nerv_torch.config import BoostConfig, resolve_sizes
+
+    cfg = BoostConfig(
+        model=model, sft_block="res_sft", ch_t=32, block_dim=128,
+        conv_type=["convnext", "pshuffel_3x3"], act="sin", norm="none",
+        crop_list="1080_1920", embed="pe_1.25_80", fc_hw="9_16",
+        dec_strds=[5, 3, 2, 2, 2], ks="0_3_3", reduce=2,
+        dec_blks=[1, 1, 2, 2, 2],
+        modelsize=FAMILY_SIZES[model] if size is None else size,
+        lower_width=12)
+    return resolve_sizes(cfg, final_size=1920 * 1080, full_data_length=120)
+
+
+def hnerv_config(outf):
+    """scripts/regression/UVG/hnerv.sh at modelsize 3 (fc_dim pinned at
+    83, its value for 120 frames), batch 1, as the recipe trains it."""
+    from boosting_nerv_torch.config import BoostConfig
+
+    return BoostConfig(
+        model="HNeRV", conv_type=["convnext", "pshuffel_3x3"], act="gelu",
+        norm="none", crop_list="1080_1920", loss="Fusion6",
+        enc_strds=[5, 3, 2, 2, 2], enc_dim="64_16",
+        dec_strds=[5, 3, 2, 2, 2], ks="0_1_5", reduce=1.2,
+        dec_blks=[1, 1, 1, 1, 1], modelsize=3, fc_dim=83, lower_width=12,
+        batchSize=1, lr=0.001, optim_type="Adan", train_precision="high",
+        epochs=1, not_resume=True, outf=outf)
+
+
+def run_family_train(model, cfg, video, root, device_line):
+    """Phase 12's training of one Boost family: ``train()`` for one epoch
+    of the 4-frame clip (4 steps, then its eval), at its recipe's lr and
+    Fusion10_freq, Adan, TF32 off; checks the first loss against a forward
+    just before it, every loss finite, and ``measure_fps``'s launches (3 +
+    3 a decode); prints the median step ms and the peak allocation.
+    Returns the launch counts of its runs."""
+    from boosting_nerv_torch.ops import kernels
+    from boosting_nerv_torch.ops.losses import loss_fn
+    from boosting_nerv_torch.training.trainer import RegressionTrainer
+    from boosting_nerv_torch.utils.logger import RunLogger
+
+    tcfg = cfg.replace(
+        batchSize=1, epochs=1, lr=FAMILY_LR[model], loss="Fusion10_freq",
+        optim_type="Adan", train_precision="highest", not_resume=True,
+        clip_max_norm=1.0 if model == "ENeRV_Boost" else None,
+        outf=os.path.join(root, model))
+    tr = RegressionTrainer(tcfg, video=video, device="cuda",
+                           logger=RunLogger(tcfg.outf, enable_tb=False))
+    if tr.fps_decode_path != "serving":
+        raise SmokeFailure(f"{model} fps path {tr.fps_decode_path}")
+    first = next(video.epoch_batches(tr.train_ind, 1, True,
+                                     tr.cfg.manualSeed))
+    with torch.no_grad():
+        img = tr.gather(first["idx"])
+        want = float(loss_fn(tr.model(torch.as_tensor(
+            first["norm_idx"], device="cuda")), img, tr.cfg.loss))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    losses = tr.train_losses
+    rel = abs(losses[0] - want) / abs(want)
+    kernels.reset_launch_counts()
+    fps = tr.measure_fps(reps=FPS_REPS)
+    fps_launches = dict(kernels.LAUNCHES)
+    want_fps = {k: SERVING_LAUNCHES.get(k, 0) * (FPS_REPS + 1)
+                for k in fps_launches}
+    step_ms, peak = _step_ms_and_peak(tr, 3)
+    print(f"family {model} train: {len(losses)} steps and its eval in "
+          f"{train_s:.1f} s (fc_dim {tr.cfg.fc_dim}, "
+          f"{sum(p.numel() for p in tr.model.parameters())} params, "
+          f"Fusion10_freq, Adan, lr {tcfg.lr}, clip "
+          f"{tr.cfg.clip_max_norm}, TF32 off); losses "
+          f"{[round(v, 5) for v in losses]}; first loss {losses[0]:.7g} "
+          f"vs a forward just before it {want:.7g}: rel err {rel:.3g} (tol "
+          f"{FIRST_LOSS_RTOL}); measure_fps {fps:.2f} decodes/s, launches "
+          f"{ {k: v for k, v in fps_launches.items() if v} }; train step "
+          f"{step_ms:.2f} ms median of 3 (CUDA events), peak allocation of "
+          f"a step {peak / 2**30:.3f} GiB [{device_line}]", flush=True)
+    if not (rel <= FIRST_LOSS_RTOL and len(losses) == TRAIN_FRAMES
+            and all(math.isfinite(v) for v in losses)):
+        raise SmokeFailure(f"{model} train: losses {losses}, first {want}")
+    if fps_launches != want_fps or not fps > 0:
+        raise SmokeFailure(f"{model} measure_fps launches {fps_launches}, "
+                           f"expected {want_fps}")
+    return [launches, fps_launches]
+
+
+def widest_k_loop_cases(gen):
+    """Phase 12's cases of the K loop's widest served input: stage 2 of
+    E-NeRV-Boost 15M (``enerv_boost.sh`` at modelsize 5.8: 213 -> 4 x 106
+    at 135 x 240, planned at N 64), random weights and SFT vectors, alone
+    and with int8 codes out."""
+    from boosting_nerv_torch.config import model_stage_plan
+    from boosting_nerv_torch.ops.kernels import planar
+
+    cfg = family_config("ENeRV_Boost", ENERV_15M)
+    st, (h, w) = model_stage_plan(cfg)[2], (135, 240)
+    c_in, c = st.ngf, st.new_ngf
+    weights = planar.StageWeights(
+        rnd(gen, 4 * c, 3, 3, c_in, scale=(9 * c_in) ** -0.5),
+        rnd(gen, 4 * c, scale=0.1),
+        rnd(gen, c, 3, 3, c, scale=(9 * c) ** -0.5), rnd(gen, c, scale=0.1),
+        rnd(gen, c, 3, 3, c, scale=(9 * c) ** -0.5), rnd(gen, c, scale=0.1))
+    sft = (torch.rand((4, c), generator=gen, device="cuda") - 0.5) * 0.6
+    args = (rnd(gen, 1, h, w, c_in), weights, sft)
+    label = f"ENeRV_Boost 15M stage 2 (K loop, Cin {c_in})"
+    return [(label, "fused_upconv_rsft", args, {}, False),
+            (label + " codes out", "fused_upconv_rsft", args,
+             {"out_inv": out_inv(planar.fused_upconv_rsft_plain, args)},
+             False)]
+
+
+def run_families_phase(summary, device_line):
+    """Phase 12: NeRV-Boost and E-NeRV-Boost at UVG-1080p 10M full width
+    (seeded random weights) on the serving decode in bf16 and W8A8, each
+    wrapper against its plain version at every tail shape (stage 2 of
+    E-NeRV-Boost: the K loop's Cin 172), their frames and launches, the
+    timing turns, and their training; then one train step of the HNeRV
+    baseline, whose fps clock times its eager decode.  Adds the wrapper
+    checks' errors to ``summary``; returns the launch counts of its
+    runs."""
+    from boosting_nerv_torch.data import VideoData, synthetic_video
+    from boosting_nerv_torch.models import build_model
+    from boosting_nerv_torch.ops import kernels
+    from boosting_nerv_torch.runtime.fast_decode import build_serving_decode
+    from boosting_nerv_torch.training.trainer import RegressionTrainer
+    from boosting_nerv_torch.utils.logger import RunLogger
+
+    t_phase = time.perf_counter()
+    runs = []
+    ts = [torch.tensor([v], dtype=torch.float32, device="cuda")
+          for v in np.linspace(0.01, 1.0, N_FRAMES)]
+    calib = [(None, torch.tensor([v], device="cuda")) for v in CALIB_TS]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    root = os.path.join(REPO, "output", "chip_smoke_families")  # gitignored
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        video = VideoData(synthetic_video(TRAIN_FRAMES, 1080, 1920, seed=2))
+        for model_name in FAMILY_SIZES:
+            cfg = family_config(model_name)
+            model = build_model(cfg, seed=0).eval()
+            decode = build_serving_decode(cfg, model)
+            plain = build_serving_decode(cfg, model, plain=True)
+            decode_i8 = build_serving_decode(cfg, model, w8a8_calib=calib)
+            plain_i8 = build_serving_decode(cfg, model, w8a8_calib=calib,
+                                            plain=True)
+            stages = [(st.index, st.in_shape[3], st.weights.w0.shape[0])
+                      for st in decode.tail]
+            want_i8 = FAMILY_W8A8[model_name]
+            print(f"family {model_name} 10M (fc_dim {cfg.fc_dim}, "
+                  f"{sum(p.numel() for p in model.parameters())} params): "
+                  f"tail stages (index, Cin, C) {stages}; W8A8 stages "
+                  f"{decode_i8.w8a8_stages}, int8 codes in "
+                  f"{decode_i8.w8a8_zc}", flush=True)
+            if not (decode_i8.w8a8_stages == decode_i8.w8a8_zc == want_i8):
+                raise SmokeFailure(f"{model_name} W8A8 stages "
+                                   f"{decode_i8.w8a8_stages}, expected "
+                                   f"{want_i8}")
+            for dec, i8 in ((decode, False), (decode_i8, True)):
+                want = FAMILY_LAUNCHES[(model_name, i8)]
+                if dec.launches_per_frame != want:
+                    raise SmokeFailure(f"{model_name} launches per frame "
+                                       f"{dec.launches_per_frame}, expected "
+                                       f"{want}")
+            verify_plans(tail_grids(decode, decode_i8), device_line)
+            got = check_kernels(tail_cases(decode, decode_i8, gen,
+                                           f"{model_name} "),
+                                device_line, v3_line=False)
+            for name, s in got.items():
+                summary[name]["max_abs_err"] = max(
+                    summary[name]["max_abs_err"], s["max_abs_err"])
+            with torch.no_grad():
+                refs = [model(t) for t in ts]
+            outs, launches = serve(decode, None, ts)
+            runs.append(launches)
+            err = max((o.float() - r).abs().max().item()
+                      for o, r in zip(outs, refs))
+            print(f"family {model_name} bf16 {N_FRAMES} frames (1, 1080, "
+                  f"1920, 3) finite in [0, 1]: max_abs_err vs the fp32 "
+                  f"model {err:.6g} (tol {SLICE_TOL}); launches "
+                  f"{ {k: v for k, v in launches.items() if v} }",
+                  flush=True)
+            if not err <= SLICE_TOL:
+                raise SmokeFailure(f"{model_name} bf16 error {err}")
+            outs, launches = serve(decode_i8, None, ts)
+            runs.append(launches)
+            err = max((o.float() - plain_i8(None, t).float()).abs().max()
+                      .item() for t, o in zip(ts, outs))
+            t_hold = torch.tensor([T_HOLD], device="cuda")
+            mse = (decode_i8(None, t_hold).float()
+                   - decode(None, t_hold).float()).pow(2).mean().item()
+            psnr = 99.0 if mse <= 1e-12 else -10.0 * math.log10(mse)
+            print(f"family {model_name} w8a8 {N_FRAMES} frames finite in "
+                  f"[0, 1]: max_abs_err vs plain-stage W8A8 decode "
+                  f"{err:.6g} (tol {W8A8_TOL}); PSNR vs bf16 at t={T_HOLD}: "
+                  f"{psnr:.3f} dB (gate {PSNR_GATE}); launches "
+                  f"{ {k: v for k, v in launches.items() if v} }",
+                  flush=True)
+            if not (err <= W8A8_TOL and psnr >= PSNR_GATE):
+                raise SmokeFailure(f"{model_name} W8A8 error {err}, PSNR "
+                                   f"{psnr}")
+            print_turns(f"{model_name} bf16", ("plain stages", plain),
+                        ("kernels", decode), None, ts, device_line)
+            print_turns(f"{model_name} w8a8 vs bf16", ("bf16", decode),
+                        ("w8a8", decode_i8), None, ts, device_line)
+            del decode, plain, decode_i8, plain_i8, model
+            runs += run_family_train(model_name, cfg, video, root,
+                                     device_line)
+        got = check_kernels(widest_k_loop_cases(gen), device_line,
+                            v3_line=False)
+        summary["fused_upconv_rsft"]["max_abs_err"] = max(
+            summary["fused_upconv_rsft"]["max_abs_err"],
+            got["fused_upconv_rsft"]["max_abs_err"])
+
+        hcfg = hnerv_config(os.path.join(root, "HNeRV"))
+        tr = RegressionTrainer(hcfg, video=video, device="cuda",
+                               logger=RunLogger(hcfg.outf, enable_tb=False))
+        kernels.reset_launch_counts()
+        loss, _ = tr.train_step_idx([0], video.norm_idx([0]), hcfg.lr)
+        fps = tr.measure_fps(reps=3)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        print(f"family HNeRV (hnerv.sh, modelsize 3, fc_dim {tr.cfg.fc_dim}, "
+              f"{sum(p.numel() for p in tr.model.parameters())} params): one "
+              f"step, loss {float(loss):.6g}; fps clock "
+              f"{tr.fps_decode_path} decode {fps:.2f} frames/s; kernel "
+              f"launches {launches} [{device_line}]", flush=True)
+        if not (math.isfinite(float(loss)) and tr.fps_decode_path == "eager"
+                and fps > 0 and not launches):
+            raise SmokeFailure(f"HNeRV: loss {loss}, fps path "
+                               f"{tr.fps_decode_path}, launches {launches}")
+        del tr
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"families phase: {time.perf_counter() - t_phase:.1f} s "
+          f"[{device_line}]", flush=True)
+    return {k: sum(r.get(k, 0) for r in runs) for k in kernels.LAUNCHES}
+
+
 def print_ptxas(log_path):
     """One line per source of ptxas's report in the build log: kernel
     instances, the range of their registers and their spill bytes."""
@@ -1568,16 +1897,17 @@ def print_ptxas(log_path):
                   f"{spills} spill bytes", flush=True)
 
 
-MODE_UNITS = ("conv_sm90_sin.cu", "conv_sm90_planar.cu")
+MODE_UNITS = ("conv_sm90_sin.cu", "conv_sm90_planar.cu",
+              "conv_sm90_kloop.cu")
 
 
 def check_instances(device_line):
-    """Phase 2's lines of the int8 form of the Hopper kernel and of its sin
-    and planar modes: each production instance (conv_sm90_i8.cu, _64.cu,
-    _80.cu, whose K5 probe units are phase 10's; conv_sm90_sin.cu,
-    conv_sm90_planar.cu) with its registers, spill bytes and wgmma (IGMMA,
-    HGMMA) instructions in the library's SASS; fails on a spill or an
-    instance without them."""
+    """Phase 2's lines of the int8 form of the Hopper kernel and of its sin,
+    planar and K-loop modes: each production instance (conv_sm90_i8.cu,
+    _64.cu, _80.cu, whose K5 probe units are phase 10's;
+    conv_sm90_sin.cu, conv_sm90_planar.cu, conv_sm90_kloop.cu) with its
+    registers, spill bytes and wgmma (IGMMA, HGMMA) instructions in the
+    library's SASS; fails on a spill or an instance without them."""
     from boosting_nerv_torch.ops.kernels import _build
     from boosting_nerv_torch.tools import probes
 
@@ -1689,6 +2019,7 @@ def main() -> int:
     probe_launches, probe_entries = run_probe_phase(device_line)
     runs.append(probe_launches)
     runs.append(run_train_phase(device_line))
+    runs.append(run_families_phase(summary, device_line))
 
     leaked = [m for m in ("jax", "flax", "boosting_nerv_tpu")
               if m in sys.modules]

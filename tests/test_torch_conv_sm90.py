@@ -469,6 +469,8 @@ def test_plan_falls_back_to_a_narrower_slice_that_fits():
         def bnt_conv_sm90_smem(self, cin, cout, ks, ns):
             return 1000 + ns if ns in self.fits else -1
 
+        bnt_conv_sm90_kloop_smem = bnt_conv_sm90_smem  # Cin beyond 128
+
     assert conv_sm90.slice_widths(80)[0] == 80
     assert conv_sm90.plan(Lib({8}), 128, 80, 5) == (8, 1008)
     assert conv_sm90.plan(Lib({8, 64, 80}), 128, 80, 5) == (80, 1080)
@@ -497,10 +499,11 @@ def test_packed_weight_reads_back_through_the_descriptor(cout, k, cin):
 
 def test_check_rsft_on_the_hopper_kernel_refuses_wide_cin(monkeypatch):
     """``_check_rsft`` fitted by ``sm90_smem``: a meta tensor is refused
-    (no card), and on the card a ResBlockSFT of more than 128 channels
-    fails the Hopper kernel's fit (the library's fit here is its mirror,
-    ``conv_sm90.fit``, which chip_smoke.py holds to the library)."""
-    c = 200
+    (no card), and on the card a ResBlockSFT of more than 256 channels
+    (beyond the K loop's) fails the Hopper kernel's fit (the library's fit
+    here is its mirror, ``conv_sm90.fit``, which chip_smoke.py holds to
+    the library); 200 channels fit through the K loop."""
+    c = 264
     x = torch.zeros(1, 4, 9, c)
     w, b = torch.zeros(c, 3, 3, c), torch.zeros(c)
     with pytest.raises(ValueError, match="device"):
@@ -513,11 +516,14 @@ def test_check_rsft_on_the_hopper_kernel_refuses_wide_cin(monkeypatch):
             plan = conv_sm90.fit(cin, cout, ks, ns)
             return -1 if plan is None else plan[-1]
 
+        bnt_conv_sm90_kloop_smem = bnt_conv_sm90_smem
+
     conv_sm90.plan.cache_clear()
     monkeypatch.setattr(planar._build, "load_library", lambda: Lib)
     with pytest.raises(ValueError, match="Cin <= 128"):
         planar.check_fit(planar.sm90_smem, [(c, c, 3)])
-    planar.check_fit(planar.sm90_smem, [(128, 128, 3), (51, 51, 3)])
+    planar.check_fit(planar.sm90_smem,
+                     [(128, 128, 3), (51, 51, 3), (200, 200, 3)])
     conv_sm90.plan.cache_clear()
 
 
@@ -525,8 +531,10 @@ def test_shared_memory_plan_at_the_bench_shapes():
     """Two warpgroups on a 4 x 64 tile with every weight block resident
     where that fits (the 51- and 61-channel convs, the 3-channel head),
     else with a weight ring (73 channels, the upconvs), else one
-    warpgroup; every plan within the card's shared memory; nothing beyond
-    128 input channels."""
+    warpgroup; every plan within the card's shared memory; beyond 128
+    input channels only the K loop's plan (streamed weights, one
+    warpgroup at E-NeRV-Boost's 172 and 213 -> 4 x C upconvs), nothing
+    beyond 256."""
     def plan(cin, cout, k=3):
         return conv_sm90.fit(cin, cout, k, conv_sm90.slice_width(cout))
     assert all(plan(*s)[:3] == (2, 9, True)
@@ -537,7 +545,11 @@ def test_shared_memory_plan_at_the_bench_shapes():
     assert conv_sm90.fit(128, 80, 5, 80) is None
     assert conv_sm90.fit(128, 80, 5, 8)[0] == 1
     assert all(conv_sm90.fit(c, c, 3, ns) is None
+               for c in (257, 300) for ns in conv_sm90.NS_CHOICES)
+    assert all(not conv_sm90.fit(c, c, 3, ns)[2]
                for c in (129, 200) for ns in conv_sm90.NS_CHOICES)
+    assert plan(172, 344)[:3] == (1, 8, False)
+    assert plan(213, 424)[:3] == (1, 8, False)
     for cin, cout, k in ((6, 7, 5), (51, 459, 1), (106, 106, 3)):
         assert plan(cin, cout, k)[-1] <= conv_sm90.MAX_SMEM
 

@@ -126,36 +126,6 @@ def test_out_img_matches_jax(out_bias):
     assert np.abs(got - want).max() <= 1e-6
 
 
-@pytest.mark.parametrize("family", ["NeRV_Boost", "ENeRV", "ENeRV_Boost",
-                                    "HNeRV"])
-def test_unported_families_raise(family):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(_cfg().replace(model=family))
-
-
-@pytest.mark.parametrize("site", ["registry", "serving decode", "UpConv",
-                                  "DownConv", "norm"])
-def test_not_ported_errors_name_the_roadmap_item(site):
-    """Every part of the other model families raises NotImplementedError
-    naming its ROADMAP item by title, not by a number that can go stale."""
-    from boosting_nerv_torch.models import blocks
-    from boosting_nerv_torch.runtime import fast_decode
-
-    calls = {
-        "registry": lambda: build_model(_cfg().replace(model="HNeRV"),
-                                        device="cpu"),
-        "serving decode": lambda: fast_decode.check_config(
-            _cfg().replace(model="ENeRV_Boost")),
-        "UpConv": lambda: blocks.UpConv("conv", 4, 4, 3, 2),
-        "DownConv": lambda: blocks.DownConv("pshuffel", 4, 4, 0, 1),
-        "norm": lambda: blocks.NeRVBlock(True, "pshuffel_3x3", 4, 4, 3, 2,
-                                         norm="bn"),
-    }
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1: other model families"):
-        calls[site]()
-
-
 def test_seeded_init_is_deterministic_and_torch_default():
     a = build_model(_cfg(), seed=3, device="cpu").state_dict()
     b = build_model(_cfg(), seed=3, device="cpu").state_dict()

@@ -197,8 +197,8 @@ def test_build_serving_decode_contract(decoded):
                                      planar_from_h=10 ** 6)
     with pytest.raises(ValueError, match="paper config"):
         port_fd.build_serving_decode(cfg.replace(act="gelu"), state)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_fd.build_serving_decode(cfg.replace(model="NeRV_Boost"), state)
+    with pytest.raises(ValueError, match="paper config"):
+        port_fd.build_serving_decode(cfg.replace(model="HNeRV"), state)
     dec = port_fd.build_serving_decode(cfg, state, planar_from_h=1)
     with pytest.raises(ValueError, match="batch 1"):
         dec(torch.from_numpy(np.concatenate([embed, embed])),
