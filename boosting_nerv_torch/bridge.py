@@ -2,7 +2,8 @@
 
 The JAX trainer saves checkpoints as a pickle of numpy trees,
 ``{"epoch", "params", "opt_state"?, "extra"?}``
-(boosting_nerv_tpu/training/checkpoint.py), so reading one needs no jax.
+(boosting_nerv_tpu/training/checkpoint.py), which
+``training.checkpoint.load_checkpoint`` reads without jax.
 ``torch_state_from_flax`` maps the flax ``params`` tree of any of the five
 families onto the state dict of the port's model (``models.build_model``),
 and ``flax_params_from_torch_state`` is its exact inverse (the port's
@@ -27,9 +28,8 @@ checkpoints hold flax-layout params, so the JAX trainer reads them):
 
 from __future__ import annotations
 
-import pickle
 import re
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -189,17 +189,9 @@ def torch_state_from_flax(params: Mapping, cfg: BoostConfig
         params = params["params"]
     state: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(params):
-        arr = np.asarray(leaf, dtype=np.float32)
         name = f"{_torch_name(path[:-1], cfg)}.{_LEAF[path[-1]]}"
-        if path[-1] == "kernel":
-            if path[-2] == "TConvTranspose_0":
-                arr = arr.transpose(2, 3, 0, 1)
-            else:
-                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-        axis, perm = _permutation(name, cfg, arr.shape)
-        if perm is not None:
-            arr = np.take(arr, perm, axis=axis)
-        state[name] = torch.from_numpy(np.array(arr))  # writable copy
+        f = torch.from_numpy(np.array(leaf, dtype=np.float32))  # a copy
+        state[name] = torch_view(name, f, cfg).contiguous()
     return state
 
 
@@ -268,27 +260,72 @@ def _flax_path(name: str, cfg: BoostConfig,
                                 "gamma": "gamma"}[leaf],)
 
 
+def flax_view(name: str, t: torch.Tensor, cfg: BoostConfig) -> torch.Tensor:
+    """The port's entry ``name`` (a weight or bias of the state dict) in
+    its flax layout, by differentiable torch ops: the torch PixelShuffle
+    channel order back to JAX's (``index_select``), then OIHW -> HWIO,
+    ConvTranspose2d -> the flax (k, k, in, out), Linear -> Dense
+    (``permute``).  ``torch_view`` is its inverse."""
+    axis, perm = _permutation(name, cfg, t.shape)
+    if perm is not None:
+        t = t.index_select(axis, torch.as_tensor(np.argsort(perm),
+                                                 device=t.device))
+    if _flax_path(name, cfg, False)[-1] == "kernel":
+        if _transposed(name, cfg):
+            t = t.permute(2, 3, 0, 1)
+        else:
+            t = t.permute(2, 3, 1, 0) if t.ndim == 4 else t.t()
+    return t
+
+
+def torch_view(name: str, f: torch.Tensor, cfg: BoostConfig) -> torch.Tensor:
+    """The inverse of ``flax_view``: a flax-layout tensor of the entry
+    ``name`` -> the port's layout, by differentiable torch ops."""
+    if _flax_path(name, cfg, False)[-1] == "kernel":
+        if _transposed(name, cfg):
+            f = f.permute(2, 3, 0, 1)
+        else:
+            f = f.permute(3, 2, 0, 1) if f.ndim == 4 else f.t()
+    axis, perm = _permutation(name, cfg, f.shape)
+    if perm is not None:
+        f = f.index_select(axis, torch.as_tensor(perm, device=f.device))
+    return f
+
+
+def flax_key(name: str, cfg: BoostConfig) -> str:
+    """The JAX trainers' key of the entry ``name``: its flax path under
+    ``params``, joined by "/"."""
+    return "/".join(("params",) + _flax_path(name, cfg, _transposed(name,
+                                                                    cfg)))
+
+
+def quantizable_leaves(names, cfg: BoostConfig) -> List[Tuple[str, str]]:
+    """(flax key, torch name) of every state-dict entry that the CEM
+    finetune quantises: a kernel or a bias outside the encoder (the JAX
+    compression trainer's ``_is_quantizable``), sorted by flax key, the
+    order in which the JAX trainer walks them."""
+    out = []
+    for name in names:
+        key = flax_key(name, cfg)
+        path = key.split("/")
+        if not any("encoder" in p for p in path) and path[-1] in ("kernel",
+                                                                 "bias"):
+            out.append((key, name))
+    return sorted(out)
+
+
 def flax_params_from_torch_state(state: Mapping[str, torch.Tensor],
                                  cfg: BoostConfig) -> Dict[str, Any]:
     """State dict of the port's model of ``cfg`` -> the flax params tree
-    ``{"params": {...}}`` in float32 numpy: OIHW -> HWIO, ConvTranspose2d
-    -> the flax (k, k, in, out), Linear -> Dense, the torch PixelShuffle
-    channel orders back to JAX's, and the module names.
-    ``torch_state_from_flax`` of the result gives ``state`` back."""
+    ``{"params": {...}}`` in float32 numpy (``flax_view`` of each entry
+    under its flax path).  ``torch_state_from_flax`` of the result gives
+    ``state`` back."""
     _check_family(cfg)
     tree: Dict[str, Any] = {}
     for name, t in state.items():
-        arr = t.detach().to("cpu", torch.float32).numpy()
-        axis, perm = _permutation(name, cfg, arr.shape)
-        if perm is not None:
-            arr = np.take(arr, np.argsort(perm), axis=axis)
-        transposed = _transposed(name, cfg)
-        path = _flax_path(name, cfg, transposed)
-        if path[-1] == "kernel":
-            if transposed:
-                arr = arr.transpose(2, 3, 0, 1)
-            else:
-                arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        arr = flax_view(name, t.detach().to("cpu", torch.float32),
+                        cfg).numpy()
+        path = _flax_path(name, cfg, _transposed(name, cfg))
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
@@ -300,11 +337,3 @@ def _transposed(name: str, cfg: BoostConfig) -> bool:
     """The entry is the ConvTranspose2d of a decoder UpConv of kind
     ``conv``."""
     return cfg.conv_type[1] == "conv" and _upconv_block(name, cfg) is not None
-
-
-def load_flax_checkpoint(path: str) -> Dict[str, Any]:
-    """Read a checkpoint written by the JAX trainer: a dict with "epoch",
-    "params" and optionally "opt_state" and "extra", all numpy.  Unpickling
-    runs code from the file, so read only checkpoints this project wrote."""
-    with open(path, "rb") as f:
-        return pickle.load(f)

@@ -4,13 +4,12 @@
 string encodings (``--embed pe_1.25_80``, ``--ks 0_1_5``, ``--fc_hw 9_16``,
 ``--enc_dim 64_16``, ``--data_split 1_1_1``, ``--crop_list 720_1280``) and
 defaults as the JAX package's config: the dataset, architecture, training,
-post-training quantisation, evaluation and misc fields, and of the JAX
-package's compute knobs those that mean something on one GPU
-(``train_precision``, ``micro_batch``, ``remat``) or that the port's
+post-training quantisation, CEM compression, evaluation and misc fields,
+and of the JAX package's compute knobs those that mean something on one
+GPU (``train_precision``, ``micro_batch``, ``remat``) or that the port's
 trainer refuses until their slice lands (``dp``, ``sp``, ``profile``,
-``planar_train``).  The CEM quantiser fields come with the compression
-slice.  ``decoder_stage_plan``, ``resolve_sizes`` and ``model_expansion`` are the same
-arithmetic as there (the reference's channel schedule and model-sizing
+``planar_train``).  ``decoder_stage_plan``, ``resolve_sizes`` and
+``model_expansion`` are the same arithmetic as there (the reference's channel schedule and model-sizing
 solver), so that one set of flags gives both packages the same model;
 ``tests/test_torch_config.py`` holds them to it.  The port keeps its own
 copy because it must run where the JAX package is absent.
@@ -75,11 +74,22 @@ class BoostConfig:
     interpolation: bool = False  # halves the embedding budget when sizing
     embed_inter: bool = False
 
-    # post-training quantisation of the regression eval
+    # post-training quantisation of the regression eval; the bit widths
+    # and quantisers of the CEM compression finetune
     quant: bool = False  # parsed, unused by the regression trainer (as JAX)
     quant_model_bit: int = 8
+    quant_bias_bit: int = 8
     quant_embed_bit: int = 6
     quant_axis: int = 0  # parsed, unused (as in the JAX package)
+    per_channel_w: bool = False
+    per_channel_b: bool = False
+    per_channel_e: bool = False
+    quantizer_w: str = "lsq"
+    quantizer_b: str = "lsq"
+    quantizer_e: str = "lsqv2"
+    embed_entropy: bool = False  # the embedding's bits in the rate term
+    target_bit: float = 5.0      # bits a parameter the rate term aims at
+    lambda_rate: float = 0.2
 
     # evaluation
     eval_only: bool = False

@@ -1,0 +1,80 @@
+#!/usr/bin/env python
+"""Compression entry point of the port: the CEM quantisation-aware
+finetune and the rANS coding eval (``training.compress_trainer``) on one
+GPU.
+
+    python -m boosting_nerv_torch.train_nerv_compression \\
+        --data_path <dir of frames> --weight <regression checkpoint> ... \\
+        [--eval_only] [--device cpu]
+
+The port CLI's flags (``train_nerv_all.build_parser``, the JAX CLI's
+spellings and defaults, plus ``--device``) and the ten compression flags
+of the JAX package's ``train_nerv_compression.py`` with its defaults;
+``--quant`` is always on.  ``--eval_only`` loads the weights
+(``--weight``, or the run's ``model_latest.ckpt``), sets the quantisers
+and runs the coding eval: ``eval.csv``, and a line appended to
+``eval.txt``.
+"""
+
+from __future__ import annotations
+
+import os
+
+from boosting_nerv_torch.train_nerv_all import args_to_config, build_parser
+
+
+def build_compression_parser():
+    p = build_parser()
+    p.add_argument('--quant_bias_bit', type=int, default=8)
+    p.add_argument('--per_channel_w', action='store_true', default=False)
+    p.add_argument('--per_channel_b', action='store_true', default=False)
+    p.add_argument('--per_channel_e', action='store_true', default=False)
+    p.add_argument('--quantizer_w', type=str, default='lsq')
+    p.add_argument('--quantizer_b', type=str, default='lsq')
+    p.add_argument('--quantizer_e', type=str, default='lsqv2')
+    p.add_argument('--embed_entropy', action='store_true', default=False)
+    p.add_argument('--target_bit', type=float, default=5)
+    p.add_argument('--lambda_rate', default=0.2, type=float)
+    return p
+
+
+def main(argv=None):
+    args = build_compression_parser().parse_args(argv)
+    cfg = args_to_config(args).replace(
+        quant=True, quant_bias_bit=args.quant_bias_bit,
+        per_channel_w=args.per_channel_w, per_channel_b=args.per_channel_b,
+        per_channel_e=args.per_channel_e, quantizer_w=args.quantizer_w,
+        quantizer_b=args.quantizer_b, quantizer_e=args.quantizer_e,
+        embed_entropy=args.embed_entropy, target_bit=args.target_bit,
+        lambda_rate=args.lambda_rate)
+
+    from boosting_nerv_torch.training.compress_trainer import \
+        CompressionTrainer
+
+    # --eval_only is this script's branch: the trainer runs without it
+    trainer = CompressionTrainer(cfg.replace(eval_only=False),
+                                 device=args.device)
+    trainer.logger.print(
+        f"model {cfg.model} fc_dim {trainer.cfg.fc_dim} frames "
+        f"{trainer.video.n} target_bpp {trainer.target_bpp:.6f} device "
+        f"{trainer.device}")
+    if not args.eval_only:
+        return trainer.train()
+
+    trainer.maybe_resume()
+    trainer.init_qparams()
+    results = trainer.evaluate_cem(coding=True)
+    for k, v in results.items():
+        trainer.best_metrics[k] = max(trainer.best_metrics[k], v)
+    trainer.cur_epoch = cfg.epochs
+    trainer.train_time = 0.0
+    trainer.dump_csv('eval.csv')
+    with open(os.path.join(trainer.cfg.outf, 'eval.txt'), 'a') as f:
+        f.write(' | '.join(f'best_{k}: {v:.4f}'
+                           for k, v in trainer.best_metrics.items())
+                + '\n\n')
+    return trainer.best_metrics
+
+
+if __name__ == '__main__':
+    main()

@@ -450,34 +450,38 @@ class RegressionTrainer:
             return msssim_per_frame(out, img)
         return ssim(out, img, size_average=False, win_size=self._ssim_win)
 
-    def _decoder(self):
-        """(decode(embed, t), embed, frames a decode): the serving decode
-        (``build_serving_decode`` on the trained weights), batch 1; or, for
-        HNeRV, E-NeRV and an index-only config with no planar tail, the
-        eager model's decode of batchSize frames, as JAX times its flax
-        decode (trainer.py:495-541): HNeRV's ``decode`` of the encoder's
+    def _decoder(self, model: Optional[torch.nn.Module] = None):
+        """(decode(embed, t), embed, frames a decode) of ``model`` (by
+        default ``self.model``): the serving decode
+        (``build_serving_decode`` on its weights), batch 1; or, for HNeRV,
+        E-NeRV and an index-only config with no planar tail, the eager
+        model's decode of batchSize frames, as JAX times its flax decode
+        (trainer.py:495-541): HNeRV's ``decode`` of the encoder's
         embedding, the index-only forward.  The encoder is excluded; embed
         is None for the index-only families."""
         cfg = self.cfg
+        model = self.model if model is None else model
         if self.fps_decode_path == "serving":
-            decode = fast_decode.build_serving_decode(cfg, self.model)
-            embed = (self.model.encode(self.gather([0]))
+            decode = fast_decode.build_serving_decode(cfg, model)
+            embed = (model.encode(self.gather([0]))
                      if cfg.model == "HNeRV_Boost" else None)
             return decode, embed, 1
         b = min(cfg.batchSize, self.video.n)
         if self.has_embed:
-            embed = self.model.encode(self.gather(list(range(b))))
-            return (lambda e, t: self.model.decode(e)), embed, b
-        return (lambda e, t: self.model(t.expand(b))), None, b
+            embed = model.encode(self.gather(list(range(b))))
+            return (lambda e, t: model.decode(e)), embed, b
+        return (lambda e, t: model(t.expand(b))), None, b
 
     @torch.no_grad()
-    def measure_fps(self, reps: int = 20) -> float:
+    def measure_fps(self, reps: int = 20,
+                    model: Optional[torch.nn.Module] = None) -> float:
         """Frames a second of the decode that ``fps_decode_path`` names
-        (``_decoder``), the encoder excluded: one warm-up decode, then
-        ``reps`` decodes at indices in [0.01, 1] timed with CUDA events and
-        one synchronisation on the card, with the host clock on the
-        CPU."""
-        decode, embed, b = self._decoder()
+        (``_decoder``) of ``model`` (by default ``self.model``; the
+        compression eval times its dequantised copy), the encoder
+        excluded: one warm-up decode, then ``reps`` decodes at indices in
+        [0.01, 1] timed with CUDA events and one synchronisation on the
+        card, with the host clock on the CPU."""
+        decode, embed, b = self._decoder(model)
         ts = torch.linspace(0.01, 1.0, reps, device=self.device)
         decode(embed, ts[:1])
         if self.device.type == "cuda":

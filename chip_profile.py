@@ -2,14 +2,15 @@
 """Where the decode's (or a train step's) device time goes, on one NVIDIA
 GPU.
 
-    python3 chip_profile.py [--frames 4] [--train]
+    python3 chip_profile.py [--frames 4] [--train | --cem]
 
 Builds HNeRV-Boost at the UVG-1080p serving config with seeded random
 weights (as chip_smoke.py does), the bf16 serving decode and the W8A8 one,
 warms both up, and traces ``--frames`` frames of each with torch.profiler.
 For each decode it prints the wall time per frame, the device's busy time
-per frame (the union of its kernels' intervals) and idle share, and the
-device time per frame and launches per frame of its largest kernels.  The
+per frame (the union of its kernels' intervals), idle share and kernel
+launches per frame, and the device time per frame and launches per frame
+of its largest kernels.  The
 template arguments in a kernel's name say which launch it is:
 ``conv_sm90_kernel<NS, P, F, R>`` (the Hopper kernel at N slice NS; F: 0
 bf16, 1 int8 codes in, 2 bf16 in quantised to int8; R rows a
@@ -18,7 +19,10 @@ int8-code output) and ``stage_conv3x3_i8_kernel<IK, OK, CK>`` (IK/OK:
 0 int8 codes, 1 bf16).  With ``--train`` it traces ``--frames`` steps of
 the port's RegressionTrainer instead, as chip_smoke.py's phase 11 trains
 (``train_config``: bench widths, a 4-frame 1080x1920 synthetic clip,
-batch 1, Fusion10_freq, Adan, TF32 off), per step.
+batch 1, Fusion10_freq, Adan, TF32 off), per step.  With ``--cem`` it
+traces ``--frames`` CEM steps of the port's CompressionTrainer at
+chip_smoke.py's phase-13 HNeRV-Boost recipe (``cem_config``, seeded
+weights) and as many regression steps of the same trainer, per step.
 Each line carries the card's name and power limit.  Exits non-zero
 without CUDA.
 """
@@ -34,8 +38,8 @@ import time
 import numpy as np
 import torch
 
-from chip_smoke import CALIB_TS, REPO, TRAIN_LR, bench_config, card, \
-    train_config
+from chip_smoke import CALIB_TS, CEM_LR, REPO, TRAIN_LR, bench_config, \
+    card, cem_config, train_config
 
 TOP = 12  # kernels listed per decode, by device time
 
@@ -79,6 +83,8 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--train", action="store_true",
                     help="trace train steps, not decodes")
+    ap.add_argument("--cem", action="store_true",
+                    help="trace CEM steps and regression steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; this run needs one GPU",
@@ -90,6 +96,8 @@ def main() -> int:
     device_line = card()
     if args.train:
         return profile_train(args.frames, device_line)
+    if args.cem:
+        return profile_cem(args.frames, device_line)
     cfg = bench_config()
     model = build_model(cfg, seed=0).eval()
     frame = np.random.default_rng(0).uniform(
@@ -111,8 +119,9 @@ def main() -> int:
 def report(name, per, result, traced, device_line):
     wall, busy, rows = result
     print(f"{name}: wall {wall:.3f} ms/{per}, device busy {busy:.3f} "
-          f"ms/{per}, idle {1 - busy / wall:.1%} (traced, {traced}) "
-          f"[{device_line}]")
+          f"ms/{per}, idle {1 - busy / wall:.1%}, "
+          f"{sum(c for _, _, c in rows):.1f} kernel launches/{per} "
+          f"(traced, {traced}) [{device_line}]")
     for key, ms, count in rows[:TOP]:
         print(f"  {ms:9.4f} ms/{per} {count:6.1f} launches/{per}  "
               f"{key[:120]}")
@@ -136,6 +145,30 @@ def profile_train(steps, device_line) -> int:
             lambda i: tr.train_step_idx([i % n], tr.video.norm_idx([i % n]),
                                         TRAIN_LR), steps),
             f"{steps} steps", device_line)
+    finally:
+        shutil.rmtree(outf, ignore_errors=True)
+    return 0
+
+
+def profile_cem(steps, device_line) -> int:
+    from boosting_nerv_torch.data import VideoData, synthetic_video
+    from boosting_nerv_torch.training.compress_trainer import \
+        CompressionTrainer
+    from boosting_nerv_torch.utils.logger import RunLogger
+
+    outf = os.path.join(REPO, "output", "chip_profile_cem")  # gitignored
+    try:
+        cfg = cem_config("HNeRV_Boost", outf, weight="None")
+        tr = CompressionTrainer(
+            cfg, video=VideoData(synthetic_video(4, 1080, 1920, seed=0)),
+            logger=RunLogger(outf, enable_tb=False))
+        tr.init_qparams()
+        n = tr.video.n
+        for name, step in (("cem step", tr.cem_step_idx),
+                           ("regression step", tr.train_step_idx)):
+            report(name, "step", profile(
+                lambda i: step([i % n], tr.video.norm_idx([i % n]), CEM_LR),
+                steps), f"{steps} steps", device_line)
     finally:
         shutil.rmtree(outf, ignore_errors=True)
     return 0

@@ -163,13 +163,40 @@ Phases, one line of output each (or one line per shape):
    step ms and the peak allocation; and one step of the HNeRV baseline
    (scripts/regression/UVG/hnerv.sh, modelsize 3, fc_dim 83), whose fps
    clock times its eager decode (no kernel launch); then the phase's
-   seconds.
+   seconds;
+13. CEM compression (``training/compress_trainer.py``): two recipes at
+   full width, TF32 off (the recipes train at "high"), one epoch of a
+   4-frame 1080x1920 clip, batch 1, Fusion10_freq, Adan, lr 0.0005
+   cosine_0_1_0.1, 8-bit quantisers, target_bit 4: HNeRV-Boost
+   (scripts/compression/hnerv_boost.sh, Size 2.8: bench.py's model,
+   fc_dim 127; scale / scale / scalebeta, ``embed_entropy``, lambda 0.05;
+   warm-started with ``--weight`` from phase 11's ``model_latest.ckpt``)
+   and NeRV-Boost (nerv_boost.sh, Size 5.2: fc_dim 131; scale / scale,
+   lambda 0.2; seeded weights).  For each: (a) one CEM step on a 120x240
+   frame on the card and on the CPU (torch's own convolutions) from the
+   same weights, quantisers and noise, loss and bpp within 1e-4 relative
+   (L1_freq; NeRV-Boost at fc_hw 1_2); (b) ``train()`` (4 steps and its
+   coding eval): every loss finite, the quantiser parameters moved from
+   their ``init_qparams`` values, each step's bpp a frame against
+   ``target_bpp`` (the rate term on or off), its eval's fps clock's
+   launches; (c) ``evaluate_cem(coding=True)`` once more: its seconds,
+   the ``quant_seen`` PSNR / SSIM, real and estimated bpp and their ratio
+   within [0.9, 1.1], and every tensor's rANS stream (each frame's
+   embedding's too) decoded back to its codes exactly; (d) that eval's
+   ``measure_fps`` of the dequantised weights through the serving
+   decode, launches fused_upconv_rsft 3 and fused_conv_rsft 3 a decode,
+   20 decodes and a warm-up, and one serving decode at t = 0.37 (3 + 3
+   launches) within 1e-2 of the eager dequantised model (bf16 against
+   fp32); (e) a fresh trainer resumes the CEM checkpoint with equal model
+   and quantiser parameters; (f) the median CEM step ms (CUDA events)
+   and the peak allocation of a step beside the regression step of the
+   same trainer; then the phase's seconds.
 
 The launch counts are set to 0 just before each slice's frames (the
 planar phase's stage-7 calls, the probe phase's timed run, the training
-run) and read just after.  Before the last two lines the run's seconds are printed.  The
-line before the
-last is a JSON object with one entry per kernel; the last line is
+runs, the CEM evals and fps clocks) and read just after.  Before the
+last two lines the run's seconds are printed.  The line before the last
+is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero without
 printing either.
 """
@@ -239,6 +266,11 @@ TRAIN_FRAMES = 4     # a 4-frame 1080x1920 synthetic clip, batch 1
 TRAIN_EPOCHS = 3     # 12 steps; evals at epochs 1 and 3 (last 3 and 1)
 TRAIN_LR = 0.003     # scripts/regression/UVG/hnerv_boost.sh
 FPS_REPS = 20        # measure_fps's timed decodes (eval_fps off)
+# phase 13, CEM compression: phase 11's checkpoint warm-starts HNeRV-Boost
+WARM_CKPT = os.path.join(REPO, "output", "chip_smoke_cem", "warm.ckpt")
+CEM_LR = 0.0005      # scripts/compression/*.sh
+CEM_RATIO = (0.9, 1.1)  # total_bpp / estimate_bpp: the coder's overhead
+CEM_STEP_RTOL = 1e-4  # card vs CPU: loss and bpp of one CEM step
 SERVING_LAUNCHES = {"fused_upconv_rsft": 3, "fused_conv_rsft": 3}
 FIRST_LOSS_RTOL = 1e-5  # the first step's loss vs a forward just before
 STEP_LOSS_RTOL = 1e-4   # card vs CPU, TF32 off on the card
@@ -1441,9 +1473,11 @@ def train_config(outf, **kw):
         **kw})
 
 
-def _step_ms_and_peak(trainer, steps):
-    """Median ms of ``steps`` train steps (CUDA events each), and the peak
-    allocation of one step above what was allocated before it (bytes)."""
+def _step_ms_and_peak(trainer, steps, step=None, lr=TRAIN_LR):
+    """Median ms of ``steps`` train steps (``step``, by default
+    ``trainer.train_step_idx``; CUDA events each), and the peak allocation
+    of one step above what was allocated before it (bytes)."""
+    step = trainer.train_step_idx if step is None else step
     n = trainer.video.n
     times = []
     for i in range(steps + 1):
@@ -1455,7 +1489,7 @@ def _step_ms_and_peak(trainer, steps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        trainer.train_step_idx(idx, trainer.video.norm_idx(idx), TRAIN_LR)
+        step(idx, trainer.video.norm_idx(idx), lr)
         end.record()
         torch.cuda.synchronize()
         if i == 0:
@@ -1503,6 +1537,9 @@ def run_train_phase(device_line):
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
+        # phase 13 warm-starts its CEM finetune from this checkpoint
+        os.makedirs(os.path.dirname(WARM_CKPT), exist_ok=True)
+        shutil.copy(os.path.join(cfg.outf, "model_latest.ckpt"), WARM_CKPT)
         n_evals = 2
         expect = {k: SERVING_LAUNCHES.get(k, 0) * n_evals * (FPS_REPS + 1)
                   for k in launches}
@@ -1882,6 +1919,274 @@ def run_families_phase(summary, device_line):
     return {k: sum(r.get(k, 0) for r in runs) for k in kernels.LAUNCHES}
 
 
+def cem_config(model, outf, **kw):
+    """A compression recipe at full width, one epoch, batch 1, TF32 off
+    (the recipes train at "high"): HNeRV-Boost
+    (scripts/compression/hnerv_boost.sh at Size 2.8: bench.py's model,
+    fc_dim 127, warm-started from phase 11's checkpoint) or NeRV-Boost
+    (nerv_boost.sh at Size 5.2: fc_dim 131, seeded weights)."""
+    base = dict(
+        batchSize=1, epochs=1, lr=CEM_LR, lr_type="cosine_0_1_0.1",
+        loss="Fusion10_freq", optim_type="Adan", train_precision="highest",
+        not_resume=True, outf=outf, quant=True, quant_model_bit=8,
+        quant_bias_bit=8, quantizer_w="scale", quantizer_b="scale",
+        target_bit=4)
+    if model == "HNeRV_Boost":
+        return train_config(outf).replace(**{
+            **base, "quant_embed_bit": 8, "quantizer_e": "scalebeta",
+            "embed_entropy": True, "lambda_rate": 0.05,
+            "weight": WARM_CKPT, **kw})
+    return family_config(model).replace(**{**base, "lambda_rate": 0.2,
+                                           **kw})
+
+
+def _qp_copy(tr):
+    return [v.detach().clone() for v in tr.qp_tensors()]
+
+
+def _same_state(a, b):
+    """Two trainers hold equal model parameters and quantiser
+    parameters."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    qa, qb = a.qp_tensors(), b.qp_tensors()
+    return (sa.keys() == sb.keys()
+            and all(torch.equal(sa[k], sb[k].to(sa[k].device)) for k in sa)
+            and len(qa) == len(qb)
+            and all(torch.equal(x, y.to(x.device)) for x, y in zip(qa, qb)))
+
+
+def cem_step_card_vs_cpu(model, root):
+    """(a): one CEM step on a 120x240 frame on the card and on the CPU
+    (torch's own convolutions) from the same weights and quantisers with
+    the same noise (L1_freq: MS-SSIM needs more than 160 pixels a side;
+    NeRV-Boost at fc_hw 1_2, its 120x240 output, every conv at its width):
+    ((loss, bpp) card, (loss, bpp) CPU)."""
+    from boosting_nerv_torch.data import VideoData, synthetic_video
+    from boosting_nerv_torch.training.compress_trainer import (
+        EMBED, CompressionTrainer)
+    from boosting_nerv_torch.utils.logger import RunLogger
+
+    small = VideoData(synthetic_video(1, 120, 240, seed=3))
+    got, noise = {}, None
+    for dev in ("cuda", "cpu"):
+        small_out = {} if model == "HNeRV_Boost" else {"fc_hw": "1_2"}
+        cfg = cem_config(model, os.path.join(root, f"step_{dev}"),
+                         loss="L1_freq", **small_out)
+        tr = CompressionTrainer(cfg, video=small, device=dev,
+                                logger=RunLogger(cfg.outf, enable_tb=False))
+        tr.maybe_resume()
+        tr.init_qparams()
+        if noise is None:  # drawn once, on the CPU
+            gen = torch.Generator().manual_seed(5)
+            noise = {k: torch.rand(s, generator=gen) - 0.5
+                     for k, s in tr.flax_shapes.items()}
+            if tr.embed_qp is not None:
+                with torch.no_grad():
+                    shape = tr.model.encode(tr.gather([0])).shape
+                noise[EMBED] = torch.rand(shape, generator=gen) - 0.5
+        with torch.backends.mkldnn.flags(enabled=False):
+            loss, _, bpp = tr.cem_step_idx(
+                [0], small.norm_idx([0]), CEM_LR,
+                {k: v.to(dev) for k, v in noise.items()})
+        got[dev] = (float(loss), float(bpp))
+    return got["cuda"], got["cpu"]
+
+
+def rans_round_trip(tr, dq):
+    """Every weight tensor's codes, and each frame's embedding codes (the
+    encoder of ``dq``, the dequantised model), through the rANS codec and
+    back: (tensors, symbols, bits), raising on any difference."""
+    from boosting_nerv_torch.compress import rans
+    from boosting_nerv_torch.training.compress_trainer import coding_stats
+
+    streams = [(k, code, q) for k, code, q in tr.coded_tensors()]
+    if tr.embed_qp is not None:
+        cfg = tr.cfg
+        with torch.no_grad():
+            for i in range(tr.video.n):
+                code, quant, _ = tr.e_quant.apply(
+                    dq.encode(tr.gather([i])), tr.embed_qp,
+                    cfg.quant_embed_bit, signed=False,
+                    per_channel=cfg.per_channel_e)
+                streams.append((f"embed {i}", code,
+                                quant.cpu().numpy().astype(np.int32)))
+    n_sym = bits = 0
+    for key, code, quant_i in streams:
+        mean, std = coding_stats(code)
+        words, lo, hi = rans.gaussian_ans_encode(quant_i, mean, std)
+        back = rans.gaussian_ans_decode(words, quant_i.size, mean, std, lo,
+                                        hi)
+        if not np.array_equal(back, quant_i.ravel()):
+            raise SmokeFailure(f"(c) rANS round trip of {key} differs")
+        n_sym += quant_i.size
+        bits += 32 * words.size
+    return len(streams), n_sym, bits
+
+
+def run_cem_recipe(model, root, device_line):
+    """Phase 13's checks (a)-(f) of one recipe; returns its runs' launch
+    counts."""
+    from boosting_nerv_torch.data import VideoData, synthetic_video
+    from boosting_nerv_torch.ops import kernels
+    from boosting_nerv_torch.runtime.fast_decode import build_serving_decode
+    from boosting_nerv_torch.training.compress_trainer import \
+        CompressionTrainer
+    from boosting_nerv_torch.training.trainer import METRIC_NAMES
+    from boosting_nerv_torch.utils.logger import RunLogger
+
+    runs = []
+    card_step, cpu_step = cem_step_card_vs_cpu(model, root)
+    rel = [abs(a - b) / abs(b) for a, b in zip(card_step, cpu_step)]
+    print(f"cem {model} (a) one CEM step card vs CPU (120x240, L1_freq, "
+          f"same weights, quantisers and noise, TF32 off): loss "
+          f"{card_step[0]:.7g} vs {cpu_step[0]:.7g}, bpp {card_step[1]:.7g} "
+          f"vs {cpu_step[1]:.7g}; rel err {rel[0]:.3g}, {rel[1]:.3g} (tol "
+          f"{CEM_STEP_RTOL}) [{device_line}]", flush=True)
+    if not max(rel) <= CEM_STEP_RTOL:
+        raise SmokeFailure(f"(a) {model} card vs CPU rel err {rel}")
+
+    video = VideoData(synthetic_video(TRAIN_FRAMES, 1080, 1920, seed=4))
+    cfg = cem_config(model, os.path.join(root, model))
+    tr = CompressionTrainer(cfg, video=video, device="cuda",
+                            logger=RunLogger(cfg.outf, enable_tb=False))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr.train()  # maybe_resume, init_qparams, 4 steps, the coding eval
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = dict(kernels.LAUNCHES)
+    runs.append(train_launches)
+    # one coding eval, at its end: one fps clock of FPS_REPS + 1 decodes
+    want_fps = {k: SERVING_LAUNCHES.get(k, 0) * (FPS_REPS + 1)
+                for k in train_launches}
+    init = CompressionTrainer(cfg, video=video, device="cuda",
+                              logger=RunLogger(cfg.outf, enable_tb=False))
+    init.maybe_resume()
+    init.init_qparams()
+    moved = sum(not torch.equal(a, b)
+                for a, b in zip(_qp_copy(init), _qp_copy(tr)))
+    n_qp = len(_qp_copy(tr))
+    del init
+    losses = tr.train_losses
+    per_frame = [b / video.n for b in tr.train_bpp]
+    on = [b > tr.target_bpp for b in per_frame]
+    print(f"cem {model} (b) train(): {len(losses)} steps and the coding "
+          f"eval in {train_s:.1f} s (fc_dim {tr.cfg.fc_dim}, "
+          f"{sum(p.numel() for p in tr.model.parameters())} params, "
+          f"{len(tr.leaves)} quantised tensors, {n_qp} quantiser "
+          f"parameters, lambda {cfg.lambda_rate}, embed_entropy "
+          f"{cfg.embed_entropy}, TF32 off, the recipe's train_precision: "
+          f"high); losses "
+          f"{[round(v, 5) for v in losses]}; qp tensors moved from "
+          f"init_qparams {moved}/{n_qp}; bpp/frame "
+          f"{[round(v, 4) for v in per_frame]} vs target_bpp "
+          f"{tr.target_bpp:.4f}: rate term on {on}; launches "
+          f"{ {k: v for k, v in train_launches.items() if v} } "
+          f"[{device_line}]", flush=True)
+    if not (len(losses) == TRAIN_FRAMES
+            and all(math.isfinite(v) for v in losses) and moved > 0
+            and train_launches == want_fps):
+        raise SmokeFailure(f"(b) {model}: losses {losses}, qp moved "
+                           f"{moved}, launches {train_launches}, expected "
+                           f"{want_fps}")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = tr.evaluate_cem(coding=True)  # its fps clock is (d)'s
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    fps_launches = dict(kernels.LAUNCHES)
+    runs.append(fps_launches)
+    ratio = tr.total_bpp / tr.estimate_bpp
+    dq = tr.dequant_model()
+    n_streams, n_sym, rans_bits = rans_round_trip(tr, dq)
+    print(f"cem {model} (c) evaluate_cem(coding=True): {eval_s:.2f} s; "
+          + ", ".join(f"{k} {res[k]:.4f}" for k in METRIC_NAMES
+                      if k.startswith("quant_seen"))
+          + f"; real bpp {tr.total_bpp:.6f}, estimated {tr.estimate_bpp:.6f}"
+          f", ratio {ratio:.5f} (gate {CEM_RATIO}); {n_streams} rANS "
+          f"streams ({n_sym} symbols, {rans_bits} bits) decoded back to "
+          f"their codes exactly; fps {tr.fps:.2f} [{device_line}]",
+          flush=True)
+    if not (CEM_RATIO[0] <= ratio <= CEM_RATIO[1]
+            and all(math.isfinite(v) for v in res.values())):
+        raise SmokeFailure(f"(c) {model}: ratio {ratio}, eval {res}")
+
+    t = torch.tensor([T_HOLD], device="cuda")
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        decode = build_serving_decode(tr.cfg, dq)
+        if model == "HNeRV_Boost":
+            embed = dq.encode(tr.gather([0]))
+            out, ref = decode(embed, t).float(), dq.decode(embed, t)
+        else:
+            out, ref = decode(None, t).float(), dq(t)
+    torch.cuda.synchronize()
+    check_launches = dict(kernels.LAUNCHES)
+    runs.append(check_launches)
+    want_check = {k: SERVING_LAUNCHES.get(k, 0) for k in check_launches}
+    err = (out - ref).abs().max().item()
+    print(f"cem {model} (d) evaluate_cem's measure_fps of the dequantised "
+          f"weights: {tr.fps:.2f} decodes/s (batch 1, encoder excluded), "
+          f"launches "
+          f"{ {k: v for k, v in fps_launches.items() if v} }; serving "
+          f"decode of the dequantised weights at t {T_HOLD} vs their eager "
+          f"fp32 model: max_abs_err {err:.6g} (tol {SLICE_TOL}) "
+          f"[{device_line}]", flush=True)
+    if (fps_launches != want_fps or check_launches != want_check
+            or not (tuple(out.shape) == (1, 1080, 1920, 3)
+                    and err <= SLICE_TOL)):
+        raise SmokeFailure(f"(d) {model}: launches {fps_launches} and "
+                           f"{check_launches}, expected {want_fps} and "
+                           f"{want_check}; err {err}")
+    del dq, decode
+
+    back = CompressionTrainer(
+        cfg.replace(not_resume=False, weight="None"), video=video,
+        device="cuda", logger=RunLogger(cfg.outf, enable_tb=False))
+    back.maybe_resume()
+    back.init_qparams()
+    same = _same_state(back, tr) and back.start_epoch == cfg.epochs
+    print(f"cem {model} (e) a fresh trainer resumes the CEM checkpoint "
+          f"({os.path.getsize(os.path.join(cfg.outf, 'model_latest.ckpt'))}"
+          f" bytes): model, qp and embed_qp equal: {same}", flush=True)
+    if not same:
+        raise SmokeFailure(f"(e) {model}: the CEM checkpoint read back "
+                           "differs")
+    del back
+
+    cem_ms, cem_peak = _step_ms_and_peak(tr, 5, tr.cem_step_idx, CEM_LR)
+    reg_ms, reg_peak = _step_ms_and_peak(tr, 5)
+    print(f"cem {model} (f) CEM step {cem_ms:.2f} ms median of 5 (CUDA "
+          f"events), peak allocation of a step {cem_peak / 2**30:.3f} GiB; "
+          f"the regression step of the same model {reg_ms:.2f} ms, "
+          f"{reg_peak / 2**30:.3f} GiB ({cem_ms / reg_ms:.3f}x, "
+          f"{cem_peak / reg_peak:.3f}x) [{device_line}]", flush=True)
+    return runs
+
+
+def run_cem_phase(device_line):
+    """Phase 13: the CEM compression finetune and coding eval of
+    HNeRV-Boost (hnerv_boost.sh, Size 2.8, warm-started from phase 11's
+    checkpoint) and NeRV-Boost (nerv_boost.sh, Size 5.2, seeded weights)
+    at full width; returns the launch counts of its runs."""
+    from boosting_nerv_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(WARM_CKPT)  # gitignored
+    runs = []
+    try:
+        if not os.path.isfile(WARM_CKPT):
+            raise SmokeFailure(f"phase 11 left no checkpoint {WARM_CKPT}")
+        for model in ("HNeRV_Boost", "NeRV_Boost"):
+            runs += run_cem_recipe(model, root, device_line)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"cem phase: {time.perf_counter() - t_phase:.1f} s "
+          f"[{device_line}]", flush=True)
+    return {k: sum(r.get(k, 0) for r in runs) for k in kernels.LAUNCHES}
+
+
 def print_ptxas(log_path):
     """One line per source of ptxas's report in the build log: kernel
     instances, the range of their registers and their spill bytes."""
@@ -2020,6 +2325,7 @@ def main() -> int:
     runs.append(probe_launches)
     runs.append(run_train_phase(device_line))
     runs.append(run_families_phase(summary, device_line))
+    runs.append(run_cem_phase(device_line))
 
     leaked = [m for m in ("jax", "flax", "boosting_nerv_tpu")
               if m in sys.modules]

@@ -9,8 +9,7 @@ import torch
 import torch.nn.functional as F
 from jax import lax
 
-from boosting_nerv_torch.bridge import (load_flax_checkpoint,
-                                        torch_state_from_flax)
+from boosting_nerv_torch.bridge import torch_state_from_flax
 from boosting_nerv_torch.config import BoostConfig
 from boosting_nerv_torch.models import build_model
 from boosting_nerv_torch.ops.pixelshuffle import jax_to_torch_shuffle_perm
@@ -141,12 +140,13 @@ def test_bridged_sft_vectors_match_jax(flax_params):
 
 
 def test_load_flax_checkpoint(flax_params, tmp_path):
+    from boosting_nerv_torch.training.checkpoint import load_checkpoint
     from boosting_nerv_tpu.training.checkpoint import save_checkpoint
 
     cfg, params = flax_params
     path = str(tmp_path / "model_latest.ckpt")
     save_checkpoint(path, 3, params, extra={"note": "x"})
-    ckpt = load_flax_checkpoint(path)
+    ckpt = load_checkpoint(path)
     assert ckpt["epoch"] == 3 and ckpt["extra"] == {"note": "x"}
     got = torch_state_from_flax(ckpt["params"], cfg)
     want = torch_state_from_flax(params, cfg)

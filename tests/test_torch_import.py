@@ -1,7 +1,8 @@
 """The torch port imports without jax and without the JAX package (and
 without yaml, pandas, PIL and tensorboardX, which the GPU machine lacks),
-its trainer runs without them, and chip_smoke.py refuses to run without
-a GPU."""
+its trainers (regression, and CEM compression with its rANS coding eval)
+run without them, a checkpoint the JAX package pickled (an optax state in
+it) loads without them, and chip_smoke.py refuses to run without a GPU."""
 
 import os
 import re
@@ -31,7 +32,7 @@ def test_port_and_every_submodule_import_without_jax():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 40  # every module of the slices
+    assert int(res.stdout.strip()) >= 46  # every module of the slices
 
 
 _TRAIN_WITHOUT = """
@@ -60,6 +61,55 @@ def test_training_path_needs_no_yaml_pandas_pil_or_tensorboard(tmp_path):
     # logger (TensorBoard on), train, eval, PTQ, Huffman and checkpoints
     res = subprocess.run([sys.executable, "-c", _TRAIN_WITHOUT,
                           str(tmp_path)], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "True"
+
+
+_BLOCK = """
+import sys
+for name in ("jax", "flax", "boosting_nerv_tpu", "yaml", "pandas", "PIL",
+             "tensorboardX", "optax"):
+    sys.modules[name] = None  # importing it raises ImportError
+"""
+_CEM_WITHOUT = _BLOCK + """
+import torch
+torch.set_num_threads(1)  # tiny work; the suite runs several workers
+from boosting_nerv_torch.config import BoostConfig
+from boosting_nerv_torch.data import VideoData, synthetic_video
+from boosting_nerv_torch.training import checkpoint
+from boosting_nerv_torch.training.compress_trainer import CompressionTrainer
+ck = checkpoint.load_checkpoint(sys.argv[2])  # pickled by the JAX package
+assert type(ck["opt_state"][1]).__name__ == "ForeignState", ck["opt_state"]
+assert int(ck["opt_state"][1][0]) == 3 and ck["params"]["qp"]["k"]["scale"]
+cfg = BoostConfig(
+    model="NeRV_Boost", embed="pe_1.25_20", fc_hw="2_4", fc_dim=12,
+    dec_strds=[2, 2], dec_blks=[1, 1], conv_type=["convnext", "pshuffel_3x3"],
+    act="sin", sft_block="res_sft", ch_t=8, lower_width=4, epochs=1,
+    batchSize=2, loss="L2", quant=True, quantizer_w="scale",
+    quantizer_b="scale", outf=sys.argv[1])
+t = CompressionTrainer(cfg, video=VideoData(synthetic_video(4, 8, 16)),
+                       device="cpu")
+t.train()
+print(t.total_bpp > 0 and t.estimate_bpp > 0 and t.fps > 0)
+"""
+
+
+def test_compression_path_needs_no_jax(tmp_path):
+    # a JAX CEM checkpoint's tree, with an Adan state (a NamedTuple of the
+    # JAX package) in it, pickled here where the JAX package is importable
+    import numpy as np
+
+    from boosting_nerv_tpu.training.adan import AdanState
+    from boosting_nerv_tpu.training.checkpoint import save_checkpoint
+
+    zeros = {"k": np.zeros(2, np.float32)}
+    path = str(tmp_path / "jax_cem.ckpt")
+    save_checkpoint(path, 1, {"model": {}, "qp": {"k": {"scale": np.ones(
+        1, np.float32)}}}, ((), AdanState(np.int32(3), zeros, zeros, zeros,
+                                          zeros)))
+    res = subprocess.run([sys.executable, "-c", _CEM_WITHOUT,
+                          str(tmp_path / "run"), path], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "True"
