@@ -6,29 +6,24 @@ copy of the C++ codec, ``compress/csrc/rans.cpp``.
 tensor under the global quantized-Gaussian model; encode and decode round
 trip losslessly; ``categorical_ans_*`` code an empirical symbol table.
 
-The library is compiled at first use with ``g++ -O3 -shared -fPIC
--std=c++17`` into ``boosting_nerv_torch/build/librans.so`` and compiled
-again when the source is newer.  Concurrent first uses (threads, or
-processes sharing the checkout) build once, under a lock file; the build
-lands under a temporary name and is renamed into place.  A failed build
-raises: nothing falls back.
+The library is compiled at first use into
+``boosting_nerv_torch/build/librans.so`` (``utils.gxx.build_shared``:
+g++, rebuilt when the source is newer, once under a lock file; a failed
+build raises and nothing falls back).
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
 import os
-import subprocess
-import tempfile
 import threading
 from typing import Optional, Tuple
 
 import numpy as np
 
-_PKG = os.path.dirname(os.path.dirname(__file__))
-SRC = os.path.join(_PKG, "compress", "csrc", "rans.cpp")
-BUILD_DIR = os.path.join(_PKG, "build")
+from ..utils.gxx import BUILD_DIR, build_shared
+
+SRC = os.path.join(os.path.dirname(__file__), "csrc", "rans.cpp")
 LIB = os.path.join(BUILD_DIR, "librans.so")
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -38,39 +33,11 @@ _U32P = ctypes.POINTER(ctypes.c_uint32)
 _F64P = ctypes.POINTER(ctypes.c_double)
 
 
-def _stale() -> bool:
-    return (not os.path.exists(LIB)
-            or os.path.getmtime(LIB) < os.path.getmtime(SRC))
-
-
-def build() -> None:
-    """Compile ``rans.cpp`` into ``LIB`` unless an up-to-date one is
-    there; raises RuntimeError with the compiler's output on failure."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, "librans.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not _stale():
-            return
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            res = subprocess.run(["g++", "-O3", "-shared", "-fPIC",
-                                  "-std=c++17", SRC, "-o", tmp],
-                                 capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"g++ failed to build {SRC}:\n"
-                                   f"{res.stdout}{res.stderr}")
-            os.replace(tmp, LIB)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-
-
 def _lib() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            build()
+            build_shared(SRC, LIB)
             lib = ctypes.CDLL(LIB)
             lib.rans_gaussian_encode.restype = ctypes.c_long
             lib.rans_gaussian_encode.argtypes = [

@@ -15,8 +15,11 @@ the JAX package:
    smoke runs.
 
 The whole clip is held as a host uint8 array; the trainer copies it to the
-device once and converts to float there.  PIL is imported only to read or
-resize frames, so a synthetic clip needs nothing beyond numpy.
+device once and converts to float there.  PNG frames are read by the
+port's own reader (``data/png.py``), with no Pillow; Pillow is imported
+only to read JPEG or BMP frames or to resize a frame smaller than the
+crop, and without it those raise ImportError naming the file.  No recipe
+under ``scripts/`` needs either.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .png import read_png
 
 _IMG_EXTS = {".png", ".jpg", ".jpeg", ".bmp"}
 
@@ -36,9 +41,31 @@ def _center_crop(img: np.ndarray, ch: int, cw: int) -> np.ndarray:
     return img[top:top + ch, left:left + cw]
 
 
-def _resize_bicubic(img: np.ndarray, ch: int, cw: int) -> np.ndarray:
-    from PIL import Image
+def _pillow(path: str, why: str):
+    """Pillow's ``Image`` module, or ImportError naming ``path`` and why it
+    was needed."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{path}: {why} needs Pillow, which is not "
+                          "installed (PNG frames of the crop's size or "
+                          "larger need nothing)") from e
+    return Image
 
+
+def _read_frame(path: str) -> np.ndarray:
+    """uint8 [H, W, 3] RGB of a PNG (the port's reader) or a JPEG / BMP
+    (Pillow) frame."""
+    if os.path.splitext(path)[1].lower() == ".png":
+        return read_png(path)
+    Image = _pillow(path, "reading a JPEG or BMP frame")
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+def _resize_bicubic(img: np.ndarray, ch: int, cw: int,
+                    path: str = "a frame") -> np.ndarray:
+    Image = _pillow(path, f"resizing a {img.shape[0]}x{img.shape[1]} frame "
+                    f"to the crop {ch}x{cw}")
     return np.asarray(Image.fromarray(img).resize((cw, ch), Image.BICUBIC))
 
 
@@ -114,8 +141,6 @@ class VideoData:
     @classmethod
     def from_dir(cls, path: str, crop_list: str, interpolation: bool = False,
                  embed_inter: bool = False) -> "VideoData":
-        from PIL import Image
-
         ch, cw = [int(x) for x in crop_list.split("_")[:2]]
         names = sorted(x for x in os.listdir(path)
                        if os.path.splitext(x)[1].lower() in _IMG_EXTS)
@@ -123,17 +148,27 @@ class VideoData:
             raise FileNotFoundError(f"no frames in {path}")
         out = []
         for name in names:
-            img = np.asarray(Image.open(os.path.join(path, name)).convert("RGB"))
+            frame_path = os.path.join(path, name)
+            img = _read_frame(frame_path)
             h, w = img.shape[:2]
             if h >= ch and w >= cw:
                 img = _center_crop(img, ch, cw)
             else:
-                img = _resize_bicubic(img, ch, cw)
+                img = _resize_bicubic(img, ch, cw, frame_path)
             out.append(img)
         return cls(np.stack(out), interpolation, embed_inter)
 
     def norm_idx(self, idx: np.ndarray) -> np.ndarray:
         return (np.asarray(idx, dtype=np.float32) + 1.0) / self.n
+
+    def neighbours(self, idx: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
+        """(pre, post) frame indices of ``idx`` for ``embed_inter``: an even
+        frame is its own neighbour, an odd one has the even frames beside
+        it (the last frame at the end of the clip)."""
+        idx = np.asarray(idx, dtype=np.int64)
+        even = idx % 2 == 0
+        return (np.where(even, idx, idx - 1),
+                np.where(even, idx, np.minimum(idx + 1, self.n - 1)))
 
     def get_batch(self, idx: Sequence[int]) -> dict:
         """Returns float32 NHWC images in [0,1] plus indices. For
@@ -143,8 +178,7 @@ class VideoData:
         imgs = self.frames[idx].astype(np.float32) / 255.0
         batch = {"img": imgs, "idx": idx, "norm_idx": self.norm_idx(idx)}
         if self.embed_inter:
-            pre = np.where(idx % 2 == 0, idx, idx - 1)
-            post = np.where(idx % 2 == 0, idx, np.minimum(idx + 1, self.n - 1))
+            pre, post = self.neighbours(idx)
             batch["pre_img"] = self.frames[pre].astype(np.float32) / 255.0
             batch["post_img"] = self.frames[post].astype(np.float32) / 255.0
         return batch

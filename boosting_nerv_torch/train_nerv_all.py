@@ -1,23 +1,29 @@
 #!/usr/bin/env python
-"""Training entry point of the port: video regression and inpainting of any
-of the five model families (``--model`` NeRV_Boost, ENeRV, ENeRV_Boost,
-HNeRV_Boost or HNeRV) on one GPU.
+"""Training entry point of the port: video regression, inpainting and
+interpolation of any of the five model families (``--model`` NeRV_Boost,
+ENeRV, ENeRV_Boost, HNeRV_Boost or HNeRV) on one GPU.
 
     python -m boosting_nerv_torch.train_nerv_all --data_path <dir of frames> \\
-        --model HNeRV_Boost ... [--device cpu]
+        --model HNeRV_Boost ... [--eval_only] [--device cpu]
 
 The flag spellings and defaults of the JAX package's ``train_nerv_all.py``
 (the reference trainer's), so the recipes under ``scripts/`` give the same
-config, plus ``--device`` (default ``cuda``; ``cpu`` runs every kernel
-wrapper's plain version).  Output goes to ``output/<outf>/<vid>/Size<modelsize>``
-(``output/debug/...`` with ``--debug``).  Flags of later slices raise
-NotImplementedError naming their ROADMAP item (``--interpolation``,
-``--embed_inter``, ``--eval_only``, ``--dump_images``, ``--dump_videos``,
-``--profile``, ``-d`` / ``--dp`` / ``--sp`` above one device,
-``--planar_train``); ``--cabac``, ``--encoder_file``, ``--dump_values``,
-``--dump_features``, ``--block_params``, ``--quant``, ``--quant_axis``,
-``--workers`` and ``--resize_list`` are parsed and unused, as in the JAX
-package.
+config (``python -m boosting_nerv_torch.recipes <script.sh>`` runs one on
+the port), plus ``--device`` (default ``cuda``; ``cpu`` runs every kernel
+wrapper's plain version).  Output goes to
+``output/<outf>/<vid>/Size<modelsize>`` (``output/debug/...`` with
+``--debug``).  ``--interpolation`` / ``--embed_inter`` train on the even
+frames and test on the odd ones; ``--eval_only`` loads the weights
+(``--weight``, or the run's ``model_latest.ckpt``) and evaluates once:
+``eval.csv``, and a line appended to ``eval.txt``; ``--dump_images`` /
+``--dump_videos`` write the last eval's frames as PNGs and
+``gt_pred.gif``; ``--profile`` traces train steps 2-6 into
+``profile/trace.json``; ``--planar_train`` trains on the standard forward.
+``-d`` / ``--dp`` / ``--sp`` above one device raise NotImplementedError
+naming their ROADMAP item (multi-device); ``--cabac``, ``--encoder_file``,
+``--dump_values``, ``--dump_features``, ``--block_params``, ``--quant``,
+``--quant_axis``, ``--workers`` and ``--resize_list`` are parsed and
+unused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -95,8 +101,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--dump_values', action='store_true', default=False)
     p.add_argument('--dump_features', action='store_true', default=False)
     p.add_argument('--profile', action='store_true', default=False,
-                   help='capture a profiler trace of early train steps '
-                        '(not ported yet)')
+                   help='capture a torch.profiler trace of train steps 2-6')
     # Distributed / parallel
     p.add_argument('--manualSeed', type=int, default=1)
     p.add_argument('-d', '--distributed', action='store_true', default=False)
@@ -117,7 +122,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help='highest: float32 with TF32 off; high, default: '
                         'TF32 on')
     p.add_argument('--planar_train', type=int, default=0,
-                   help='the TPU planar training forward (not ported)')
+                   help="JAX's planar training forward (a TPU layout): the "
+                        'standard forward trains here')
     # Logging / output
     p.add_argument('--debug', action='store_true')
     p.add_argument('-p', '--print-freq', default=50, type=int)
@@ -178,7 +184,9 @@ def args_to_config(args) -> BoostConfig:
     )
 
 
-def main(argv=None):
+def run(argv=None):
+    """The CLI on ``argv``: trains, or with ``--eval_only`` evaluates once;
+    returns the trainer."""
     args = build_parser().parse_args(argv)
     cfg = args_to_config(args)
 
@@ -190,7 +198,34 @@ def main(argv=None):
         f"model {cfg.model} fc_dim {trainer.cfg.fc_dim} frames "
         f"{trainer.video.n} params {round(n_params / 1e6, 4)}M "
         f"device {trainer.device}")
-    return trainer.train()
+    if not cfg.eval_only:
+        trainer.train()
+        return trainer
+
+    trainer.maybe_resume()
+    record_eval_only(trainer, trainer.evaluate(
+        dump_vis=cfg.dump_images or cfg.dump_videos, huffman_coding=True))
+    return trainer
+
+
+def record_eval_only(trainer, results) -> None:
+    """An ``--eval_only`` run's records: ``results`` into the best metrics,
+    ``cur_epoch`` the config's epochs and ``train_time`` 0, ``eval.csv``,
+    and the best metrics appended to ``eval.txt``."""
+    for k, v in results.items():
+        trainer.best_metrics[k] = max(trainer.best_metrics[k], v)
+    trainer.cur_epoch = trainer.cfg.epochs
+    trainer.train_time = 0.0
+    trainer.dump_csv('eval.csv')
+    with open(os.path.join(trainer.cfg.outf, 'eval.txt'), 'a') as f:
+        f.write(' | '.join(f'best_{k}: {v:.4f}'
+                           for k, v in trainer.best_metrics.items())
+                + '\n\n')
+
+
+def main(argv=None):
+    """``run``; returns the best metrics."""
+    return run(argv).best_metrics
 
 
 if __name__ == '__main__':

@@ -18,9 +18,8 @@ and runs the coding eval: ``eval.csv``, and a line appended to
 
 from __future__ import annotations
 
-import os
-
-from boosting_nerv_torch.train_nerv_all import args_to_config, build_parser
+from boosting_nerv_torch.train_nerv_all import (args_to_config, build_parser,
+                                                record_eval_only)
 
 
 def build_compression_parser():
@@ -38,9 +37,10 @@ def build_compression_parser():
     return p
 
 
-def main(argv=None):
-    args = build_compression_parser().parse_args(argv)
-    cfg = args_to_config(args).replace(
+def compression_config(args):
+    """The config of parsed compression flags ``args``: the regression
+    CLI's, ``quant`` on, and the ten compression fields."""
+    return args_to_config(args).replace(
         quant=True, quant_bias_bit=args.quant_bias_bit,
         per_channel_w=args.per_channel_w, per_channel_b=args.per_channel_b,
         per_channel_e=args.per_channel_e, quantizer_w=args.quantizer_w,
@@ -48,31 +48,25 @@ def main(argv=None):
         embed_entropy=args.embed_entropy, target_bit=args.target_bit,
         lambda_rate=args.lambda_rate)
 
+
+def main(argv=None):
+    args = build_compression_parser().parse_args(argv)
+    cfg = compression_config(args)
+
     from boosting_nerv_torch.training.compress_trainer import \
         CompressionTrainer
 
-    # --eval_only is this script's branch: the trainer runs without it
-    trainer = CompressionTrainer(cfg.replace(eval_only=False),
-                                 device=args.device)
+    trainer = CompressionTrainer(cfg, device=args.device)
     trainer.logger.print(
         f"model {cfg.model} fc_dim {trainer.cfg.fc_dim} frames "
         f"{trainer.video.n} target_bpp {trainer.target_bpp:.6f} device "
         f"{trainer.device}")
-    if not args.eval_only:
+    if not cfg.eval_only:
         return trainer.train()
 
     trainer.maybe_resume()
     trainer.init_qparams()
-    results = trainer.evaluate_cem(coding=True)
-    for k, v in results.items():
-        trainer.best_metrics[k] = max(trainer.best_metrics[k], v)
-    trainer.cur_epoch = cfg.epochs
-    trainer.train_time = 0.0
-    trainer.dump_csv('eval.csv')
-    with open(os.path.join(trainer.cfg.outf, 'eval.txt'), 'a') as f:
-        f.write(' | '.join(f'best_{k}: {v:.4f}'
-                           for k, v in trainer.best_metrics.items())
-                + '\n\n')
+    record_eval_only(trainer, trainer.evaluate_cem(coding=True))
     return trainer.best_metrics
 
 

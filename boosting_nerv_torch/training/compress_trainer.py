@@ -405,9 +405,7 @@ class CompressionTrainer(RegressionTrainer):
                     est_bits += estimate_bits(qi, m, s, self.device)
                     real_bits += gaussian_ans_bits(qi, m, s)
                     meta_bits += 2 * 32
-                out = (dq_model.decode(dequant_e, t)
-                       if cfg.model == "HNeRV_Boost"
-                       else dq_model.decode(dequant_e))
+                out = self._decode(dq_model, dequant_e, t)
             else:
                 img_in = (torch.clamp(img * mask, 0, 1) if mask is not None
                           else img)

@@ -26,12 +26,25 @@ HNeRV and E-NeRV (as JAX times its flax decode for them;
 ``fps_decode_path``): CUDA events around the decodes on the card, the host
 clock on the CPU (where the wrappers run their plain versions).
 
-The regression and inpainting tasks are ported; the fields of later slices
-raise NotImplementedError on a non-default value (``check_ported``).
+The regression, inpainting and interpolation tasks are ported.
+Interpolation reads a clip as JAX does (the last frame of an even count
+dropped; ``data_split`` "1_1_2" trains on the even frames); with
+``embed_inter`` the HNeRV families with an encoder decode each
+validation frame, in both eval slots, from the mean of its neighbours'
+embeddings (``VideoData.neighbours``, gathered from the resident frames).
+``dump_images`` / ``dump_videos`` write the last eval's predicted frames
+as PNGs (``data/png.py``) and ``gt_pred.gif`` (``data/gif.py``), with no
+Pillow; ``profile`` traces steps 2-6 of the first epoch with
+``torch.profiler`` (CUDA activity on the card) into a Chrome trace under
+``outf/profile/``; ``planar_train`` is accepted and trains on the
+standard forward, with a note: JAX's planar forward is a TPU layout of the
+same function.  Only the multi-device fields raise NotImplementedError on
+a non-default value (``check_ported``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import time
@@ -44,6 +57,8 @@ import torch.utils.checkpoint
 from ..bridge import flax_params_from_torch_state, torch_state_from_flax
 from ..compress.huffman import huffman_code_lengths
 from ..config import BoostConfig, resolve_sizes
+from ..data.gif import write_gif
+from ..data.png import read_png, write_png
 from ..data.video import VideoData, data_split, make_inpaint_mask
 from ..models import build_model
 from ..ops.losses import loss_fn
@@ -62,16 +77,8 @@ METRIC_NAMES = [
 ]
 
 # config fields of later slices -> the ROADMAP item that ports them
-_LATER = {
-    "interpolation": "tasks and the script surface",
-    "embed_inter": "tasks and the script surface",
-    "eval_only": "tasks and the script surface",
-    "dump_images": "tasks and the script surface",
-    "dump_videos": "tasks and the script surface",
-    "profile": "tasks and the script surface",
-    "dp": "multi-device",
-    "sp": "multi-device",
-}
+_LATER = {"dp": "multi-device", "sp": "multi-device"}
+PROFILE_STEPS = (2, 7)  # profile: trace steps [2, 7) of the first epoch
 
 
 def check_ported(cfg: BoostConfig) -> None:
@@ -83,11 +90,6 @@ def check_ported(cfg: BoostConfig) -> None:
             raise NotImplementedError(
                 f"{name}={getattr(cfg, name)!r} is not ported yet (ROADMAP "
                 f"queue 1: {item})")
-    if cfg.planar_train:
-        raise NotImplementedError(
-            "planar_train is not ported: the planar training forward works "
-            "around XLA's lane padding on the TPU (ROADMAP queue 1: "
-            "regression trainer for HNeRV-Boost)")
 
 
 def set_train_precision(precision: str) -> None:
@@ -203,9 +205,13 @@ class RegressionTrainer:
         self.cfg0 = cfg
         self.device = torch.device(device)
         set_train_precision(cfg.train_precision)
+        if cfg.planar_train:
+            print(f"planar_train={cfg.planar_train}: the standard forward "
+                  "trains here (the planar forward is JAX's TPU layout of "
+                  "the same function)")
 
         self.video = video if video is not None else VideoData.from_dir(
-            cfg.data_path, cfg.crop_list)
+            cfg.data_path, cfg.crop_list, cfg.interpolation, cfg.embed_inter)
         self.cfg = cfg = resolve_sizes(cfg, self.video.final_size,
                                        self.video.n)
         # measure_fps times the serving decode of the families it serves
@@ -221,6 +227,10 @@ class RegressionTrainer:
                 self.fps_decode_path = "serving"
         # the HNeRV families with an encoder: embeddings to quantise
         self.has_embed = cfg.is_hnerv_family and bool(cfg.enc_strds)
+        # interpolation: validation frames decode from their neighbours'
+        # mean embedding
+        self.embed_inter = (self.has_embed and cfg.interpolation
+                            and cfg.embed_inter)
 
         split = [int(x) for x in cfg.data_split.split("_")]
         self.train_ind, self.val_ind = data_split(
@@ -257,6 +267,7 @@ class RegressionTrainer:
         self.full_bits_per_param = 0.0
         self.total_bpp = 0.0
         self.best_metrics = {k: 0.0 for k in METRIC_NAMES}
+        self.last_eval: Dict[str, float] = {}  # the latest evaluate's
         self.psnr_history: List[float] = []
         self.train_losses: List[float] = []  # every step's loss
         self.train_psnr: List[float] = []    # every epoch's mean PSNR
@@ -355,6 +366,7 @@ class RegressionTrainer:
         self.maybe_resume()
         n_train_batches = max(len(self.train_ind) // cfg.batchSize, 1)
         t_start = time.time()
+        prof = None
         for epoch in range(self.start_epoch, cfg.epochs):
             ep_start = time.time()
             losses, psnrs = [], []
@@ -364,12 +376,20 @@ class RegressionTrainer:
             for i, batch in enumerate(batches):
                 if i > 10 and cfg.debug:
                     break
+                if cfg.profile and epoch == self.start_epoch:
+                    if i == PROFILE_STEPS[0]:
+                        prof = self._start_profile()
+                    elif i == PROFILE_STEPS[1] and prof is not None:
+                        self._stop_profile(prof)
+                        prof = None
                 progress = (epoch + i / n_train_batches) / cfg.epochs
                 lr = cfg.lr * lr_multiplier(
                     cfg.lr_type, progress, cur_iter=i, epochs=cfg.epochs,
                     full_data_length=self.video.n, cur_epoch=epoch)
-                loss, psnr = self.train_step_idx(batch["idx"],
-                                                 batch["norm_idx"], lr)
+                with (torch.profiler.record_function(f"train_step {i}")
+                      if prof is not None else contextlib.nullcontext()):
+                    loss, psnr = self.train_step_idx(batch["idx"],
+                                                     batch["norm_idx"], lr)
                 # kept on the device: no host sync between steps
                 losses.append(loss)
                 psnrs.append(psnr)
@@ -379,6 +399,9 @@ class RegressionTrainer:
                         f"Epoch[{epoch + 1}/{cfg.epochs}], "
                         f"Step [{i + 1}/{n_train_batches}], lr:{lr:.2e} "
                         f"pred_PSNR: {cur:.4f}")
+            if prof is not None:  # an epoch of fewer than 7 steps
+                self._stop_profile(prof)
+                prof = None
 
             ep_psnr = float(torch.cat(psnrs).mean()) if psnrs else 0.0
             if losses:
@@ -392,7 +415,10 @@ class RegressionTrainer:
 
             last = cfg.epochs - epoch
             if (epoch + 1) % cfg.eval_freq == 0 or last in (1, 3, 5):
-                results = self.evaluate(huffman_coding=(last == 1))
+                results = self.evaluate(
+                    dump_vis=(cfg.dump_images or cfg.dump_videos)
+                    and last == 1,
+                    huffman_coding=(last == 1))
                 msg = f"Eval at epoch {epoch + 1}: "
                 for k in METRIC_NAMES:
                     v = results[k]
@@ -412,6 +438,25 @@ class RegressionTrainer:
         self.dump_csv(f"epoch{cfg.epochs}.csv")
         self.logger.print(f"Training complete in: {self.train_time:.1f}s")
         return self.best_metrics
+
+    def _start_profile(self) -> torch.profiler.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof: torch.profiler.profile) -> None:
+        """Stop ``prof`` and export its Chrome trace to
+        ``outf/profile/trace.json``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        path = os.path.join(self.cfg.outf, "profile", "trace.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        prof.export_chrome_trace(path)
+        self.logger.print(f"profiler trace captured: {path}")
 
     # ------------------------------------------------------------------ #
     def quantize_model_params(self):
@@ -500,8 +545,31 @@ class RegressionTrainer:
             dt = time.perf_counter() - t0
         return reps * b / dt
 
+    def _decode(self, model: torch.nn.Module, embed: torch.Tensor,
+                t: torch.Tensor) -> torch.Tensor:
+        """``model``'s frames from embeddings (HNeRV ignores ``t``)."""
+        if self.cfg.model == "HNeRV_Boost":
+            return model.decode(embed, t)
+        return model.decode(embed)
+
+    def _neighbour_embeds(self, idx, embed: torch.Tensor) -> torch.Tensor:
+        """``embed`` of the frames ``idx`` with each validation frame's
+        replaced by ``0.5 * (encode(pre) + encode(post))`` of its
+        neighbours (``VideoData.neighbours``), the unquantised encoder's."""
+        pre, post = self.video.neighbours(idx)
+        mixed = 0.5 * (self.model.encode(self.gather(pre))
+                       + self.model.encode(self.gather(post)))
+        is_val = torch.as_tensor([int(i) in self.val_ind_set for i in idx],
+                                 device=self.device)
+        return torch.where(is_val.view(-1, *[1] * (embed.dim() - 1)), mixed,
+                           embed)
+
     @torch.no_grad()
-    def evaluate(self, huffman_coding: bool = False) -> Dict[str, float]:
+    def evaluate(self, dump_vis: bool = False, huffman_coding: bool = False
+                 ) -> Dict[str, float]:
+        """The 8 slots; with ``dump_vis`` the pred slot's frames as
+        ``outf/visualize_model_orig/pred_<idx>_<psnr>.png`` and, with
+        ``dump_videos``, ``outf/gt_pred.gif`` of every PNG there."""
         cfg = self.cfg
         params_q, quant_ckt = self.quantize_model_params()
         qmodel = copy.deepcopy(self.model)
@@ -518,6 +586,9 @@ class RegressionTrainer:
 
         slots = {k: [] for k in METRIC_NAMES}
         mask = self.inpaint_mask
+        vis_dir = os.path.join(cfg.outf, "visualize_model_orig")
+        if dump_vis:
+            os.makedirs(vis_dir, exist_ok=True)
         for model_ind, model in enumerate([self.model, qmodel]):
             for bi, batch in enumerate(self._batches()):
                 if bi > 10 and cfg.debug:
@@ -526,9 +597,15 @@ class RegressionTrainer:
                 t = torch.as_tensor(batch["norm_idx"], device=self.device)
                 idx = batch["idx"]
                 if model_ind == 1 and dequant_embeds is not None:
+                    # interpolation's neighbour average overrides a
+                    # validation frame's dequantised embedding, as in JAX
                     e = torch.from_numpy(dequant_embeds[idx]).to(self.device)
-                    out = (model.decode(e, t) if cfg.model == "HNeRV_Boost"
-                           else model.decode(e))
+                    if self.embed_inter:
+                        e = self._neighbour_embeds(idx, e)
+                    out = self._decode(model, e, t)
+                elif self.embed_inter:
+                    e = self._neighbour_embeds(idx, model.encode(img))
+                    out = self._decode(model, e, t)
                 else:
                     img_in = (torch.clamp(img * mask, 0, 1)
                               if mask is not None else img)
@@ -540,6 +617,19 @@ class RegressionTrainer:
                     base = (0 if seen else 2) + 4 * model_ind
                     slots[METRIC_NAMES[base]].append(float(pv[b]))
                     slots[METRIC_NAMES[base + 1]].append(float(sv[b]))
+                if dump_vis and model_ind == 0:
+                    # truncated to uint8, as JAX's astype
+                    frames = (torch.clamp(out, 0, 1) * 255).to(
+                        torch.uint8).cpu().numpy()
+                    for b, frame_idx in enumerate(idx):
+                        write_png(os.path.join(
+                            vis_dir, f"pred_{int(frame_idx):04d}_"
+                                     f"{pv[b]:.2f}.png"), frames[b])
+
+        if dump_vis and cfg.dump_videos:
+            write_gif(os.path.join(cfg.outf, "gt_pred.gif"),
+                      (read_png(os.path.join(vis_dir, f))
+                       for f in sorted(os.listdir(vis_dir))))
 
         self.fps = self.measure_fps(reps=100 if cfg.eval_fps else 20)
         if huffman_coding and quant_ckt is not None:
@@ -547,6 +637,7 @@ class RegressionTrainer:
 
         results = {k: (float(np.mean(v)) if v else 0.0)
                    for k, v in slots.items()}
+        self.last_eval = results
         self.logger.print(
             "Eval FPS {:.2f}, ".format(self.fps)
             + " | ".join(f"{k}: {v:.4f}" for k, v in results.items()))

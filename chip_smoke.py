@@ -190,11 +190,40 @@ Phases, one line of output each (or one line per shape):
    fp32); (e) a fresh trainer resumes the CEM checkpoint with equal model
    and quantiser parameters; (f) the median CEM step ms (CUDA events)
    and the peak allocation of a step beside the regression step of the
-   same trainer; then the phase's seconds.
+   same trainer; then the phase's seconds;
+14. the tasks and the script surface, at full width: (a) a 17-frame
+   1080x1920 synthetic clip written as PNGs by ``data/png.py`` and read
+   back by ``VideoData.from_dir`` equal to the array (ms a frame written
+   and read); (b) the first command of scripts/interpolation/hnerv_boost.sh
+   (Beauty: HNeRV-Boost at modelsize 2.75, ``1_1_2``, ``--embed_inter``,
+   ``--train_precision high``), listed by ``recipes.recipe_commands`` and
+   run in-process through the port's CLI with only these cuts, each
+   printed: ``--data_path`` the clip, ``-e 2``, ``--eval_freq 1``,
+   ``--outf`` under output/chip_smoke_tasks, ``--not_resume``, plus
+   ``--profile --dump_images --dump_videos``: the split 9 even training
+   frames and 8 odd validation frames, every loss finite, each eval's fps
+   clock launching fused_upconv_rsft 3 and fused_conv_rsft 3 a decode;
+   (c) the eval's ``pred_unseen_psnr`` within 1e-3 dB of a recomputation
+   from the trained model that decodes each odd frame from
+   ``0.5 * (encode(pre) + encode(post))``; (d) one serving decode of the
+   trained weights at t = 0.37 (3 + 3 launches) within 1e-2 of the eager
+   fp32 model; (e) the profiler's Chrome trace holds CUDA kernels launched
+   in each of the five traced steps (2-6); (f) 17 dumped PNGs named by
+   index, each read by ``data/png.py`` within 0.5 dB of the PSNR in its
+   name, and ``gt_pred.gif`` with a 1920x1080 screen and 17 image
+   descriptors (its seconds and bytes); (g) ``--eval_only`` on the run's
+   ``model_latest.ckpt``: ``eval.csv``, one ``eval.txt`` line, metrics
+   within 0.01 dB of the last training eval, its fps clock's launches;
+   (h) one epoch of the first command of scripts/interpolation/
+   nerv_boost.sh (index-only, the plain eval on the split) with the same
+   cuts; then the seconds of an eval of (b)'s model without and with the
+   dumps, the median step ms of (b)'s model with TF32 on (the recipe's
+   "high") and off, in turns, and the phase's seconds.
 
 The launch counts are set to 0 just before each slice's frames (the
 planar phase's stage-7 calls, the probe phase's timed run, the training
-runs, the CEM evals and fps clocks) and read just after.  Before the
+runs, the CEM evals and fps clocks, the tasks phase's runs) and read just
+after.  Before the
 last two lines the run's seconds are printed.  The line before the last
 is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero without
@@ -287,6 +316,13 @@ FAMILY_LAUNCHES = {  # a frame's launches, bf16 (False) and W8A8 (True)
     ("ENeRV_Boost", False): SERVING_LAUNCHES,
     ("ENeRV_Boost", True): {"fused_upconv_rsft": 3, "fused_conv_rsft": 1,
                             "fused_conv_rsft_i8": 2}}
+# phase 14, the tasks slice: scripts/interpolation/*.sh at full width
+TASK_FRAMES = 17     # 9 even frames train, 8 odd frames test
+TASK_ROOT = os.path.join(REPO, "output", "chip_smoke_tasks")
+TASK_PSNR_TOL = 1e-3  # dB: the eval's unseen PSNR vs its recomputation
+DUMP_PSNR_TOL = 0.5  # dB: a dumped PNG (truncated to uint8) vs its name
+EVAL_ONLY_TOL = 0.01  # dB: --eval_only vs the last training eval
+TRACED_STEPS = 5     # --profile: steps 2-6 of the first epoch
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and
 # tensor-core operations/s of the kernels' operand types
 HBM_BYTES_S = 3.35e12
@@ -2187,6 +2223,334 @@ def run_cem_phase(device_line):
     return {k: sum(r.get(k, 0) for r in runs) for k in kernels.LAUNCHES}
 
 
+def set_flag(argv, flag, value):
+    """``argv`` with ``flag``'s value set to ``value`` (appended when the
+    flag is absent)."""
+    argv = list(argv)
+    if flag in argv:
+        argv[argv.index(flag) + 1] = value
+    else:
+        argv += [flag, value]
+    return argv
+
+
+def task_argv(script, clip_dir, outf, epochs):
+    """The first command of the recipe ``script`` with phase 14's cuts:
+    (argv, the cuts as printed)."""
+    from boosting_nerv_torch import recipes
+
+    cli, argv = recipes.recipe_commands(os.path.join(REPO, script))[0]
+    if cli != "boosting_nerv_torch.train_nerv_all":
+        raise SmokeFailure(f"{script}: first command runs {cli}")
+    cuts = [("--data_path", clip_dir), ("-e", str(epochs)),
+            ("--eval_freq", "1"), ("--outf", outf)]
+    for flag, value in cuts:
+        argv = set_flag(argv, flag, value)
+    return argv, " ".join(f"{f} {v}" for f, v in cuts)
+
+
+def trace_step_kernels(path):
+    """{traced step: CUDA kernels launched in it} of a torch.profiler
+    Chrome trace: a kernel belongs to the ``train_step <i>`` range that
+    holds the CUDA API call that launched it (matched by correlation
+    id)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    steps = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith("train_step ")]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat", "").startswith("cuda_")
+                and "correlation" in e.get("args", {})}
+    counts = {name: 0 for name, _, _ in steps}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        for name, a, b in steps:
+            if ts is not None and a <= ts <= b:
+                counts[name] += 1
+    return counts
+
+
+def run_tasks_phase(device_line):
+    """Phase 14: the interpolation recipes through the recipe runner and
+    the port's CLI at full width, with the profiler, the dumps and
+    ``--eval_only``; returns the launch counts of its runs."""
+    from boosting_nerv_torch import train_nerv_all
+    from boosting_nerv_torch.data import VideoData, gif, png, synthetic_video
+    from boosting_nerv_torch.ops import kernels
+    from boosting_nerv_torch.ops.metrics import psnr_per_frame
+    from boosting_nerv_torch.runtime.fast_decode import build_serving_decode
+    from boosting_nerv_torch.training.trainer import (METRIC_NAMES,
+                                                      set_train_precision)
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TASK_ROOT, ignore_errors=True)
+    cwd = os.getcwd()
+    os.chdir(REPO)  # the CLI writes output/<outf>/...
+    runs = []
+    try:
+        # (a) the clip, through data/png.py both ways
+        clip = synthetic_video(TASK_FRAMES, 1080, 1920, seed=5)
+        clip_dir = os.path.join(TASK_ROOT, "clip")
+        os.makedirs(clip_dir)
+        t0 = time.perf_counter()
+        for i, f in enumerate(clip):
+            png.write_png(os.path.join(clip_dir, f"{i:04d}.png"), f)
+        write_ms = (time.perf_counter() - t0) * 1e3 / TASK_FRAMES
+        t0 = time.perf_counter()
+        video = VideoData.from_dir(clip_dir, "1080_1920", True, True)
+        read_ms = (time.perf_counter() - t0) * 1e3 / TASK_FRAMES
+        nbytes = sum(os.path.getsize(os.path.join(clip_dir, f))
+                     for f in os.listdir(clip_dir))
+        same = np.array_equal(video.frames, clip)
+        print(f"tasks (a) clip of {TASK_FRAMES} 1080x1920 PNG frames "
+              f"({nbytes} bytes): write {write_ms:.1f} ms a frame, read "
+              f"(VideoData.from_dir, data/png.py) {read_ms:.1f} ms a frame; "
+              f"read back equal to the array: {same} [{device_line}]",
+              flush=True)
+        if not same:
+            raise SmokeFailure("(a) the clip read back differs")
+
+        # (b) scripts/interpolation/hnerv_boost.sh through the CLI
+        argv, cuts = task_argv("scripts/interpolation/hnerv_boost.sh",
+                               clip_dir, "chip_smoke_tasks/hnerv_boost", 2)
+        extra = ["--not_resume", "--profile", "--dump_images",
+                 "--dump_videos"]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = train_nerv_all.run(argv + extra)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        runs.append(launches)
+        cfg, losses = tr.cfg, tr.train_losses
+        n_evals = 2
+        want = {k: SERVING_LAUNCHES.get(k, 0) * n_evals * (FPS_REPS + 1)
+                for k in launches}
+        split = (tr.video.n, tr.train_ind, tr.val_ind)
+        print(f"tasks (b) scripts/interpolation/hnerv_boost.sh's first "
+              f"command through recipes.recipe_commands and the port's CLI "
+              f"with the cuts {cuts} {' '.join(extra)}: {cfg.model} "
+              f"modelsize {cfg.modelsize}, fc_dim {cfg.fc_dim}, enc_dim "
+              f"{cfg.enc_dim}, {sum(p.numel() for p in tr.model.parameters())}"
+              f" params, split {cfg.data_split}, embed_inter "
+              f"{cfg.embed_inter}, train_precision {cfg.train_precision}: "
+              f"{tr.video.n} frames, train {tr.train_ind}, val "
+              f"{tr.val_ind}; {len(losses)} steps and {n_evals} evals in "
+              f"{run_s:.1f} s; losses {[round(v, 5) for v in losses]}; last "
+              f"eval " + ", ".join(f"{k} {v:.4f}"
+                                   for k, v in tr.last_eval.items())
+              + f"; fps {tr.fps:.2f}; launches "
+              f"{ {k: v for k, v in launches.items() if v} } "
+              f"[{device_line}]", flush=True)
+        if split != (TASK_FRAMES, list(range(0, TASK_FRAMES, 2)),
+                     list(range(1, TASK_FRAMES, 2))):
+            raise SmokeFailure(f"(b) split {split}")
+        if not (len(losses) == 2 * len(tr.train_ind)
+                and all(math.isfinite(v) for v in losses)):
+            raise SmokeFailure(f"(b) losses {losses}")
+        if launches != want:
+            raise SmokeFailure(f"(b) launches {launches}, expected {want}")
+
+        # (c) the neighbour average, recomputed by hand
+        model = tr.model
+        with torch.no_grad():
+            mixed_psnr, own_psnr, apart = [], [], 0.0
+            for j in tr.val_ind:
+                t = torch.as_tensor(video.norm_idx([j]), device="cuda")
+                mixed = 0.5 * (model.encode(tr.gather([j - 1]))
+                               + model.encode(tr.gather([j + 1])))
+                outs = [model.decode(e, t) for e in
+                        (mixed, model.encode(tr.gather([j])))]
+                for out, acc in zip(outs, (mixed_psnr, own_psnr)):
+                    acc.append(float(psnr_per_frame(out, tr.gather([j]))[0]))
+                apart = max(apart, (outs[0] - outs[1]).abs().max().item())
+        got = tr.last_eval["pred_unseen_psnr"]
+        err = abs(got - float(np.mean(mixed_psnr)))
+        print(f"tasks (c) pred_unseen_psnr {got:.4f} dB vs its "
+              f"recomputation from 0.5 * (encode(pre) + encode(post)) "
+              f"{np.mean(mixed_psnr):.4f} dB: err {err:.3g} (tol "
+              f"{TASK_PSNR_TOL}); the odd frames from their own embedding "
+              f"{np.mean(own_psnr):.6f} dB against {np.mean(mixed_psnr):.6f}"
+              f", frames apart by {apart:.3g} at most [{device_line}]",
+              flush=True)
+        if not err <= TASK_PSNR_TOL:
+            raise SmokeFailure(f"(c) err {err} dB")
+
+        # (d) the serving decode of the trained weights, eager fp32 ref
+        set_train_precision("highest")
+        t = torch.tensor([T_HOLD], device="cuda")
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            decode = build_serving_decode(cfg, model)
+            embed = model.encode(tr.gather([0]))
+            out, ref = decode(embed, t).float(), model.decode(embed, t)
+        torch.cuda.synchronize()
+        check_launches = dict(kernels.LAUNCHES)
+        runs.append(check_launches)
+        want_check = {k: SERVING_LAUNCHES.get(k, 0) for k in check_launches}
+        err = (out - ref).abs().max().item()
+        print(f"tasks (d) serving decode of the trained weights at t "
+              f"{T_HOLD} vs their eager fp32 model: max_abs_err {err:.6g} "
+              f"(tol {SLICE_TOL}); launches "
+              f"{ {k: v for k, v in check_launches.items() if v} } "
+              f"[{device_line}]", flush=True)
+        if check_launches != want_check or not (
+                tuple(out.shape) == (1, 1080, 1920, 3) and err <= SLICE_TOL):
+            raise SmokeFailure(f"(d) launches {check_launches}, err {err}")
+        del decode, out, ref
+
+        # (e) the profiler's trace
+        trace = os.path.join(cfg.outf, "profile", "trace.json")
+        per_step = trace_step_kernels(trace)
+        print(f"tasks (e) --profile trace {trace} ({os.path.getsize(trace)} "
+              f"bytes): CUDA kernels a traced step {per_step} "
+              f"[{device_line}]", flush=True)
+        if (len(per_step) != TRACED_STEPS
+                or not all(v > 0 for v in per_step.values())):
+            raise SmokeFailure(f"(e) kernels a traced step {per_step}")
+
+        # (f) the dumps
+        vis = os.path.join(cfg.outf, "visualize_model_orig")
+        names = sorted(os.listdir(vis))
+        errs = []
+        for i, name in enumerate(names):
+            if not name.startswith(f"pred_{i:04d}_"):
+                raise SmokeFailure(f"(f) dump {i} is {name}")
+            img = torch.from_numpy(png.read_png(os.path.join(vis, name)))
+            p = float(psnr_per_frame(img[None].cuda().float() / 255.0,
+                                     tr.gather([i]))[0])
+            errs.append(abs(p - float(name[10:-4])))
+        gif_path = os.path.join(cfg.outf, "gt_pred.gif")
+        with open(gif_path, "rb") as f:
+            screen, frames = gif.gif_layout(f.read())
+        again = os.path.join(TASK_ROOT, "again.gif")
+        t0 = time.perf_counter()
+        gif.write_gif(again, (png.read_png(os.path.join(vis, n))
+                              for n in names))
+        gif_s = time.perf_counter() - t0
+        with open(gif_path, "rb") as a, open(again, "rb") as b:
+            gif_same = a.read() == b.read()
+        print(f"tasks (f) {len(names)} dumped PNGs, |PSNR of the file - "
+              f"PSNR in its name| max {max(errs):.3f} dB (tol "
+              f"{DUMP_PSNR_TOL}); gt_pred.gif {os.path.getsize(gif_path)} "
+              f"bytes, screen {screen[0]}x{screen[1]}, {len(frames)} image "
+              f"descriptors; written again from the PNGs in {gif_s:.2f} s "
+              f"(the same bytes: {gif_same}) [{device_line}]", flush=True)
+        if not (len(names) == TASK_FRAMES and max(errs) <= DUMP_PSNR_TOL
+                and screen == (1920, 1080) and gif_same
+                and frames == [(0, 0, 1920, 1080)] * TASK_FRAMES):
+            raise SmokeFailure(f"(f) {len(names)} PNGs, errs {errs}, GIF "
+                               f"{screen} {len(frames)}")
+
+        # (g) --eval_only on the run's model_latest.ckpt (auto-resume)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ev = train_nerv_all.run(argv + ["--eval_only"])
+        torch.cuda.synchronize()
+        ev_s = time.perf_counter() - t0
+        ev_launches = dict(kernels.LAUNCHES)
+        runs.append(ev_launches)
+        want_ev = {k: SERVING_LAUNCHES.get(k, 0) * (FPS_REPS + 1)
+                   for k in ev_launches}
+        diff = max(abs(ev.last_eval[k] - tr.last_eval[k])
+                   for k in METRIC_NAMES if k.endswith("psnr"))
+        with open(os.path.join(cfg.outf, "eval.txt")) as f:
+            lines = [x for x in f.read().splitlines() if x]
+        print(f"tasks (g) --eval_only from epoch {ev.start_epoch}'s "
+              f"checkpoint in {ev_s:.1f} s: eval.csv "
+              f"{os.path.isfile(os.path.join(cfg.outf, 'eval.csv'))}, "
+              f"eval.txt {len(lines)} line(s); max |PSNR - the last "
+              f"training eval's| {diff:.4g} dB (tol {EVAL_ONLY_TOL}); "
+              f"bits/param {ev.full_bits_per_param:.4f}, fps {ev.fps:.2f}; "
+              f"launches { {k: v for k, v in ev_launches.items() if v} } "
+              f"[{device_line}]", flush=True)
+        if not (ev.start_epoch == 2 and len(lines) == 1
+                and diff <= EVAL_ONLY_TOL and ev_launches == want_ev
+                and os.path.isfile(os.path.join(cfg.outf, "eval.csv"))):
+            raise SmokeFailure(f"(g) start {ev.start_epoch}, lines {lines}, "
+                               f"diff {diff}, launches {ev_launches}")
+        del ev
+
+        # (h) the index-only family: the plain eval on the split
+        argv_n, cuts_n = task_argv("scripts/interpolation/nerv_boost.sh",
+                                   clip_dir, "chip_smoke_tasks/nerv_boost",
+                                   1)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trn = train_nerv_all.run(argv_n + ["--not_resume"])
+        torch.cuda.synchronize()
+        n_s = time.perf_counter() - t0
+        n_launches = dict(kernels.LAUNCHES)
+        runs.append(n_launches)
+        want_n = {k: SERVING_LAUNCHES.get(k, 0) * (FPS_REPS + 1)
+                  for k in n_launches}
+        print(f"tasks (h) scripts/interpolation/nerv_boost.sh's first "
+              f"command with the cuts {cuts_n} --not_resume: "
+              f"{trn.cfg.model} fc_dim {trn.cfg.fc_dim}, "
+              f"{sum(p.numel() for p in trn.model.parameters())} params, "
+              f"{len(trn.train_losses)} steps and its eval in {n_s:.1f} s; "
+              f"losses {[round(v, 5) for v in trn.train_losses]}; eval "
+              + ", ".join(f"{k} {v:.4f}" for k, v in trn.last_eval.items())
+              + f"; fps {trn.fps:.2f} ({trn.fps_decode_path}); launches "
+              f"{ {k: v for k, v in n_launches.items() if v} } "
+              f"[{device_line}]", flush=True)
+        if not ((trn.train_ind, trn.val_ind) == (tr.train_ind, tr.val_ind)
+                and all(math.isfinite(v) for v in trn.train_losses)
+                and trn.last_eval["pred_unseen_psnr"] > 0
+                and n_launches == want_n):
+            raise SmokeFailure(f"(h) split {trn.train_ind}, losses "
+                               f"{trn.train_losses}, launches {n_launches}")
+        del trn
+
+        # the seconds of an eval of (b)'s model, without and with the dumps
+        kernels.reset_launch_counts()
+        eval_s = []
+        for dump in (False, True):
+            t0 = time.perf_counter()
+            tr.evaluate(dump_vis=dump)
+            torch.cuda.synchronize()
+            eval_s.append(time.perf_counter() - t0)
+        s_launches = dict(kernels.LAUNCHES)
+        runs.append(s_launches)
+        want_s = {k: SERVING_LAUNCHES.get(k, 0) * 2 * (FPS_REPS + 1)
+                  for k in s_launches}
+        print(f"tasks eval of (b)'s model ({TASK_FRAMES} frames, 2 slots, "
+              f"the neighbour encodes, PTQ, the fps clock): {eval_s[0]:.2f} "
+              f"s; with the PNG and GIF dumps {eval_s[1]:.2f} s; launches "
+              f"{ {k: v for k, v in s_launches.items() if v} } "
+              f"[{device_line}]", flush=True)
+        if s_launches != want_s:
+            raise SmokeFailure(f"eval launches {s_launches}, expected "
+                               f"{want_s}")
+
+        # the step of (b)'s model with TF32 on (the recipe's) and off
+        step = {}
+        for precision in ("high", "highest", "high", "highest"):
+            set_train_precision(precision)
+            ms, peak = _step_ms_and_peak(tr, 5, lr=cfg.lr)
+            step.setdefault(precision, []).append((ms, peak))
+        print("tasks step of (b)'s model, median of 5 (CUDA events), turns "
+              "high / highest / high / highest: " + "; ".join(
+                  f"{p} (TF32 {'on' if p == 'high' else 'off'}) "
+                  f"{statistics.mean(m for m, _ in v):.2f} ms "
+                  f"({', '.join(f'{m:.2f}' for m, _ in v)}), peak "
+                  f"{max(b for _, b in v) / 2**30:.3f} GiB"
+                  for p, v in step.items()) + f" [{device_line}]",
+              flush=True)
+        del tr
+    finally:
+        set_train_precision("highest")
+        os.chdir(cwd)
+        shutil.rmtree(TASK_ROOT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"tasks phase: {time.perf_counter() - t_phase:.1f} s "
+          f"[{device_line}]", flush=True)
+    return {k: sum(r.get(k, 0) for r in runs) for k in kernels.LAUNCHES}
+
+
 def print_ptxas(log_path):
     """One line per source of ptxas's report in the build log: kernel
     instances, the range of their registers and their spill bytes."""
@@ -2326,6 +2690,7 @@ def main() -> int:
     runs.append(run_train_phase(device_line))
     runs.append(run_families_phase(summary, device_line))
     runs.append(run_cem_phase(device_line))
+    runs.append(run_tasks_phase(device_line))
 
     leaked = [m for m in ("jax", "flax", "boosting_nerv_tpu")
               if m in sys.modules]

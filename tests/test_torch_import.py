@@ -1,5 +1,6 @@
 """The torch port imports without jax and without the JAX package (and
-without yaml, pandas, PIL and tensorboardX, which the GPU machine lacks),
+without yaml, pandas, PIL, imageio and tensorboardX, which the GPU
+machine's listing lacks),
 its trainers (regression, and CEM compression with its rANS coding eval)
 run without them, a checkpoint the JAX package pickled (an optax state in
 it) loads without them, and chip_smoke.py refuses to run without a GPU."""
@@ -20,7 +21,7 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "boosting_nerv_tpu",
-                                       "yaml", "pandas", "PIL",
+                                       "yaml", "pandas", "PIL", "imageio",
                                        "tensorboardX"))
 assert not leaked, leaked
 print(len(names))
@@ -32,7 +33,7 @@ def test_port_and_every_submodule_import_without_jax():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 46  # every module of the slices
+    assert int(res.stdout.strip()) >= 51  # every module of the slices
 
 
 _TRAIN_WITHOUT = """
@@ -116,8 +117,10 @@ def test_compression_path_needs_no_jax(tmp_path):
 
 
 def test_port_sources_name_no_jax():
+    # nor imageio, nor the repo-root JAX CLIs, tools/ or scripts/
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|boosting_nerv_tpu)\b", re.M)
+        r"^\s*(import|from)\s+(jax|flax|boosting_nerv_tpu|imageio|"
+        r"train_nerv_all|train_nerv_compression|tools|scripts)\b", re.M)
     for root, dirs, files in os.walk(PKG):
         dirs[:] = [d for d in dirs if d != "build"]  # compiled kernels
         for f in files:
