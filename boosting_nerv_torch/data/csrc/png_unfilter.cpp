@@ -5,10 +5,13 @@
 // that numpy cannot vectorise.
 //
 // raw:    h rows, each a filter-type byte then `stride` filtered bytes
-//         (the inflated IDAT stream);
+//         (the inflated IDAT stream, or one Adam7 pass of it: each pass
+//         is filtered as an image of its own);
 // out:    h * stride reconstructed bytes;
-// bpp:    bytes of one complete pixel (1 grey, 3 RGB, 4 RGBA), the
-//         distance to the "left" byte.
+// stride: ceil(width * samples a pixel * bit depth / 8);
+// bpp:    bytes of one complete pixel, rounded up to at least 1 (1 below
+//         8 bits, 2 * samples at 16 bits), the distance to the "left"
+//         byte.
 // Returns 0, or the 1-based row whose filter type is not 0-4.
 
 #include <cstdint>

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Training entry point of the port: video regression, inpainting and
 interpolation of any of the five model families (``--model`` NeRV_Boost,
-ENeRV, ENeRV_Boost, HNeRV_Boost or HNeRV) on one GPU.
+ENeRV, ENeRV_Boost, HNeRV_Boost or HNeRV) on one GPU, or data-parallel on
+several.
 
     python -m boosting_nerv_torch.train_nerv_all --data_path <dir of frames> \\
         --model HNeRV_Boost ... [--eval_only] [--device cpu]
@@ -19,8 +20,13 @@ frames and test on the odd ones; ``--eval_only`` loads the weights
 ``--dump_videos`` write the last eval's frames as PNGs and
 ``gt_pred.gif``; ``--profile`` traces train steps 2-6 into
 ``profile/trace.json``; ``--planar_train`` trains on the standard forward.
-``-d`` / ``--dp`` / ``--sp`` above one device raise NotImplementedError
-naming their ROADMAP item (multi-device); ``--cabac``, ``--encoder_file``,
+``--dp N`` trains data-parallel on N ranks (``boosting_nerv_torch.parallel``):
+``cuda:0 .. cuda:N-1`` over NCCL, or with ``--device cpu`` N CPU processes
+over gloo; ``-d`` without ``--dp`` takes every card (one rank on the
+CPU), as the JAX CLI takes every device.  Unless torchrun started this
+process as a rank, the CLI starts the N ranks itself; rank 0 writes the
+outputs.  ``--sp`` above 1 raises NotImplementedError naming its ROADMAP
+item (spatial); ``--cabac``, ``--encoder_file``,
 ``--dump_values``, ``--dump_features``, ``--block_params``, ``--quant``,
 ``--quant_axis``, ``--workers`` and ``--resize_list`` are parsed and
 unused, as in the JAX package.
@@ -32,7 +38,11 @@ import argparse
 import os
 import shutil
 
+import torch
+
 from boosting_nerv_torch.config import BoostConfig
+from boosting_nerv_torch.parallel import launch
+from boosting_nerv_torch.parallel.mesh import rank_devices
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -106,8 +116,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--manualSeed', type=int, default=1)
     p.add_argument('-d', '--distributed', action='store_true', default=False)
     p.add_argument('--dp', type=int, default=0,
-                   help='data-parallel size (0 = 1; multi-device is not '
-                        'ported yet)')
+                   help='data-parallel size (0 = 1, or every card with -d)')
     p.add_argument('--sp', type=int, default=1,
                    help='spatial sharding size (not ported yet)')
     p.add_argument('--remat', action='store_true',
@@ -143,13 +152,19 @@ def args_to_config(args) -> BoostConfig:
     else:
         outf = os.path.join('output', args.outf)
     outf = os.path.join(outf, f'{args.vid}/Size{args.modelsize}')
-    if args.overwrite and os.path.isdir(outf):
+    # under torchrun, rank 0 alone clears the output dir
+    if (args.overwrite and os.path.isdir(outf)
+            and os.environ.get('RANK', '0') == '0'):
         print('Will overwrite the existing output dir!')
         shutil.rmtree(outf)
     os.makedirs(outf, exist_ok=True)
-    if args.distributed:
-        raise NotImplementedError('-d/--distributed is not ported yet '
-                                  '(ROADMAP queue 1: multi-device)')
+    dp = args.dp
+    if dp == 0:  # -d: every card, as the JAX CLI takes every device
+        dp = 1
+        if args.distributed and torch.device(args.device).type == 'cuda':
+            dp = torch.cuda.device_count()
+            if not dp:
+                raise ValueError('-d: torch sees no CUDA device')
 
     return BoostConfig(
         data_path=args.data_path, vid=args.vid,
@@ -177,35 +192,51 @@ def args_to_config(args) -> BoostConfig:
         eval_fps=args.eval_fps, manualSeed=args.manualSeed,
         debug=args.debug, print_freq=args.print_freq, weight=args.weight,
         overwrite=args.overwrite, outf=outf, suffix=args.suffix,
-        dp=args.dp or 1, sp=args.sp, profile=args.profile,
+        dp=dp, sp=args.sp, profile=args.profile,
         remat=args.remat, micro_batch=args.micro_batch,
         train_precision=args.train_precision,
         planar_train=args.planar_train,
     )
 
 
-def run(argv=None):
-    """The CLI on ``argv``: trains, or with ``--eval_only`` evaluates once;
-    returns the trainer."""
-    args = build_parser().parse_args(argv)
-    cfg = args_to_config(args)
+def mesh_args(cfg, device) -> dict:
+    """``launch``'s plan arguments for ``cfg``'s dp / sp on ``device``."""
+    return dict(dp=cfg.dp, sp=cfg.sp, devices=rank_devices(device, cfg.dp))
 
+
+def run(argv=None):
+    """The CLI on ``argv`` in this process (at dp > 1 a rank that torchrun
+    started): trains, or with ``--eval_only`` evaluates once; returns the
+    trainer."""
+    args = build_parser().parse_args(argv)
+    return run_config(args_to_config(args), args.device)
+
+
+def run_config(cfg, device, plan=None):
+    """``run`` of a parsed config, on ``plan``'s rank when given."""
     from boosting_nerv_torch.training.trainer import RegressionTrainer
 
-    trainer = RegressionTrainer(cfg, device=args.device)
+    trainer = RegressionTrainer(cfg, device=device, plan=plan)
     n_params = sum(p.numel() for p in trainer.model.parameters())
     trainer.logger.print(
         f"model {cfg.model} fc_dim {trainer.cfg.fc_dim} frames "
         f"{trainer.video.n} params {round(n_params / 1e6, 4)}M "
-        f"device {trainer.device}")
+        f"device {trainer.device} dp {trainer.plan.dp}")
     if not cfg.eval_only:
         trainer.train()
         return trainer
 
     trainer.maybe_resume()
-    record_eval_only(trainer, trainer.evaluate(
-        dump_vis=cfg.dump_images or cfg.dump_videos, huffman_coding=True))
+    if trainer.plan.is_main:  # the eval runs on rank 0
+        record_eval_only(trainer, trainer.evaluate(
+            dump_vis=cfg.dump_images or cfg.dump_videos,
+            huffman_coding=True))
     return trainer
+
+
+def _rank_run(plan, cfg, device):
+    """A rank of ``main``'s launch: its best metrics."""
+    return run_config(cfg, device, plan).best_metrics
 
 
 def record_eval_only(trainer, results) -> None:
@@ -224,8 +255,15 @@ def record_eval_only(trainer, results) -> None:
 
 
 def main(argv=None):
-    """``run``; returns the best metrics."""
-    return run(argv).best_metrics
+    """``run``, or at dp > 1 ``run`` on every rank (``launch``: this
+    process's rank under torchrun, else dp ranks started here); returns
+    the best metrics (rank 0's)."""
+    args = build_parser().parse_args(argv)
+    cfg = args_to_config(args)
+    if cfg.dp > 1:
+        return launch(_rank_run, mesh_args(cfg, args.device),
+                      args=(cfg, args.device))[0]
+    return run_config(cfg, args.device).best_metrics
 
 
 if __name__ == '__main__':

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Compression entry point of the port: the CEM quantisation-aware
 finetune and the rANS coding eval (``training.compress_trainer``) on one
-GPU.
+GPU, or data-parallel on several (``--dp``, ``-d``: as the regression
+CLI).
 
     python -m boosting_nerv_torch.train_nerv_compression \\
         --data_path <dir of frames> --weight <regression checkpoint> ... \\
@@ -18,8 +19,9 @@ and runs the coding eval: ``eval.csv``, and a line appended to
 
 from __future__ import annotations
 
+from boosting_nerv_torch.parallel import launch
 from boosting_nerv_torch.train_nerv_all import (args_to_config, build_parser,
-                                                record_eval_only)
+                                                mesh_args, record_eval_only)
 
 
 def build_compression_parser():
@@ -49,25 +51,40 @@ def compression_config(args):
         lambda_rate=args.lambda_rate)
 
 
-def main(argv=None):
-    args = build_compression_parser().parse_args(argv)
-    cfg = compression_config(args)
-
+def run_config(cfg, device, plan=None):
+    """Trains, or with ``eval_only`` runs the coding eval once (on rank 0);
+    returns the best metrics."""
     from boosting_nerv_torch.training.compress_trainer import \
         CompressionTrainer
 
-    trainer = CompressionTrainer(cfg, device=args.device)
+    trainer = CompressionTrainer(cfg, device=device, plan=plan)
     trainer.logger.print(
         f"model {cfg.model} fc_dim {trainer.cfg.fc_dim} frames "
         f"{trainer.video.n} target_bpp {trainer.target_bpp:.6f} device "
-        f"{trainer.device}")
+        f"{trainer.device} dp {trainer.plan.dp}")
     if not cfg.eval_only:
         return trainer.train()
 
     trainer.maybe_resume()
     trainer.init_qparams()
-    record_eval_only(trainer, trainer.evaluate_cem(coding=True))
+    if trainer.plan.is_main:
+        record_eval_only(trainer, trainer.evaluate_cem(coding=True))
     return trainer.best_metrics
+
+
+def _rank_run(plan, cfg, device):
+    return run_config(cfg, device, plan)
+
+
+def main(argv=None):
+    """The CLI on ``argv``; at dp > 1 on every rank (``launch``); returns
+    the best metrics (rank 0's)."""
+    args = build_compression_parser().parse_args(argv)
+    cfg = compression_config(args)
+    if cfg.dp > 1:
+        return launch(_rank_run, mesh_args(cfg, args.device),
+                      args=(cfg, args.device))[0]
+    return run_config(cfg, args.device)
 
 
 if __name__ == '__main__':

@@ -35,6 +35,20 @@ the noise as an argument, keyed by flax key and ``EMBED``.
 ``BNT_CEM_EVAL_LAST_ONLY`` set to anything but "" or "0" skips every eval
 but the last (the last-epoch coding eval of a sweep); best-metric
 tracking, and so ``model_best.ckpt``, then happens at that eval only.
+
+Data parallelism (JAX: compress_trainer.py:458-472, parameters and
+quantiser state replicated): ``init_qparams`` broadcasts rank 0's model
+and quantiser parameters; each rank steps on its ``shard_batch`` slice,
+with the same weight noise (``noise_gen`` in lockstep) and its slice of
+the embedding noise, drawn at the global batch's shape; the embedding's
+bits are the global batch's (``embed_rate_bits``: the Gaussian's mean and
+std over every rank's codes, each rank's bits summed, all with their
+gradient) before the rate term's ``where`` (the term is not linear in
+bpp, so ranks on either side of the target would average a gradient
+dp=1 never takes), and after ``backward``
+every gradient (weights and quantiser parameters) is averaged by one flat
+all-reduce (``functional_call`` hides the forward from DDP).  Rank 0 runs
+the coding eval and writes the checkpoints, as in the regression trainer.
 """
 
 from __future__ import annotations
@@ -60,6 +74,7 @@ from ..utils.logger import RunLogger
 from .checkpoint import (load_checkpoint, restore, restore_optimizer,
                          restore_qp, save_cem_checkpoint)
 from .schedules import lr_multiplier
+from ..parallel.mesh import MeshPlan
 from .trainer import METRIC_NAMES, RegressionTrainer, make_optimizer
 
 EMBED = "embed"  # cem_step's noise key of the embedding's codes
@@ -102,8 +117,10 @@ class CompressionTrainer(RegressionTrainer):
 
     def __init__(self, cfg: BoostConfig, video: Optional[VideoData] = None,
                  logger: Optional[RunLogger] = None,
-                 device: Union[str, torch.device] = "cuda"):
-        super().__init__(cfg, video=video, logger=logger, device=device)
+                 device: Union[str, torch.device] = "cuda",
+                 plan: Optional[MeshPlan] = None):
+        super().__init__(cfg, video=video, logger=logger, device=device,
+                         plan=plan)
         cfg = self.cfg
         self.w_quant = get_quantizer(cfg.quantizer_w)
         self.b_quant = get_quantizer(cfg.quantizer_b)
@@ -151,8 +168,10 @@ class CompressionTrainer(RegressionTrainer):
     def init_qparams(self):
         """Every quantiser from the (loaded) weights' ranges, the
         embedding's from frame 0's embedding; a resumed CEM run's learned
-        values replace them.  Then the optimizer over the model's and the
-        quantisers' parameters (a resumed run's state restored)."""
+        values replace them, and rank 0's model and quantiser parameters
+        are broadcast to every rank.  Then the optimizer over the model's
+        and the quantisers' parameters (a resumed run's state
+        restored)."""
         cfg = self.cfg
         params = dict(self.model.named_parameters())
         self.qparams = {}
@@ -173,6 +192,8 @@ class CompressionTrainer(RegressionTrainer):
             if (self.embed_qp is not None
                     and ck["params"].get("embed_qp") is not None):
                 restore_qp(self.embed_qp, ck["params"]["embed_qp"])
+        self.plan.replicate(list(self.model.parameters())
+                            + self.qp_tensors())
         for v in self.qp_tensors():
             v.requires_grad_(True)
 
@@ -219,10 +240,12 @@ class CompressionTrainer(RegressionTrainer):
 
     def cem_step(self, img: torch.Tensor, t: torch.Tensor, lr: float,
                  noise: Optional[Mapping] = None):
-        """One CEM step on frames ``img`` [B, H, W, 3] at indices ``t``:
-        (loss, per-frame PSNR [B], bpp), all on the device.  ``noise``:
-        flax key -> U(-1/2, 1/2) of the leaf's flax shape, and ``EMBED``
-        -> that of the embedding's codes (with ``embed_entropy``); drawn
+        """One CEM step on frames ``img`` [B, H, W, 3] at indices ``t`` (at
+        dp > 1 this rank's slice of the global batch): (loss of these
+        frames, their per-frame PSNR [B], the global batch's bpp), all on
+        the device.  ``noise``: flax key -> U(-1/2, 1/2) of the leaf's
+        flax shape, and ``EMBED`` -> that of the global batch's embedding
+        codes (with ``embed_entropy``; each rank takes its slice); drawn
         from ``noise_gen`` when None."""
         cfg = self.cfg
         draw = noise is None
@@ -241,9 +264,13 @@ class CompressionTrainer(RegressionTrainer):
                 per_channel=cfg.per_channel_e)
             bit_embed = 0.0
             if cfg.embed_entropy:
-                ne = self._uniform(code_e.shape) if draw else noise[EMBED]
-                bit_embed = (rate_bits(code_e, ne, True)["bitrate"]
-                             * n_frames / img.shape[0])
+                ne = (self._uniform((self.plan.dp * code_e.shape[0],
+                                     *code_e.shape[1:]))
+                      if draw else noise[EMBED])
+                # the global batch's estimate, before the where below
+                bit_embed = (self.embed_rate_bits(
+                    code_e, self.plan.shard_batch(ne))
+                    * n_frames / (self.plan.dp * img.shape[0]))
             args = ((dequant_e, t) if cfg.model == "HNeRV_Boost"
                     else (dequant_e,))
             out = self._call(dq, "decode", *args)
@@ -260,10 +287,28 @@ class CompressionTrainer(RegressionTrainer):
                                cfg.lambda_rate * bpp, torch.zeros_like(bpp))
         loss = out_loss + rate_pen
         loss.backward()
+        self.plan.mean_grads(list(self.model.parameters())
+                             + self.qp_tensors())
         for group in self.opt.param_groups:
             group["lr"] = lr
         self.opt.step()
         return loss.detach(), psnr_per_frame(out.detach(), img), bpp.detach()
+
+    def embed_rate_bits(self, code: torch.Tensor, noise: torch.Tensor
+                        ) -> torch.Tensor:
+        """``rate_bits(code, noise, True)["bitrate"]`` of the global
+        batch's embedding codes, of which ``code`` and ``noise`` are this
+        rank's slices: JAX's one sharded tensor, whose Gaussian takes its
+        mean and unbiased std over every frame."""
+        plan = self.plan
+        if plan.group is None:
+            return rate_bits(code, noise, True)["bitrate"]
+        n = code.numel() * plan.world
+        mean = plan.sum_with_grad(code.sum()) / n
+        std = torch.sqrt(plan.sum_with_grad(((code - mean) ** 2).sum())
+                         / (n - 1))
+        return plan.sum_with_grad(torch.sum(gaussian_bits(code + noise, mean,
+                                                          std)))
 
     def cem_step_idx(self, idx, t, lr: float,
                      noise: Optional[Mapping] = None):
@@ -298,23 +343,27 @@ class CompressionTrainer(RegressionTrainer):
                 lr = cfg.lr * lr_multiplier(
                     cfg.lr_type, progress, cur_iter=i, epochs=cfg.epochs,
                     full_data_length=self.video.n, cur_epoch=epoch)
-                loss, psnr, bpp = self.cem_step_idx(batch["idx"],
-                                                    batch["norm_idx"], lr)
+                loss, psnr, bpp = self.cem_step_idx(
+                    self.plan.shard_batch(batch["idx"]),
+                    self.plan.shard_batch(batch["norm_idx"]), lr)
                 # kept on the device: no host sync between steps
                 psnrs.append(psnr)
                 losses.append(loss)
                 bpps.append(bpp)
                 if i % cfg.print_freq == 0 or i == n_train_batches - 1:
-                    cur = float(torch.cat(psnrs).mean())
+                    cur = float(self.plan.mean(torch.cat(psnrs).mean()))
                     self.logger.print(
                         f"Epoch[{epoch + 1}/{cfg.epochs}], Step "
                         f"[{i + 1}/{n_train_batches}], lr:{lr:.2e} "
-                        f"pred_PSNR: {cur:.2f}, loss:{float(loss):.4f}, "
+                        f"pred_PSNR: {cur:.2f}, "
+                        f"loss:{float(self.plan.mean(loss)):.4f}, "
                         f"bpp:{float(bpp) / self.video.n:.6f}")
             if losses:
-                self.train_losses += torch.stack(losses).tolist()
+                self.train_losses += self.plan.mean(
+                    torch.stack(losses)).tolist()
                 self.train_bpp += torch.stack(bpps).tolist()
-                self.train_psnr.append(float(torch.cat(psnrs).mean()))
+                self.train_psnr.append(float(self.plan.mean(
+                    torch.cat(psnrs).mean())))
 
             last = cfg.epochs - epoch
             is_best = False
@@ -322,7 +371,8 @@ class CompressionTrainer(RegressionTrainer):
             if eval_last_only() and last != 1:
                 do_eval = False
             if do_eval:
-                results = self.evaluate_cem(coding=(last == 1))
+                results = self.on_main(
+                    lambda: self.evaluate_cem(coding=(last == 1)))
                 msg = f"Eval at epoch {epoch + 1}: "
                 for k in METRIC_NAMES:
                     v = results[k]
@@ -333,11 +383,13 @@ class CompressionTrainer(RegressionTrainer):
                     msg += f"{k}: {v:.4f} | "
                 self.logger.print(msg)
 
-            self.save("model_latest.ckpt", epoch + 1)
-            if is_best:
-                self.save("model_best.ckpt", epoch + 1)
-            if (epoch + 1) % cfg.epochs == 0:
-                self.save(f"epoch{epoch + 1}.ckpt", epoch + 1)
+            if self.plan.is_main:
+                self.save("model_latest.ckpt", epoch + 1)
+                if is_best:
+                    self.save("model_best.ckpt", epoch + 1)
+                if (epoch + 1) % cfg.epochs == 0:
+                    self.save(f"epoch{epoch + 1}.ckpt", epoch + 1)
+            self.plan.barrier()
 
         self.train_time = time.time() - t_start
         self.cur_epoch = cfg.epochs

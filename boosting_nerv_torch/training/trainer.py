@@ -38,8 +38,23 @@ Pillow; ``profile`` traces steps 2-6 of the first epoch with
 ``torch.profiler`` (CUDA activity on the card) into a Chrome trace under
 ``outf/profile/``; ``planar_train`` is accepted and trains on the
 standard forward, with a note: JAX's planar forward is a TPU layout of the
-same function.  Only the multi-device fields raise NotImplementedError on
-a non-default value (``check_ported``).
+same function.
+
+Data parallelism (``dp`` > 1, JAX's mesh 'data' axis, trainer.py:150-190,
+330-338, 546-552): the trainer runs in each rank of a ``parallel.MeshPlan``
+(``parallel.launch`` or torchrun start them; dp 1 builds no process group
+and runs the single-process code).  Every rank holds the whole clip, draws
+the same epoch order and trains on its ``shard_batch`` slice of each
+global batch; ``DistributedDataParallel`` averages the gradients in the
+backward pass (``micro_batch`` chunks but the last under ``no_sync``), so
+the optimizer step, the clip included, sees the gradient of the global
+batch's loss.  Rank 0 owns the logger, the CSV, ``--profile``, the
+checkpoints (the unwrapped module, as at dp 1) and the evals (JAX's eval
+is not sharded), and broadcasts the eval's metrics; the others write
+nothing and wait.  The logged loss and PSNR are means over the ranks, and
+the fps clock times the eager decode, as JAX leaves its serving decode
+when sharded.  Only ``sp`` (the 'spatial' axis) raises NotImplementedError
+on a non-default value (``check_ported``).
 """
 
 from __future__ import annotations
@@ -65,8 +80,9 @@ from ..ops.losses import loss_fn
 from ..ops.metrics import msssim_per_frame, psnr_per_frame
 from ..ops.msssim import ssim
 from ..ops.ptq import dequant_tensor, quant_tensor
+from ..parallel.mesh import MeshPlan, make_mesh_plan, rank_devices
 from ..runtime import fast_decode
-from ..utils.logger import RunLogger
+from ..utils.logger import NullLogger, RunLogger
 from .adan import Adan
 from .checkpoint import load_checkpoint, restore, save_checkpoint
 from .schedules import lr_multiplier
@@ -77,7 +93,7 @@ METRIC_NAMES = [
 ]
 
 # config fields of later slices -> the ROADMAP item that ports them
-_LATER = {"dp": "multi-device", "sp": "multi-device"}
+_LATER = {"sp": "spatial"}
 PROFILE_STEPS = (2, 7)  # profile: trace steps [2, 7) of the first epoch
 
 
@@ -194,16 +210,43 @@ def enerv_defaults(cfg: BoostConfig) -> BoostConfig:
     return cfg
 
 
+class _TrainForward(torch.nn.Module):
+    """The training forward of ``model`` by family (``forward_of``), under
+    ``torch.utils.checkpoint`` with ``remat``: the module DDP wraps, so
+    that its reducer sees the forward and the recomputation alike."""
+
+    def __init__(self, model: torch.nn.Module, forward_of, remat: bool):
+        super().__init__()
+        self.model = model
+        self.forward_of = forward_of
+        self.remat = remat
+
+    def forward(self, img: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        if self.remat:
+            return torch.utils.checkpoint.checkpoint(
+                self.forward_of, self.model, img, t, use_reentrant=False)
+        return self.forward_of(self.model, img, t)
+
+
 class RegressionTrainer:
     def __init__(self, cfg: BoostConfig, video: Optional[VideoData] = None,
                  logger: Optional[RunLogger] = None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 plan: Optional[MeshPlan] = None):
+        """``plan``: this rank's plan of the 'data' axis; by default
+        ``make_mesh_plan(cfg.dp, cfg.sp)`` on ``device`` (at dp > 1 this
+        process must be a rank of a group already)."""
         check_ported(cfg)
         cfg = enerv_defaults(cfg)
         if cfg.clip_max_norm is None:
             cfg = cfg.replace(clip_max_norm=0.0)
         self.cfg0 = cfg
-        self.device = torch.device(device)
+        self.plan = plan if plan is not None else make_mesh_plan(
+            cfg.dp, cfg.sp, rank_devices(device, cfg.dp))
+        if self.plan.dp != cfg.dp:
+            raise ValueError(f"the plan has dp {self.plan.dp}, the config "
+                             f"{cfg.dp}")
+        self.device = self.plan.device
         set_train_precision(cfg.train_precision)
         if cfg.planar_train:
             print(f"planar_train={cfg.planar_train}: the standard forward "
@@ -218,12 +261,13 @@ class RegressionTrainer:
         # (which must be in its paper config), the eager decode of the
         # others and of an index-only config with no planar tail, which
         # the serving decode refuses (the JAX trainer times its flax
-        # decode where its serving decode fails, trainer.py:545-590)
+        # decode where its serving decode fails, trainer.py:545-590, and
+        # when sharded, :550)
         self.fps_decode_path = "eager"
         if cfg.model in fast_decode.V5_MODELS:
             fast_decode.check_config(cfg)
-            if (cfg.model == "HNeRV_Boost"
-                    or fast_decode.has_planar_tail(cfg)):
+            if self.plan.dp == 1 and (cfg.model == "HNeRV_Boost"
+                                      or fast_decode.has_planar_tail(cfg)):
                 self.fps_decode_path = "serving"
         # the HNeRV families with an encoder: embeddings to quantise
         self.has_embed = cfg.is_hnerv_family and bool(cfg.enc_strds)
@@ -253,7 +297,10 @@ class RegressionTrainer:
         self._use_ms = min(h, w) >= 176
         self._ssim_win = min(11, (min(h, w) // 2) * 2 - 1)
 
-        self.logger = logger or RunLogger(cfg.outf)
+        # rank 0 owns the logs
+        self.logger = ((logger or RunLogger(cfg.outf)) if self.plan.is_main
+                       else NullLogger())
+        self._train_forward = None  # built at the first step (DDP's sync)
         self.start_epoch = max(cfg.start_epoch, 0)
 
         state = self.model.state_dict()
@@ -281,11 +328,16 @@ class RegressionTrainer:
     def forward(self, img: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """The model's output for frames ``img`` at indices ``t``, by
         family (JAX's ``_forward``): HNeRV-Boost (img, t), HNeRV img (t
-        without an encoder), the index-only families t."""
-        if self.cfg.remat:
-            return torch.utils.checkpoint.checkpoint(
-                self._forward_of, self.model, img, t, use_reentrant=False)
-        return self._forward_of(self.model, img, t)
+        without an encoder), the index-only families t; through DDP when
+        the plan has a process group (built at the first call, which
+        broadcasts rank 0's parameters)."""
+        return self._forward_module()(img, t)
+
+    def _forward_module(self) -> torch.nn.Module:
+        if self._train_forward is None:
+            self._train_forward = self.plan.ddp(_TrainForward(
+                self.model, self._forward_of, self.cfg.remat))
+        return self._train_forward
 
     def _forward_of(self, model, img: torch.Tensor, t: torch.Tensor
                     ) -> torch.Tensor:
@@ -311,16 +363,24 @@ class RegressionTrainer:
 
     def train_step(self, img: torch.Tensor, t: torch.Tensor, lr: float):
         """One optimizer step on the frames ``img`` [B, H, W, 3] at indices
-        ``t`` [B]: (loss, per-frame PSNR [B]).  The step's gradients stay
-        in the parameters' ``.grad`` until the next step (clipped when the
-        optimizer clips)."""
+        ``t`` [B] (at dp > 1 this rank's slice of the global batch): (loss,
+        per-frame PSNR [B]) of those frames.  The step's gradients (the
+        global batch's, averaged over the ranks) stay in the parameters'
+        ``.grad`` until the next step (clipped when the optimizer clips).
+        ``micro_batch`` chunks a rank's frames; the gradients of all
+        chunks but the last accumulate unsynchronised (DDP's
+        ``no_sync``), so the ranks all-reduce once a step."""
         self.opt.zero_grad(set_to_none=True)
         mb = self.cfg.micro_batch
         if mb and img.shape[0] > mb and img.shape[0] % mb == 0:
             n_chunks = img.shape[0] // mb
             losses, psnrs = [], []
-            for ci, ct in zip(img.split(mb), t.split(mb)):
-                loss, out = self._loss_backward(ci, ct)
+            fwd = self._forward_module()
+            for k, (ci, ct) in enumerate(zip(img.split(mb), t.split(mb))):
+                with (fwd.no_sync()
+                      if k < n_chunks - 1 and self.plan.group is not None
+                      else contextlib.nullcontext()):
+                    loss, out = self._loss_backward(ci, ct)
                 losses.append(loss)
                 psnrs.append(psnr_per_frame(out, ci))
             for p in self.model.parameters():
@@ -376,7 +436,8 @@ class RegressionTrainer:
             for i, batch in enumerate(batches):
                 if i > 10 and cfg.debug:
                     break
-                if cfg.profile and epoch == self.start_epoch:
+                if (cfg.profile and epoch == self.start_epoch
+                        and self.plan.is_main):
                     if i == PROFILE_STEPS[0]:
                         prof = self._start_profile()
                     elif i == PROFILE_STEPS[1] and prof is not None:
@@ -388,13 +449,14 @@ class RegressionTrainer:
                     full_data_length=self.video.n, cur_epoch=epoch)
                 with (torch.profiler.record_function(f"train_step {i}")
                       if prof is not None else contextlib.nullcontext()):
-                    loss, psnr = self.train_step_idx(batch["idx"],
-                                                     batch["norm_idx"], lr)
+                    loss, psnr = self.train_step_idx(
+                        self.plan.shard_batch(batch["idx"]),
+                        self.plan.shard_batch(batch["norm_idx"]), lr)
                 # kept on the device: no host sync between steps
                 losses.append(loss)
                 psnrs.append(psnr)
                 if i % cfg.print_freq == 0 or i == n_train_batches - 1:
-                    cur = float(torch.cat(psnrs).mean())
+                    cur = float(self.plan.mean(torch.cat(psnrs).mean()))
                     self.logger.print(
                         f"Epoch[{epoch + 1}/{cfg.epochs}], "
                         f"Step [{i + 1}/{n_train_batches}], lr:{lr:.2e} "
@@ -403,9 +465,11 @@ class RegressionTrainer:
                 self._stop_profile(prof)
                 prof = None
 
-            ep_psnr = float(torch.cat(psnrs).mean()) if psnrs else 0.0
+            ep_psnr = (float(self.plan.mean(torch.cat(psnrs).mean()))
+                       if psnrs else 0.0)
             if losses:
-                self.train_losses += torch.stack(losses).tolist()
+                self.train_losses += self.plan.mean(
+                    torch.stack(losses)).tolist()
             self.train_psnr.append(ep_psnr)
             self.logger.scalar("Train/pred_PSNR", ep_psnr, epoch + 1)
             self.logger.scalar("Train/lr", lr, epoch + 1)
@@ -415,10 +479,10 @@ class RegressionTrainer:
 
             last = cfg.epochs - epoch
             if (epoch + 1) % cfg.eval_freq == 0 or last in (1, 3, 5):
-                results = self.evaluate(
+                results = self.on_main(lambda: self.evaluate(
                     dump_vis=(cfg.dump_images or cfg.dump_videos)
                     and last == 1,
-                    huffman_coding=(last == 1))
+                    huffman_coding=(last == 1)))
                 msg = f"Eval at epoch {epoch + 1}: "
                 for k in METRIC_NAMES:
                     v = results[k]
@@ -430,14 +494,25 @@ class RegressionTrainer:
                     msg += f"{k}: {v:.4f} | "
                 self.logger.print(msg)
 
-            save_checkpoint(os.path.join(cfg.outf, "model_latest.ckpt"),
-                            epoch + 1, self.model, cfg, self.opt)
+            if self.plan.is_main:
+                save_checkpoint(os.path.join(cfg.outf, "model_latest.ckpt"),
+                                epoch + 1, self.model, cfg, self.opt)
+            self.plan.barrier()
 
         self.train_time = time.time() - t_start
         self.cur_epoch = cfg.epochs
         self.dump_csv(f"epoch{cfg.epochs}.csv")
         self.logger.print(f"Training complete in: {self.train_time:.1f}s")
         return self.best_metrics
+
+    def on_main(self, evaluate) -> Dict[str, float]:
+        """``evaluate()`` (the eight metrics) on rank 0 alone, JAX's eval
+        being unsharded; its metrics broadcast, so that every rank's
+        ``best_metrics`` agree."""
+        results = (evaluate() if self.plan.is_main
+                   else dict.fromkeys(METRIC_NAMES, 0.0))
+        return dict(zip(METRIC_NAMES, self.plan.broadcast(
+            [results[k] for k in METRIC_NAMES])))
 
     def _start_profile(self) -> torch.profiler.profile:
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -499,10 +574,10 @@ class RegressionTrainer:
         """(decode(embed, t), embed, frames a decode) of ``model`` (by
         default ``self.model``): the serving decode
         (``build_serving_decode`` on its weights), batch 1; or, for HNeRV,
-        E-NeRV and an index-only config with no planar tail, the eager
-        model's decode of batchSize frames, as JAX times its flax decode
-        (trainer.py:495-541): HNeRV's ``decode`` of the encoder's
-        embedding, the index-only forward.  The encoder is excluded; embed
+        E-NeRV, an index-only config with no planar tail and any family at
+        dp > 1, the eager model's decode of batchSize frames, as JAX times
+        its flax decode (trainer.py:495-541): the HNeRV families'
+        ``decode`` of the encoder's embedding, the index-only forward.  The encoder is excluded; embed
         is None for the index-only families."""
         cfg = self.cfg
         model = self.model if model is None else model
@@ -514,7 +589,8 @@ class RegressionTrainer:
         b = min(cfg.batchSize, self.video.n)
         if self.has_embed:
             embed = model.encode(self.gather(list(range(b))))
-            return (lambda e, t: model.decode(e)), embed, b
+            return (lambda e, t: self._decode(model, e, t.expand(b))), \
+                embed, b
         return (lambda e, t: model(t.expand(b))), None, b
 
     @torch.no_grad()

@@ -1,6 +1,7 @@
 """Run logging (port of boosting_nerv_tpu/utils/logger.py): the
 ``rank0.txt`` append-log, the ``args.yaml`` snapshot of the config, the
-CSV of results and optional TensorBoard scalars.
+CSV of results and optional TensorBoard scalars; ``NullLogger`` for the
+data-parallel ranks other than rank 0.
 
 It needs no package beyond the standard library: ``args.yaml`` is written
 as one ``key: value`` line a field, in a form ``yaml.safe_load`` reads
@@ -85,3 +86,20 @@ class RunLogger:
             w.writerow([""] + list(row))
             w.writerow([0] + list(row.values()))
         print(f"results dumped to {path}", flush=True)
+
+
+class NullLogger:
+    """The logger of a data-parallel rank other than rank 0, which owns the
+    logs: it writes nothing."""
+
+    def print(self, msg: str):
+        pass
+
+    def scalar(self, tag: str, value: float, step: int):
+        pass
+
+    def dump_config(self, cfg):
+        pass
+
+    def dump_csv(self, row: Dict, filename: str):
+        pass

@@ -218,7 +218,29 @@ Phases, one line of output each (or one line per shape):
    nerv_boost.sh (index-only, the plain eval on the split) with the same
    cuts; then the seconds of an eval of (b)'s model without and with the
    dumps, the median step ms of (b)'s model with TF32 on (the recipe's
-   "high") and off, in turns, and the phase's seconds.
+   "high") and off, in turns, and the phase's seconds;
+15. data parallelism (``boosting_nerv_torch/parallel``), run just after
+   phase 11, whose checkpoint its CEM step starts from: phase 11's model
+   at full width (fc_dim 127, TF32 off) on four synthetic 1080x1920
+   frames, global batch 2 (frames 0 and 1).  (a) dp=2: two ranks on
+   cuda:0 over gloo (NCCL refuses two ranks on one device), started by
+   ``parallel.launch`` and running ``parallel.steps``' workers: 2
+   regression steps (Fusion10_freq, Adan, lr 0.003), then 1 CEM step
+   (hnerv_boost.sh's quantisers, ``embed_entropy``, from phase 11's
+   checkpoint) fed noise drawn once on the CPU; each held to the same
+   steps at dp=1 in this process: the losses (and the CEM step's bpp)
+   within 1e-4 relative, the first step's gradients of the weights and
+   the parameters (and quantiser parameters) after it within 1e-3 of each
+   leaf's largest value, except elements whose two gradients differ in sign or lie
+   within 1e-6 of 0, where Adan's step flips or follows |g| (there within
+   2 lr), the
+   two ranks' parameters identical; (b) dp=1 through
+   DDP over NCCL at world size 1 (``make_mesh_plan(1, backend="nccl")``
+   in one launched rank): its first loss equal to the plain dp=1 step's
+   (1e-5 relative), then its median step ms beside the plain step's, in
+   turns plain, DDP, DDP, plain (3 steps a turn, CUDA events); each
+   rank's device and peak allocation, no kernel launched, and the
+   phase's seconds.
 
 The launch counts are set to 0 just before each slice's frames (the
 planar phase's stage-7 calls, the probe phase's timed run, the training
@@ -323,6 +345,18 @@ TASK_PSNR_TOL = 1e-3  # dB: the eval's unseen PSNR vs its recomputation
 DUMP_PSNR_TOL = 0.5  # dB: a dumped PNG (truncated to uint8) vs its name
 EVAL_ONLY_TOL = 0.01  # dB: --eval_only vs the last training eval
 TRACED_STEPS = 5     # --profile: steps 2-6 of the first epoch
+# phase 15, data parallelism on the one card
+DP_FRAMES = 4        # four 1080x1920 frames; the global batch is 0 and 1
+DP_IDX = [0, 1]
+DP_STEPS = 2         # regression steps of each run
+DP_TURN_STEPS = 3    # (b): timed steps a turn
+DP_TIMEOUT = 600.0   # seconds a rank waits in a collective
+# Adan's first step moves an element by lr g / (|g| + eps), eps 1e-8:
+# where the two runs' gradients differ in sign it flips, and where one
+# lies within 100 eps of 0 the step's size follows |g| by more than 1%
+# (the JAX package compares raw gradients for that reason,
+# __graft_entry__.py:186-189)
+DP_FLIP_G = 1e-6
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and
 # tensor-core operations/s of the kernels' operand types
 HBM_BYTES_S = 3.35e12
@@ -1709,6 +1743,263 @@ def run_train_phase(device_line):
     return launches
 
 
+def _worst(got, want, floor=0.0):
+    """(error, name): the largest difference between the arrays of two
+    dicts, in the leaf's largest |value| of ``want`` (at least
+    ``floor``)."""
+    return max(((float(np.abs(got[k].astype(np.float64) - want[k]).max())
+                 / max(float(np.abs(want[k]).max()), floor, 1e-30)), k)
+               for k in want)
+
+
+def _worst_grad(got, want):
+    """``_worst`` of two steps' gradients, a leaf's scale at least 1e-6 of
+    the step's largest gradient (a leaf whose gradient is ~0, as the
+    scalebeta quantiser's beta, has no scale of its own; the rule of
+    tests/test_torch_compress_trainer.py)."""
+    return _worst(got, want, 1e-6 * max(float(np.abs(v).max())
+                                        for v in want.values()))
+
+
+def _beyond_flips(got, want, grads_got, grads_want, lr):
+    """The parameters ``got`` against ``want`` after ``len(grads_want)``
+    Adan steps, each step's gradients of the two runs ``grads_got`` /
+    ``grads_want``: (the largest error of an element no step could flip,
+    in its leaf's max |value|, that leaf, the elements beyond
+    STEP_GRAD_TOL that a step could flip, whether each of those lies
+    within a flipped step a step, 2 lr)."""
+    worst, at, flipped, ok = 0.0, None, 0, True
+    for k, w in want.items():
+        err = np.abs(got[k].astype(np.float64) - w)
+        scale = max(float(np.abs(w).max()), 1e-30)
+        flippable = np.zeros(w.shape, bool)
+        for ga, gb in zip(grads_got, grads_want):
+            if k in gb:
+                flippable |= ((np.sign(ga[k]) != np.sign(gb[k]))
+                              | (np.minimum(np.abs(ga[k]), np.abs(gb[k]))
+                                 <= DP_FLIP_G))
+        beyond = flippable & (err > STEP_GRAD_TOL * scale)
+        flipped += int(beyond.sum())
+        ok = ok and bool((err[beyond]
+                          <= 2 * lr * len(grads_want) * (1 + 1e-3)).all())
+        if (~flippable).any() and err[~flippable].max() / scale > worst:
+            worst, at = float(err[~flippable].max()) / scale, k
+    return worst, at, flipped, ok
+
+
+def dp_rank_turns(plan, cfg, frames, steps):
+    """Phase 15 (b) in the one rank of a world-size-1 group: the
+    regression step through DDP (``plan``) and the plain dp=1 step (no
+    group) from the same seeded weights; (first losses, median ms of each
+    side in turns plain, DDP, DDP, plain, the rank's device and peak)."""
+    from boosting_nerv_torch.data import VideoData
+    from boosting_nerv_torch.parallel import make_mesh_plan
+    from boosting_nerv_torch.training.trainer import RegressionTrainer
+    from boosting_nerv_torch.utils.logger import NullLogger
+
+    video = VideoData(frames)
+    plain = make_mesh_plan(1, devices=[plan.device])
+    trainers = {side: RegressionTrainer(cfg, video=video, plan=p,
+                                        logger=NullLogger())
+                for side, p in (("plain", plain), ("ddp", plan))}
+    first = {side: float(t.train_step_idx([0], video.norm_idx([0]),
+                                          TRAIN_LR)[0])
+             for side, t in trainers.items()}
+    ms, peak = {"plain": [], "ddp": []}, 0
+    for side in ("plain", "ddp", "ddp", "plain"):
+        ms[side].append(_step_ms_and_peak(trainers[side], steps)[0])
+        peak = max(peak, torch.cuda.max_memory_allocated(plan.device))
+    return {"first": first, "ms": ms, "device": str(plan.device),
+            "backend": plan.backend, "group": plan.group is not None,
+            "peak_bytes": peak}
+
+
+def run_dp_phase(device_line):
+    """Phase 15: the 'data' axis on the one card; returns the launch
+    counts of this process's runs (none: the steps are plain torch)."""
+    from boosting_nerv_torch.data import VideoData, synthetic_video
+    from boosting_nerv_torch.ops import kernels
+    from boosting_nerv_torch.parallel import launch
+    from boosting_nerv_torch.parallel.steps import cem_steps, train_steps
+    from boosting_nerv_torch.training.compress_trainer import (
+        EMBED, CompressionTrainer)
+    from boosting_nerv_torch.utils.logger import NullLogger
+
+    t_phase = time.perf_counter()
+    root = os.path.join(REPO, "output", "chip_smoke_dp")  # gitignored
+    shutil.rmtree(root, ignore_errors=True)
+    frames = synthetic_video(DP_FRAMES, 1080, 1920, seed=0)
+    gib = 2 ** 30
+    kernels.reset_launch_counts()
+    try:
+        # (a) regression: dp=1 here, then two ranks on cuda:0 over gloo
+        cfg = train_config(os.path.join(root, "train"), batchSize=2)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        one = launch(train_steps, dict(dp=1, devices=["cuda:0"]),
+                     args=(cfg, frames, None, DP_IDX, TRAIN_LR, DP_STEPS))[0]
+        one_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        two = launch(train_steps, dict(dp=2, devices=["cuda:0"] * 2),
+                     args=(cfg.replace(dp=2), frames, None, DP_IDX,
+                           TRAIN_LR, DP_STEPS), timeout=DP_TIMEOUT)
+        two_s = time.perf_counter() - t0
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(two[0]["losses"], one["losses"]))
+        # the first step's raw gradients, from the same weights, and the
+        # parameters it gives; the second step's loss carries that update
+        # through the whole model (tests/test_sharding.py:248-255)
+        grad, grad_at = _worst_grad(two[0]["grads"][0], one["grads"][0])
+        param, param_at, flipped, flips_ok = _beyond_flips(
+            two[0]["states"][0], one["states"][0], two[0]["grads"][:1],
+            one["grads"][:1], TRAIN_LR)
+        last, last_at = _worst(two[0]["states"][-1], one["states"][-1])
+        same = all(np.array_equal(two[1]["states"][-1][k], v)
+                   for k, v in two[0]["states"][-1].items())
+        print(f"dp (a) {DP_STEPS} regression steps at UVG-1080p (bench "
+              f"widths, global batch 2, Fusion10_freq, Adan, TF32 off): "
+              f"dp=2 (2 ranks on cuda:0, gloo) losses "
+              f"{[round(v, 7) for v in two[0]['losses']]} vs dp=1 "
+              f"{[round(v, 7) for v in one['losses']]}: rel err {rel:.3g} "
+              f"(tol {STEP_LOSS_RTOL}); first step's gradients {grad:.3g} "
+              f"of the leaf's max ({grad_at}; tol {STEP_GRAD_TOL}); "
+              f"parameters after it {param:.3g} ({param_at}; tol "
+              f"{STEP_GRAD_TOL}) where the step could not flip, {flipped} "
+              f"elements beyond it whose gradients differ in sign or lie "
+              f"within {DP_FLIP_G} of 0, within a flipped step each: "
+              f"{flips_ok}; after {DP_STEPS} steps {last:.3g} ({last_at}; "
+              f"not gated); ranks' parameters identical: {same}; step ms "
+              f"(host clock to the loss read back) dp=2 "
+              f"{[round(v, 2) for v in two[0]['ms']]}, dp=1 (batch 2) "
+              f"{[round(v, 2) for v in one['ms']]}; {two_s:.1f} s with the "
+              f"ranks' start against {one_s:.1f} s [{device_line}]",
+              flush=True)
+        for r in [one] + two:
+            print(f"dp (a) rank {r['rank']} of {'1' if r is one else '2'}: "
+                  f"{r['device']}, peak allocation "
+                  f"{r['peak_bytes'] / gib:.3f} GiB", flush=True)
+        if not (rel <= STEP_LOSS_RTOL and grad <= STEP_GRAD_TOL
+                and param <= STEP_GRAD_TOL and flips_ok and same
+                and all(r["device"] == "cuda:0" for r in two)):
+            raise SmokeFailure(f"(a) dp=2 regression: loss rel {rel}, "
+                               f"gradient {grad} at {grad_at}, parameter "
+                               f"{param} at {param_at}, flips within a step "
+                               f"{flips_ok}, ranks equal {same}")
+
+        # (a) one CEM step from phase 11's checkpoint, the same noise
+        ccfg = cem_config("HNeRV_Boost", os.path.join(root, "cem"),
+                          batchSize=2)
+        tr = CompressionTrainer(ccfg, video=VideoData(frames),
+                                logger=NullLogger(), device="cuda")
+        tr.maybe_resume()
+        tr.init_qparams()
+        gen = torch.Generator().manual_seed(5)
+        noise = {k: torch.rand(s, generator=gen) - 0.5
+                 for k, s in tr.flax_shapes.items()}
+        with torch.no_grad():
+            shape = tr.model.encode(tr.gather(DP_IDX)).shape
+        noise[EMBED] = torch.rand(shape, generator=gen) - 0.5
+        loss1, _, bpp1 = tr.cem_step_idx(
+            DP_IDX, tr.video.norm_idx(DP_IDX), CEM_LR,
+            {k: v.cuda() for k, v in noise.items()})
+        loss1, bpp1 = float(loss1), float(bpp1)
+        state1 = {k: v.detach().cpu().numpy()
+                  for k, v in tr.model.state_dict().items()}
+        qp_of = {f"{k}/{n}": v for k, d in tr.qparams.items()
+                 for n, v in d.items()}
+        qp_of.update({f"embed/{n}": v for n, v in tr.embed_qp.items()})
+        qp1 = {k: v.detach().cpu().numpy() for k, v in qp_of.items()}
+        grads1 = {k: v.grad.cpu().numpy() for k, v in
+                  list(tr.model.named_parameters()) + list(qp_of.items())
+                  if v.grad is not None}
+        del tr
+        torch.cuda.empty_cache()
+        cem = launch(cem_steps, dict(dp=2, devices=["cuda:0"] * 2),
+                     args=(ccfg.replace(dp=2), frames, None, DP_IDX, CEM_LR,
+                           {k: v.numpy() for k, v in noise.items()}),
+                     timeout=DP_TIMEOUT)
+        c = cem[0]
+        qp2 = {f"{k}/{n}": v for k, d in c["qp"].items()
+               for n, v in d.items()}
+        qp2.update({f"embed/{n}": v for n, v in c["embed_qp"].items()})
+        grads2 = {f"{k}/{n}": v for k, d in c["qp_grads"].items()
+                  for n, v in d.items()}
+        grads2.update({f"embed/{n}": v
+                       for n, v in c["embed_qp_grads"].items()})
+        grads2.update(c["grads"][0])
+        rel_l = abs(c["losses"][0] - loss1) / abs(loss1)
+        rel_b = abs(c["bpps"][0] - bpp1) / abs(bpp1)
+        # the weights' gradients; a quantiser parameter is a scalar whose
+        # gradient sums cancelling terms, held by the parameter check
+        grad, grad_at = _worst_grad(c["grads"][0], {k: grads1[k]
+                                                    for k in c["grads"][0]})
+        qgrad, qgrad_at = _worst_grad(
+            {k: v for k, v in grads2.items() if k not in c["grads"][0]},
+            {k: v for k, v in grads1.items() if k not in c["grads"][0]})
+        param, param_at, flipped, flips_ok = _beyond_flips(
+            {**c["states"][0], **qp2}, {**state1, **qp1}, [grads2],
+            [grads1],
+            CEM_LR)
+        same = all(np.array_equal(cem[1]["states"][0][k], v)
+                   for k, v in c["states"][0].items())
+        print(f"dp (a) CEM step (hnerv_boost.sh, embed_entropy, phase 11's "
+              f"weights, fed noise): dp=2 loss {c['losses'][0]:.7g} bpp "
+              f"{c['bpps'][0]:.7g} vs dp=1 {loss1:.7g} / {bpp1:.7g}: rel "
+              f"err {rel_l:.3g} / {rel_b:.3g} (tol {CEM_STEP_RTOL}); "
+              f"weights' gradients {grad:.3g} of the leaf's max ({grad_at}"
+              f"; tol {STEP_GRAD_TOL}), quantisers' {qgrad:.3g} "
+              f"({qgrad_at}; not gated); "
+              f"parameters and quantiser parameters {param:.3g} ({param_at}"
+              f"; tol {STEP_GRAD_TOL}) where the step could not flip, "
+              f"{flipped} elements beyond it within a flipped step each: "
+              f"{flips_ok}; ranks' parameters identical: {same}; step ms "
+              f"{round(c['ms'][0], 2)}; peak allocation "
+              f"{[round(r['peak_bytes'] / gib, 3) for r in cem]} GiB "
+              f"[{device_line}]", flush=True)
+        if not (rel_l <= CEM_STEP_RTOL and rel_b <= CEM_STEP_RTOL
+                and grad <= STEP_GRAD_TOL and param <= STEP_GRAD_TOL
+                and flips_ok and same):
+            raise SmokeFailure(f"(a) dp=2 CEM step: loss rel {rel_l}, bpp "
+                               f"rel {rel_b}, gradient {grad} at {grad_at}, "
+                               f"parameter {param} at {param_at}, flips "
+                               f"within a step {flips_ok}, ranks equal "
+                               f"{same}")
+
+        # (b) DDP over NCCL at world size 1 beside the plain step
+        torch.cuda.empty_cache()
+        b = launch(dp_rank_turns, dict(dp=1, devices=["cuda:0"],
+                                       backend="nccl"),
+                   args=(train_config(os.path.join(root, "turns")), frames,
+                         DP_TURN_STEPS), timeout=DP_TIMEOUT)[0]
+        first = b["first"]
+        rel = abs(first["ddp"] - first["plain"]) / abs(first["plain"])
+        plain_ms = statistics.median(b["ms"]["plain"])
+        ddp_ms = statistics.median(b["ms"]["ddp"])
+        print(f"dp (b) DDP over {b['backend']} at world size 1 "
+              f"({b['device']}, group {b['group']}): first loss "
+              f"{first['ddp']:.7g} vs plain {first['plain']:.7g} (rel err "
+              f"{rel:.3g}, tol {FIRST_LOSS_RTOL}); step ms in turns plain "
+              f"{[round(v, 2) for v in b['ms']['plain']]}, DDP "
+              f"{[round(v, 2) for v in b['ms']['ddp']]} (median of "
+              f"{DP_TURN_STEPS} each): DDP {ddp_ms:.2f} vs plain "
+              f"{plain_ms:.2f} ms ({ddp_ms / plain_ms:.4f}x); peak "
+              f"allocation {b['peak_bytes'] / gib:.3f} GiB [{device_line}]",
+              flush=True)
+        if not (b["backend"] == "nccl" and b["group"]
+                and rel <= FIRST_LOSS_RTOL):
+            raise SmokeFailure(f"(b) DDP over NCCL: {b['backend']}, group "
+                               f"{b['group']}, first loss rel {rel}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(kernels.LAUNCHES)
+    if any(launches.values()):
+        raise SmokeFailure(f"dp phase launched kernels {launches}")
+    print(f"dp phase: {time.perf_counter() - t_phase:.1f} s, no kernel "
+          f"launched [{device_line}]", flush=True)
+    return launches
+
+
 def family_config(model, size=None):
     """scripts/regression/UVG/{nerv_boost,enerv_boost}.sh at ``size``, by
     default the paper's 10M (modelsize 5.2 / 4.3), sized for a 120-frame
@@ -2688,6 +2979,7 @@ def main() -> int:
     probe_launches, probe_entries = run_probe_phase(device_line)
     runs.append(probe_launches)
     runs.append(run_train_phase(device_line))
+    runs.append(run_dp_phase(device_line))  # needs phase 11's checkpoint
     runs.append(run_families_phase(summary, device_line))
     runs.append(run_cem_phase(device_line))
     runs.append(run_tasks_phase(device_line))

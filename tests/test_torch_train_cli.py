@@ -1,7 +1,7 @@
 """The port's CLI, ``python -m boosting_nerv_torch.train_nerv_all``: the
-JAX CLI's flags with the same defaults, plus ``--device``; the
-multi-device flags raise naming their ROADMAP item, the task flags are
-accepted; a tiny run on a directory of PNG frames on the CPU."""
+JAX CLI's flags with the same defaults, plus ``--device``; ``--sp``
+above 1 raises naming its ROADMAP item, the task flags are accepted; a
+tiny run on a directory of PNG frames on the CPU."""
 
 import os
 
@@ -39,8 +39,9 @@ def test_every_jax_flag_exists_with_its_default():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-d"], "multi-device"),
-    (["--sp", "2"], "multi-device"),
+    # -d and --dp are ported (tests/test_torch_parallel_cli.py)
+    (["-d", "--sp", "2"], "spatial"),
+    (["--sp", "2"], "spatial"),
 ])
 def test_not_ported_flags_raise(tmp_path, monkeypatch, flags, item):
     monkeypatch.chdir(tmp_path)

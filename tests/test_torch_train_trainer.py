@@ -166,8 +166,9 @@ def test_evaluate_matches_jax(ref, tmp_path):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("dp", 2, "multi-device"),
-    ("sp", 2, "multi-device"),
+    # dp is ported (tests/test_torch_parallel_*.py); sp raises at any size
+    ("sp", 2, "spatial"),
+    ("sp", 4, "spatial"),
 ])
 def test_later_slices_raise_naming_their_roadmap_item(field, value, item):
     cfg = port_config.BoostConfig(**{field: value})
