@@ -10,6 +10,19 @@ a transposed conv's fan_in is its input channels times its taps, as
 there); ConvNeXt layers use trunc_normal(0.02) and zero biases.
 ``init_weights`` draws all of them from one explicit ``torch.Generator``.
 
+Split forms (the mesh's 'spatial' axis, ``parallel/spatial.py``): a block
+that a row-split map runs through has one body, ``forward_rows(x, split,
+rows, ...)``, taking whether ``x`` is split and returning (the result,
+whether it is split); ``rows`` (a ``parallel.spatial.Rows``) does the
+halos and moves maps between whole and split by its plan.  The stride-1
+convs receive their halo; PixelShuffle, SFT, LayerNorm over the channels
+and the activations are local; 'in' / 'bn' sum their moments over the
+ranks; ConvNeXt's patchify convs run local where the stride divides a
+shard's rows; every other layer runs on the gathered map.  ``forward`` is
+``forward_rows`` under ``WHOLE`` (sp 1, no groups), where each of those
+steps is the plain layer: the unsplit forward, with the same modules and
+parameters.
+
 Where a block rearranges channels its torch channel order is torch's own:
 ``UpConv``'s PixelShuffle and ``DownConv``'s PixelUnshuffle pack the
 r x r block positions inside each channel, (c, r1, r2), where the JAX
@@ -27,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.activations import get_activation
+from ..parallel.spatial import WHOLE
 
 
 class TConv(nn.Conv2d):
@@ -125,12 +139,20 @@ class UpConv(nn.Module):
             raise KeyError(f"unknown upconv type {conv_type}")
 
     def forward(self, x):
+        return self.forward_rows(x, False, WHOLE)[0]
+
+    def forward_rows(self, x, split: bool, rows):
+        if self.conv_type in ("conv", "interpolate"):
+            return rows.whole(self._resample, x, split, "upconv")
+        x, split = rows.conv(self.conv, x, split, "upconv")
+        return rows.pixel_shuffle(x, self.strd, split, "upconv")
+
+    def _resample(self, x):
+        """The transposed conv, or the bilinear upsampling and its conv."""
         if self.conv_type == "conv":
             return self.conv(x)
-        if self.conv_type == "interpolate":
-            return self.conv(resize_bilinear(x, x.shape[2] * self.strd,
-                                             x.shape[3] * self.strd))
-        return F.pixel_shuffle(self.conv(x), self.strd)
+        return self.conv(resize_bilinear(x, x.shape[2] * self.strd,
+                                         x.shape[3] * self.strd))
 
 
 class DownConv(nn.Module):
@@ -158,6 +180,18 @@ class DownConv(nn.Module):
             raise KeyError(f"unknown downconv type {conv_type}")
 
     def forward(self, x):
+        return self.forward_rows(x, False, WHOLE)[0]
+
+    def forward_rows(self, x, split: bool, rows):
+        """"conv" by ``Rows.conv`` (HNeRV-Boost's 1x1 stem split, a
+        strided one gathered); the others on the gathered map."""
+        if self.conv_type == "conv":
+            return rows.conv(self.conv, x, split, "downconv")
+        return rows.whole(self._resample, x, split, "downconv")
+
+    def _resample(self, x):
+        """PixelUnshuffle or the antialiased downsampling, then the
+        conv."""
         if self.conv_type == "pshuffel" and self.strd != 1:
             x = F.pixel_unshuffle(x, self.strd)
         elif self.conv_type == "interpolate":
@@ -166,14 +200,20 @@ class DownConv(nn.Module):
         return self.conv(x)
 
 
-def norm_layer(norm: str, x: torch.Tensor) -> torch.Tensor:
+def norm_layer(norm: str, x: torch.Tensor, rows=WHOLE,
+               split: bool = False) -> torch.Tensor:
     """none | in (InstanceNorm, no affine) | bn (batch-statistics norm, no
     running statistics, as the JAX package's) of NCHW x; biased variance,
-    (x - mean) * rsqrt(var + 1e-5)."""
+    (x - mean) * rsqrt(var + 1e-5).  The moments are the whole map's and,
+    for bn, the global batch's: ``rows`` sums them over its ranks
+    (``Rows.normalize``) where ``x`` does not hold them all."""
     if norm == "none":
         return x
     if norm not in ("in", "bn"):
         raise NotImplementedError(norm)
+    y = rows.normalize(norm, x, split)
+    if y is not None:
+        return y
     dims = (2, 3) if norm == "in" else (0, 2, 3)
     mean = x.mean(dim=dims, keepdim=True)
     var = x.var(dim=dims, keepdim=True, unbiased=False)
@@ -219,9 +259,14 @@ class ResBlockSFT(nn.Module):
         self.conv1 = TConv(ch, ch, 3, 1, 1)
 
     def forward(self, x, cond):
-        fea = self.act(self.conv0(self.sft0(x, cond)))
-        fea = self.conv1(self.sft1(fea, cond))
-        return x + fea
+        return self.forward_rows(x, False, WHOLE, cond)[0]
+
+    def forward_rows(self, x, split: bool, rows, cond):
+        # a map's state is its height's, which the stride-1 convs keep
+        fea, _ = rows.conv(self.conv0, self.sft0(x, cond), split, "rsft")
+        fea, _ = rows.conv(self.conv1, self.sft1(self.act(fea), cond), split,
+                           "rsft")
+        return x + fea, split
 
 
 class NeRVBlock(nn.Module):
@@ -248,15 +293,23 @@ class NeRVBlock(nn.Module):
         self.rsft = ResBlockSFT(cond_ch, ch) if cond_ch else None
 
     def forward(self, x, t_embed=None):
-        y = self.act(norm_layer(self.norm, self.conv(x)))
+        return self.forward_rows(x, False, WHOLE, t_embed)[0]
+
+    def _fc_block(self, y):
+        """Channel (i fc_w + j) c' + k -> pixel (i, j), k."""
+        fh, fw = self.fc_hw
+        b, c, h, w = y.shape
+        return y.reshape(b, fh, fw, c // (fh * fw), h, w).permute(
+            0, 3, 4, 1, 5, 2).reshape(b, c // (fh * fw), h * fh, w * fw)
+
+    def forward_rows(self, x, split: bool, rows, t_embed=None):
+        y, split = self.conv.forward_rows(x, split, rows)
+        y = self.act(norm_layer(self.norm, y, rows, split))
         if self.rsft is None or t_embed is None:
-            return y
-        if self.fc_hw:  # channel (i fc_w + j) c' + k -> pixel (i, j), k
-            fh, fw = self.fc_hw
-            b, c, h, w = y.shape
-            y = y.reshape(b, fh, fw, c // (fh * fw), h, w).permute(
-                0, 3, 4, 1, 5, 2).reshape(b, c // (fh * fw), h * fh, w * fw)
-        return self.rsft(y, t_embed)
+            return y, split
+        if self.fc_hw:
+            y, split = rows.whole(self._fc_block, y, split, "fc_hw")
+        return self.rsft.forward_rows(y, split, rows, t_embed)
 
 
 class ConvUpBlock(nn.Module):
@@ -281,12 +334,19 @@ class ConvUpBlock(nn.Module):
         self.rsft = ResBlockSFT(cond_ch, new_ngf) if cond_ch else None
 
     def forward(self, x, t_embed=None):
-        x = (self.conv(self.upconv(x)) if self.up_first
-             else self.upconv(self.conv(x)))
-        x = self.act(norm_layer(self.norm, x))
+        return self.forward_rows(x, False, WHOLE, t_embed)[0]
+
+    def forward_rows(self, x, split: bool, rows, t_embed=None):
+        if self.up_first:
+            x, split = self.upconv.forward_rows(x, split, rows)
+            x, split = rows.conv(self.conv, x, split, "convup")
+        else:
+            x, split = rows.conv(self.conv, x, split, "convup")
+            x, split = self.upconv.forward_rows(x, split, rows)
+        x = self.act(norm_layer(self.norm, x, rows, split))
         if self.rsft is not None and t_embed is not None:
-            x = self.rsft(x, t_embed)
-        return x
+            x, split = self.rsft.forward_rows(x, split, rows, t_embed)
+        return x, split
 
 
 def _layer_norm_channels(norm: nn.LayerNorm, x):
@@ -308,11 +368,15 @@ class ConvNeXtBlock(nn.Module):
                       if layer_scale_init_value > 0 else None)
 
     def forward(self, x):
-        y = self.norm(self.dwconv(x).permute(0, 2, 3, 1))
+        return self.forward_rows(x, False, WHOLE)[0]
+
+    def forward_rows(self, x, split: bool, rows):
+        y, _ = rows.conv(self.dwconv, x, split, "convnext")
+        y = self.norm(y.permute(0, 2, 3, 1))
         y = self.fc2(F.gelu(self.fc1(y)))
         if self.gamma is not None:
             y = self.gamma * y
-        return x + y.permute(0, 3, 1, 2)
+        return x + y.permute(0, 3, 1, 2), split
 
 
 class ConvNeXtEncoder(nn.Module):
@@ -336,15 +400,21 @@ class ConvNeXtEncoder(nn.Module):
                                     for _ in range(stage_blocks))
 
     def forward(self, x):
+        return self.forward_rows(x, False, WHOLE)[0]
+
+    def forward_rows(self, x, split: bool, rows):
         for i in range(len(self.strds)):
             if i == 0:
-                x = _layer_norm_channels(self.norms[i], self.convs[i](x))
+                x, split = rows.patchify(self.convs[i], x, split, "encoder")
+                x = _layer_norm_channels(self.norms[i], x)
             else:
-                x = self.convs[i](_layer_norm_channels(self.norms[i], x))
+                x, split = rows.patchify(
+                    self.convs[i], _layer_norm_channels(self.norms[i], x),
+                    split, "encoder")
             for blk in self.blocks[i * self.stage_blocks:
                                    (i + 1) * self.stage_blocks]:
-                x = blk(x)
-        return x
+                x, split = blk.forward_rows(x, split, rows)
+        return x, split
 
 
 def _trunc_normal_(t: torch.Tensor, std: float, g: torch.Generator):

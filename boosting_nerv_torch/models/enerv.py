@@ -16,7 +16,10 @@ decoder.
 - ``ENeRVBoost``: every block (stage 0 a ConvUpBlock) modulated through
   its ResBlockSFT by t_branch(PE(t)).
 
-t [B] -> frame [B, H, W, 3]; inside, the conv blocks run NCHW.
+t [B] -> frame [B, H, W, 3]; inside, the conv blocks run NCHW.  With
+``rows`` (the mesh's 'spatial' axis) the conv decoder runs split by rows
+after the whole trunk, and the frame leaves whole on every rank; without it
+the same body runs unsplit.
 """
 
 from __future__ import annotations
@@ -29,9 +32,10 @@ import torch.nn as nn
 
 from ..config import BoostConfig, model_stage_plan
 from ..ops.activations import get_activation
-from ..ops.losses import out_img
 from ..ops.pe import PEConfig, position_encoding
-from .blocks import MLP, ConvUpBlock, NeRVBlock, TConv, TDense
+from ..parallel.spatial import WHOLE
+from .blocks import MLP, ConvUpBlock, NeRVBlock, TConv, TDense, norm_layer
+from .hnerv import _decode_rows
 
 
 class Attention(nn.Module):
@@ -148,16 +152,18 @@ class ENeRV(nn.Module):
                                       for s in plan)
         self.head = TConv(plan[-1].new_ngf, 3, 1, 1, 0)
 
-    def forward(self, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, t: torch.Tensor, rows=None) -> torch.Tensor:
         x, pe_t = self.trunk(t)
         t_manip = self.t_branch(pe_t)
+        rows = WHOLE if rows is None else rows
+        x, split = rows.settle(x, False, "grid")
         for blk, t_layer in zip(self.blocks, self.t_layers):
-            mean = x.mean(dim=(2, 3), keepdim=True)
-            var = x.var(dim=(2, 3), keepdim=True, unbiased=False)
-            x = (x - mean) * torch.rsqrt(var + 1e-5)
+            x = norm_layer("in", x, rows, split)
             gamma, beta = t_layer(t_manip).chunk(2, dim=-1)
-            x = blk(x * gamma[:, :, None, None] + beta[:, :, None, None])
-        return out_img(self.head(x), self.cfg.out_bias).permute(0, 2, 3, 1)
+            x, split = blk.forward_rows(
+                x * gamma[:, :, None, None] + beta[:, :, None, None],
+                split, rows)
+        return _decode_rows([], self.head, self.cfg, x, split, rows)
 
 
 class ENeRVBoost(nn.Module):
@@ -172,9 +178,10 @@ class ENeRVBoost(nn.Module):
         self.blocks = _blocks(cfg, plan, cond)
         self.head = TConv(plan[-1].new_ngf, 3, 1, 1, 0)
 
-    def forward(self, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, t: torch.Tensor, rows=None) -> torch.Tensor:
         x, pe_t = self.trunk(t)
         t_manip = self.t_branch(pe_t)
-        for blk in self.blocks:
-            x = blk(x, t_manip)
-        return out_img(self.head(x), self.cfg.out_bias).permute(0, 2, 3, 1)
+        rows = WHOLE if rows is None else rows
+        x, split = rows.settle(x, False, "grid")
+        return _decode_rows(self.blocks, self.head, self.cfg, x, split, rows,
+                            t_manip)

@@ -13,6 +13,13 @@ rearranged into an fc_h x fc_w pixel block; plain NeRV blocks; a 3x3 head.
 
 Public tensors keep the JAX layout: frame [B, H, W, 3], embedding
 [B, h, w, C], t [B].  Inside, the modules run NCHW.
+
+With ``rows`` (a ``parallel.spatial.Rows``: the mesh's 'spatial' axis)
+``encode``, ``decode`` and ``forward`` run split by rows: the frame enters
+whole and the rank takes its rows, the maps are split or whole by the
+plan, and the embedding and the output frame leave whole on every rank
+(``Rows.collect``).  Without it they run the same body under
+``WHOLE``, which is the unsplit forward.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch.nn as nn
 from ..config import BoostConfig, model_stage_plan
 from ..ops.losses import out_img
 from ..ops.pe import PEConfig, position_encoding
+from ..parallel.spatial import WHOLE
 from .blocks import MLP, ConvNeXtEncoder, NeRVBlock, TConv
 
 
@@ -55,26 +63,55 @@ class HNeRVBoost(nn.Module):
             for s in plan)
         self.head = TConv(plan[-1].new_ngf, 3, 3, 1, 1)
 
-    def encode(self, img: torch.Tensor) -> torch.Tensor:
+    def encode(self, img: torch.Tensor, rows=None) -> torch.Tensor:
         """[B, H, W, 3] frame -> [B, h, w, embed_dim] content embedding."""
-        return self.encoder(img.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return _encode_rows(self.encoder, img, rows)
 
     def time_embed(self, t: torch.Tensor) -> torch.Tensor:
         """[B] normalised frame index -> [B, ch_t] stem_t(PE(t))."""
         pe = position_encoding(t, self.pe).to(self.head.weight.dtype)
         return self.stem_t(pe)
 
-    def decode(self, embed: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def decode(self, embed: torch.Tensor, t: torch.Tensor, rows=None
+               ) -> torch.Tensor:
         """Embedding [B, h, w, C] + index [B] -> [B, H, W, 3] frame: the
         decode path the fps clock times (encoder excluded)."""
         t_embed = self.time_embed(t)
-        x = self.stem(embed.permute(0, 3, 1, 2), t_embed)
-        for blk in self.blocks:
-            x = blk(x, t_embed)
-        return out_img(self.head(x), self.cfg.out_bias).permute(0, 2, 3, 1)
+        rows = WHOLE if rows is None else rows
+        x, split = rows.settle(embed.permute(0, 3, 1, 2), False, "embedding")
+        x, split = self.stem.forward_rows(x, split, rows, t_embed)
+        return _decode_rows(self.blocks, self.head, self.cfg, x, split, rows,
+                            t_embed)
 
-    def forward(self, img: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        return self.decode(self.encode(img), t)
+    def forward(self, img: torch.Tensor, t: torch.Tensor, rows=None
+                ) -> torch.Tensor:
+        return self.decode(self.encode(img, rows), t, rows)
+
+
+def _encode_rows(encoder: nn.Module, img: torch.Tensor, rows
+                 ) -> torch.Tensor:
+    """``encoder`` (ConvNeXt, or a NeRVBlock list) of the frame ``img``
+    split by rows (``rows`` None: whole); the embedding whole on every
+    rank, NHWC."""
+    rows = WHOLE if rows is None else rows
+    x, split = rows.settle(img.permute(0, 3, 1, 2), False, "frame")
+    if isinstance(encoder, nn.ModuleList):
+        for blk in encoder:
+            x, split = blk.forward_rows(x, split, rows)
+    else:
+        x, split = encoder.forward_rows(x, split, rows)
+    return rows.collect(x, split, "embedding").permute(0, 2, 3, 1)
+
+
+def _decode_rows(blocks, head, cfg, x, split, rows, t_embed=None
+                 ) -> torch.Tensor:
+    """The decoder's blocks, head and OutImg split by rows from NCHW
+    ``x``; the frame whole on every rank, NHWC."""
+    for blk in blocks:
+        x, split = blk.forward_rows(x, split, rows, t_embed)
+    x, split = rows.conv(head, x, split, "head")
+    return rows.collect(out_img(x, cfg.out_bias), split,
+                        "frame").permute(0, 2, 3, 1)
 
 
 def decoder_only_params(state: Dict[str, torch.Tensor]
@@ -121,31 +158,29 @@ class HNeRV(nn.Module):
             for s in plan)
         self.head = TConv(plan[-1].new_ngf, 3, 3, 1, 1)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
+    def encode(self, x: torch.Tensor, rows=None) -> torch.Tensor:
         """Frame [B, H, W, 3] -> embedding [B, h, w, C]; or, encoder-less,
         the normalised index [B] -> its PE as [B, 1, 1, 2L]."""
         if self.encoder is None:
             pe = position_encoding(x, self.pe).to(self.head.weight.dtype)
             return pe[:, None, None, :]
-        x = x.permute(0, 3, 1, 2)
-        if isinstance(self.encoder, nn.ModuleList):
-            for blk in self.encoder:
-                x = blk(x)
-        else:
-            x = self.encoder(x)
-        return x.permute(0, 2, 3, 1)
+        return _encode_rows(self.encoder, x, rows)
 
-    def decode(self, embed: torch.Tensor) -> torch.Tensor:
+    def decode(self, embed: torch.Tensor, rows=None) -> torch.Tensor:
         """Embedding [B, h, w, C] -> frame [B, H, W, 3]."""
-        x = self.stem(embed.permute(0, 3, 1, 2))
-        fh, fw = self.fc_h, self.fc_w
-        if fh * fw > 1:  # channel c' fh fw + i fw + j -> pixel (i, j), c'
-            b, c, h, w = x.shape
-            x = x.reshape(b, c // (fh * fw), fh, fw, h, w).permute(
-                0, 1, 4, 2, 5, 3).reshape(b, c // (fh * fw), h * fh, w * fw)
-        for blk in self.blocks:
-            x = blk(x)
-        return out_img(self.head(x), self.cfg.out_bias).permute(0, 2, 3, 1)
+        rows = WHOLE if rows is None else rows
+        x, split = rows.settle(embed.permute(0, 3, 1, 2), False, "embedding")
+        x, split = self.stem.forward_rows(x, split, rows)
+        if self.fc_h * self.fc_w > 1:
+            x, split = rows.whole(self._fc_block, x, split, "fc_hw")
+        return _decode_rows(self.blocks, self.head, self.cfg, x, split, rows)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.decode(self.encode(x))
+    def _fc_block(self, x: torch.Tensor) -> torch.Tensor:
+        """Channel c' fh fw + i fw + j -> pixel (i, j), c'."""
+        fh, fw = self.fc_h, self.fc_w
+        b, c, h, w = x.shape
+        return x.reshape(b, c // (fh * fw), fh, fw, h, w).permute(
+            0, 1, 4, 2, 5, 3).reshape(b, c // (fh * fw), h * fh, w * fw)
+
+    def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
+        return self.decode(self.encode(x, rows), rows)

@@ -7,7 +7,10 @@ ch_t] -> t_embed; then the NeRVBlock stack (stage 0 widens by the family's
 expansion, later stages floor-divide by ``reduce``), each modulated
 through its ResBlockSFT by t_embed, and a 1x1 head conv + OutImg.
 
-t [B] -> frame [B, H, W, 3]; inside, the modules run NCHW.
+t [B] -> frame [B, H, W, 3]; inside, the modules run NCHW.  With ``rows``
+(the mesh's 'spatial' axis) the conv decoder runs split by rows after the
+whole stem, and the frame leaves whole on every rank; without it the same
+body runs unsplit.
 """
 
 from __future__ import annotations
@@ -16,9 +19,10 @@ import torch
 import torch.nn as nn
 
 from ..config import BoostConfig, model_stage_plan
-from ..ops.losses import out_img
 from ..ops.pe import PEConfig, position_encoding
+from ..parallel.spatial import WHOLE
 from .blocks import MLP, NeRVBlock, TConv
+from .hnerv import _decode_rows
 
 
 def grid_nchw(x: torch.Tensor, fc_h: int, fc_w: int) -> torch.Tensor:
@@ -44,12 +48,13 @@ class NeRVBoost(nn.Module):
             for s in plan)
         self.head = TConv(plan[-1].new_ngf, 3, 1, 1, 0)
 
-    def forward(self, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, t: torch.Tensor, rows=None) -> torch.Tensor:
         """t: [B] normalised frame indices in (0, 1] -> [B, H, W, 3]."""
         cfg = self.cfg
         pe = position_encoding(t, self.pe).to(self.head.weight.dtype)
         x = grid_nchw(self.stem(pe), cfg.fc_h, cfg.fc_w)
         t_embed = self.stem_t(pe)
-        for blk in self.blocks:
-            x = blk(x, t_embed)
-        return out_img(self.head(x), cfg.out_bias).permute(0, 2, 3, 1)
+        rows = WHOLE if rows is None else rows
+        x, split = rows.settle(x, False, "grid")
+        return _decode_rows(self.blocks, self.head, cfg, x, split, rows,
+                            t_embed)

@@ -1,6 +1,7 @@
-"""Data parallelism of the port (counterpart of boosting_nerv_tpu/parallel/):
-the mesh plan's 'data' axis over a torch process group (``mesh``) and the
-process a rank that runs it (``launch``)."""
+"""The mesh of the port (counterpart of boosting_nerv_tpu/parallel/): its
+'data' and 'spatial' axes over torch process groups (``mesh``), the
+forward split by rows over the 'spatial' axis (``spatial``) and the
+process a rank that runs them (``launch``)."""
 
 from .launch import launch
 from .mesh import MeshPlan, make_mesh_plan

@@ -1,15 +1,15 @@
-"""The process model of the 'data' axis: one process a rank.
+"""The process model of the mesh: one process a rank.
 
 JAX drives every device of its mesh from one process; torch needs a
 process a device.  ``launch(fn, plan_args, args)`` runs
 ``fn(plan, *args)`` on every rank of ``make_mesh_plan(**plan_args)``:
 
- - with no process group to build (dp 1, no backend asked for) in this
+ - with no process group to build (dp sp 1, no backend asked for) in this
    process;
  - under torchrun (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` set) in this
-   process, as its rank of the group torchrun made, which must have dp
+   process, as its rank of the group torchrun made, which must have dp sp
    ranks;
- - otherwise in dp processes started in ``spawn`` mode (never ``fork``:
+ - otherwise in dp sp processes started in ``spawn`` mode (never ``fork``:
    a process that has imported a threaded library deadlocks when
    forked), which meet through a FileStore in a fresh temporary
    directory (so concurrent launches never share a port) and wait at
@@ -74,16 +74,18 @@ def launch(fn: Callable, plan_args: Dict[str, Any], args: Sequence = (),
            timeout: float = DEFAULT_TIMEOUT) -> List[Any]:
     """``fn(plan, *args)`` on every rank of ``make_mesh_plan(**plan_args)``
     (see the module docstring); the results in rank order."""
-    dp = plan_args.get("dp", 1)
+    dp, sp = plan_args.get("dp", 1), plan_args.get("sp", 1)
+    world = dp * sp
     _, backend = resolve(**{k: plan_args[k] for k in
                             ("dp", "sp", "devices", "backend")
                             if k in plan_args})
     if backend is None:
         return [fn(make_mesh_plan(**plan_args), *args)]
     if under_torchrun():
-        world = int(os.environ["WORLD_SIZE"])
-        if world != dp:
-            raise ValueError(f"torchrun started {world} ranks, dp is {dp}")
+        started = int(os.environ["WORLD_SIZE"])
+        if started != world:
+            raise ValueError(f"torchrun started {started} ranks, dp is {dp}"
+                             f" and sp {sp}")
         return [fn(make_mesh_plan(**plan_args, timeout=timeout), *args)]
 
     ctx = mp.get_context("spawn")
@@ -91,14 +93,14 @@ def launch(fn: Callable, plan_args: Dict[str, Any], args: Sequence = (),
     tmp = tempfile.mkdtemp(prefix="bnt_store_")
     store = os.path.join(tmp, "store")
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, dp, store, fn, plan_args, args, timeout,
+                         args=(r, world, store, fn, plan_args, args, timeout,
                                results))
-             for r in range(dp)]
+             for r in range(world)]
     done: Dict[int, Any] = {}
     try:
         for p in procs:
             p.start()
-        while len(done) < dp:
+        while len(done) < world:
             try:
                 rank, ok, payload = results.get(timeout=POLL_S)
             except queue.Empty:
@@ -109,13 +111,14 @@ def launch(fn: Callable, plan_args: Dict[str, Any], args: Sequence = (),
                         rank, ok, payload = results.get(timeout=JOIN_S)
                     except queue.Empty:
                         raise RuntimeError(
-                            f"rank {dead[0]} of {dp} exited with code "
+                            f"rank {dead[0]} of {world} exited with code "
                             f"{procs[dead[0]].exitcode} and no result"
                         ) from None
                 else:
                     continue
             if not ok:
-                raise RuntimeError(f"rank {rank} of {dp} failed:\n{payload}")
+                raise RuntimeError(f"rank {rank} of {world} failed:\n"
+                                   f"{payload}")
             done[rank] = payload
     finally:
         for p in procs:
@@ -128,4 +131,4 @@ def launch(fn: Callable, plan_args: Dict[str, Any], args: Sequence = (),
                 p.join()
         results.close()
         shutil.rmtree(tmp, ignore_errors=True)
-    return [done[r] for r in range(dp)]
+    return [done[r] for r in range(world)]

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Training entry point of the port: video regression, inpainting and
 interpolation of any of the five model families (``--model`` NeRV_Boost,
-ENeRV, ENeRV_Boost, HNeRV_Boost or HNeRV) on one GPU, or data-parallel on
-several.
+ENeRV, ENeRV_Boost, HNeRV_Boost or HNeRV) on one GPU, or over a mesh of
+several: data-parallel and split by rows.
 
     python -m boosting_nerv_torch.train_nerv_all --data_path <dir of frames> \\
         --model HNeRV_Boost ... [--eval_only] [--device cpu]
@@ -23,10 +23,12 @@ frames and test on the odd ones; ``--eval_only`` loads the weights
 ``--dp N`` trains data-parallel on N ranks (``boosting_nerv_torch.parallel``):
 ``cuda:0 .. cuda:N-1`` over NCCL, or with ``--device cpu`` N CPU processes
 over gloo; ``-d`` without ``--dp`` takes every card (one rank on the
-CPU), as the JAX CLI takes every device.  Unless torchrun started this
-process as a rank, the CLI starts the N ranks itself; rank 0 writes the
-outputs.  ``--sp`` above 1 raises NotImplementedError naming its ROADMAP
-item (spatial); ``--cabac``, ``--encoder_file``,
+CPU), as the JAX CLI takes every device.  ``--sp M`` splits frames and
+maps by rows over M ranks a data shard (``parallel/spatial.py``; dp M
+ranks in all, rank d M + s: ``--dp 1 --sp 2 --device cpu`` two gloo
+processes, ``--device cuda:0`` two ranks sharing the card over gloo).
+Unless torchrun started this process as a rank, the CLI starts the ranks
+itself; rank 0 writes the outputs.  ``--cabac``, ``--encoder_file``,
 ``--dump_values``, ``--dump_features``, ``--block_params``, ``--quant``,
 ``--quant_axis``, ``--workers`` and ``--resize_list`` are parsed and
 unused, as in the JAX package.
@@ -118,7 +120,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--dp', type=int, default=0,
                    help='data-parallel size (0 = 1, or every card with -d)')
     p.add_argument('--sp', type=int, default=1,
-                   help='spatial sharding size (not ported yet)')
+                   help='spatial sharding size: ranks a frame is split '
+                        'over by rows')
     p.add_argument('--remat', action='store_true',
                    help='recompute the forward in the backward pass '
                         '(saves activation memory)')
@@ -201,7 +204,8 @@ def args_to_config(args) -> BoostConfig:
 
 def mesh_args(cfg, device) -> dict:
     """``launch``'s plan arguments for ``cfg``'s dp / sp on ``device``."""
-    return dict(dp=cfg.dp, sp=cfg.sp, devices=rank_devices(device, cfg.dp))
+    return dict(dp=cfg.dp, sp=cfg.sp,
+                devices=rank_devices(device, cfg.dp * cfg.sp))
 
 
 def run(argv=None):
@@ -221,16 +225,16 @@ def run_config(cfg, device, plan=None):
     trainer.logger.print(
         f"model {cfg.model} fc_dim {trainer.cfg.fc_dim} frames "
         f"{trainer.video.n} params {round(n_params / 1e6, 4)}M "
-        f"device {trainer.device} dp {trainer.plan.dp}")
+        f"device {trainer.device} dp {trainer.plan.dp} sp {trainer.plan.sp}")
     if not cfg.eval_only:
         trainer.train()
         return trainer
 
     trainer.maybe_resume()
-    if trainer.plan.is_main:  # the eval runs on rank 0
-        record_eval_only(trainer, trainer.evaluate(
-            dump_vis=cfg.dump_images or cfg.dump_videos,
-            huffman_coding=True))
+    results = trainer.on_main(lambda: trainer.evaluate(  # on rank 0
+        dump_vis=cfg.dump_images or cfg.dump_videos, huffman_coding=True))
+    if trainer.plan.is_main:
+        record_eval_only(trainer, results)
     return trainer
 
 
@@ -255,12 +259,12 @@ def record_eval_only(trainer, results) -> None:
 
 
 def main(argv=None):
-    """``run``, or at dp > 1 ``run`` on every rank (``launch``: this
-    process's rank under torchrun, else dp ranks started here); returns
+    """``run``, or at dp sp > 1 ``run`` on every rank (``launch``: this
+    process's rank under torchrun, else dp sp ranks started here); returns
     the best metrics (rank 0's)."""
     args = build_parser().parse_args(argv)
     cfg = args_to_config(args)
-    if cfg.dp > 1:
+    if cfg.dp * cfg.sp > 1:
         return launch(_rank_run, mesh_args(cfg, args.device),
                       args=(cfg, args.device))[0]
     return run_config(cfg, args.device).best_metrics

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Compression entry point of the port: the CEM quantisation-aware
 finetune and the rANS coding eval (``training.compress_trainer``) on one
-GPU, or data-parallel on several (``--dp``, ``-d``: as the regression
-CLI).
+GPU, or over a mesh of several (``--dp``, ``-d``, ``--sp``: as the
+regression CLI).
 
     python -m boosting_nerv_torch.train_nerv_compression \\
         --data_path <dir of frames> --weight <regression checkpoint> ... \\
@@ -61,14 +61,16 @@ def run_config(cfg, device, plan=None):
     trainer.logger.print(
         f"model {cfg.model} fc_dim {trainer.cfg.fc_dim} frames "
         f"{trainer.video.n} target_bpp {trainer.target_bpp:.6f} device "
-        f"{trainer.device} dp {trainer.plan.dp}")
+        f"{trainer.device} dp {trainer.plan.dp} sp {trainer.plan.sp}")
     if not cfg.eval_only:
         return trainer.train()
 
     trainer.maybe_resume()
     trainer.init_qparams()
+    results = trainer.on_main(lambda: trainer.evaluate_cem(coding=True),
+                              fps_model=trainer.dequant_model)
     if trainer.plan.is_main:
-        record_eval_only(trainer, trainer.evaluate_cem(coding=True))
+        record_eval_only(trainer, results)
     return trainer.best_metrics
 
 
@@ -77,11 +79,11 @@ def _rank_run(plan, cfg, device):
 
 
 def main(argv=None):
-    """The CLI on ``argv``; at dp > 1 on every rank (``launch``); returns
-    the best metrics (rank 0's)."""
+    """The CLI on ``argv``; at dp sp > 1 on every rank (``launch``);
+    returns the best metrics (rank 0's)."""
     args = build_compression_parser().parse_args(argv)
     cfg = compression_config(args)
-    if cfg.dp > 1:
+    if cfg.dp * cfg.sp > 1:
         return launch(_rank_run, mesh_args(cfg, args.device),
                       args=(cfg, args.device))[0]
     return run_config(cfg, args.device)

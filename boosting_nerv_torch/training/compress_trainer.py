@@ -22,7 +22,7 @@ finetune with Consistent Entropy Minimisation, then real rANS coding.
   and, with ``coding``, emits a real rANS stream a tensor (plus 64 bits of
   mean / std a tensor and 32 bits a quantiser parameter): ``total_bpp``
   against the model's estimate ``estimate_bpp``; the fps clock times the
-  dequantised model (``measure_fps(model=...)``).
+  dequantised model (``eval_fps(model=...)``).
 
 Each quantiser sees a weight in its flax layout (``bridge.flax_view``), so
 the quantiser parameters have the JAX trainer's keys and shapes (a
@@ -49,6 +49,14 @@ dp=1 never takes), and after ``backward``
 every gradient (weights and quantiser parameters) is averaged by one flat
 all-reduce (``functional_call`` hides the forward from DDP).  Rank 0 runs
 the coding eval and writes the checkpoints, as in the regression trainer.
+
+At sp > 1 (JAX: compress_trainer.py:267, the frame's H over 'spatial')
+the encoder and the decoder run split by rows (``parallel/spatial.py``);
+the quantisers, the rate term of the weights and the embedding (which
+the encoder hands over whole) are computed whole on every rank and
+back-propagated unscaled, the spatial module's gradient rule; so the
+embedding's Gaussian sums its moments over the data group alone (a sum
+over the world would count the whole embedding sp times).
 """
 
 from __future__ import annotations
@@ -254,31 +262,10 @@ class CompressionTrainer(RegressionTrainer):
         self.opt.zero_grad(set_to_none=True)
         mask = self.inpaint_mask
         img_in = torch.clamp(img * mask, 0, 1) if mask is not None else img
-        n_frames, final_size = self.video.n, self.video.final_size
+        n_frames = self.video.n
         dq, wbits = self.dequant_params(noise)
-        if self.embed_qp is not None:
-            # the encoder is not quantised: its own parameters
-            embed = self.model.encode(img_in)
-            code_e, _, dequant_e = self.e_quant.apply(
-                embed, self.embed_qp, cfg.quant_embed_bit, signed=False,
-                per_channel=cfg.per_channel_e)
-            bit_embed = 0.0
-            if cfg.embed_entropy:
-                ne = (self._uniform((self.plan.dp * code_e.shape[0],
-                                     *code_e.shape[1:]))
-                      if draw else noise[EMBED])
-                # the global batch's estimate, before the where below
-                bit_embed = (self.embed_rate_bits(
-                    code_e, self.plan.shard_batch(ne))
-                    * n_frames / (self.plan.dp * img.shape[0]))
-            args = ((dequant_e, t) if cfg.model == "HNeRV_Boost"
-                    else (dequant_e,))
-            out = self._call(dq, "decode", *args)
-            bpp = (wbits + bit_embed) / final_size
-        else:
-            out = self._forward_of(lambda *a: self._call(dq, "forward", *a),
-                                   img_in, t)
-            bpp = wbits / final_size
+        out, bpp = self._traced(
+            lambda: self._cem_forward(img_in, t, dq, wbits, noise, draw))
         if mask is not None:
             out_loss = loss_fn(out * mask, img * mask, cfg.loss)
         else:
@@ -294,20 +281,49 @@ class CompressionTrainer(RegressionTrainer):
         self.opt.step()
         return loss.detach(), psnr_per_frame(out.detach(), img), bpp.detach()
 
+    def _cem_forward(self, img_in, t, dq, wbits, noise, draw):
+        """(the output frames with the dequantised weights ``dq``, the bpp
+        with the weights' bits ``wbits``) of one CEM step."""
+        cfg, rows = self.cfg, self.rows
+        n_frames, final_size = self.video.n, self.video.final_size
+        if self.embed_qp is None:
+            out = self._forward_of(lambda *a: self._call(dq, "forward", *a),
+                                   img_in, t, rows)
+            return out, wbits / final_size
+        # the encoder is not quantised: its own parameters
+        embed = self.model.encode(img_in, rows)
+        code_e, _, dequant_e = self.e_quant.apply(
+            embed, self.embed_qp, cfg.quant_embed_bit, signed=False,
+            per_channel=cfg.per_channel_e)
+        bit_embed = 0.0
+        if cfg.embed_entropy:
+            ne = (self._uniform((self.plan.dp * code_e.shape[0],
+                                 *code_e.shape[1:]))
+                  if draw else noise[EMBED])
+            # the global batch's estimate, before the rate term's where
+            bit_embed = (self.embed_rate_bits(
+                code_e, self.plan.shard_batch(ne))
+                * n_frames / (self.plan.dp * img_in.shape[0]))
+        args = ((dequant_e, t) if cfg.model == "HNeRV_Boost"
+                else (dequant_e,))
+        out = self._call(dq, "decode", *args, rows)
+        return out, (wbits + bit_embed) / final_size
+
     def embed_rate_bits(self, code: torch.Tensor, noise: torch.Tensor
                         ) -> torch.Tensor:
         """``rate_bits(code, noise, True)["bitrate"]`` of the global
         batch's embedding codes, of which ``code`` and ``noise`` are this
-        rank's slices: JAX's one sharded tensor, whose Gaussian takes its
-        mean and unbiased std over every frame."""
+        rank's slices (whole on every spatial rank): JAX's one sharded
+        tensor, whose Gaussian takes its mean and unbiased std over every
+        frame."""
         plan = self.plan
-        if plan.group is None:
+        if plan.data_group is None:
             return rate_bits(code, noise, True)["bitrate"]
-        n = code.numel() * plan.world
-        mean = plan.sum_with_grad(code.sum()) / n
-        std = torch.sqrt(plan.sum_with_grad(((code - mean) ** 2).sum())
+        n = code.numel() * plan.dp
+        mean = plan.sum_over_data(code.sum()) / n
+        std = torch.sqrt(plan.sum_over_data(((code - mean) ** 2).sum())
                          / (n - 1))
-        return plan.sum_with_grad(torch.sum(gaussian_bits(code + noise, mean,
+        return plan.sum_over_data(torch.sum(gaussian_bits(code + noise, mean,
                                                           std)))
 
     def cem_step_idx(self, idx, t, lr: float,
@@ -372,7 +388,8 @@ class CompressionTrainer(RegressionTrainer):
                 do_eval = False
             if do_eval:
                 results = self.on_main(
-                    lambda: self.evaluate_cem(coding=(last == 1)))
+                    lambda: self.evaluate_cem(coding=(last == 1)),
+                    fps_model=self.dequant_model)
                 msg = f"Eval at epoch {epoch + 1}: "
                 for k in METRIC_NAMES:
                     v = results[k]
@@ -482,8 +499,7 @@ class CompressionTrainer(RegressionTrainer):
                 f"estimated bpp: {self.estimate_bpp:.6f}, "
                 f"target_bpp: {self.target_bpp:.6f}")
 
-        self.fps = self.measure_fps(reps=100 if cfg.eval_fps else 20,
-                                    model=dq_model)
+        self.fps = self.eval_fps(model=dq_model)
         results = {k: (float(np.mean(v)) if v else 0.0)
                    for k, v in slots.items()}
         self.logger.print("Eval FPS {:.2f}, ".format(self.fps) + " | ".join(

@@ -40,21 +40,27 @@ Pillow; ``profile`` traces steps 2-6 of the first epoch with
 standard forward, with a note: JAX's planar forward is a TPU layout of the
 same function.
 
-Data parallelism (``dp`` > 1, JAX's mesh 'data' axis, trainer.py:150-190,
-330-338, 546-552): the trainer runs in each rank of a ``parallel.MeshPlan``
-(``parallel.launch`` or torchrun start them; dp 1 builds no process group
-and runs the single-process code).  Every rank holds the whole clip, draws
-the same epoch order and trains on its ``shard_batch`` slice of each
-global batch; ``DistributedDataParallel`` averages the gradients in the
-backward pass (``micro_batch`` chunks but the last under ``no_sync``), so
-the optimizer step, the clip included, sees the gradient of the global
-batch's loss.  Rank 0 owns the logger, the CSV, ``--profile``, the
-checkpoints (the unwrapped module, as at dp 1) and the evals (JAX's eval
-is not sharded), and broadcasts the eval's metrics; the others write
-nothing and wait.  The logged loss and PSNR are means over the ranks, and
-the fps clock times the eager decode, as JAX leaves its serving decode
-when sharded.  Only ``sp`` (the 'spatial' axis) raises NotImplementedError
-on a non-default value (``check_ported``).
+The mesh (``dp`` x ``sp``, JAX's 'data' and 'spatial' axes,
+trainer.py:150-190, 330-338, 518-522, 546-552): the trainer runs in each
+rank of a ``parallel.MeshPlan`` (``parallel.launch`` or torchrun start
+them; dp sp 1 builds no process group and runs the single-process code).
+Every rank holds the whole clip, draws the same epoch order and trains on
+its ``shard_batch`` slice (by data index) of each global batch; at sp > 1
+the model takes the rank's rows of the (masked) frame and runs split by
+rows (``parallel/spatial.py``: the halos by hand, maps whole where the
+plan says, the plan printed once by rank 0), and the loss runs unchanged
+on the frame gathered on every rank.  ``DistributedDataParallel`` averages
+the gradients over all ranks in the backward pass (``micro_batch`` chunks
+but the last under ``no_sync``), which by the spatial module's gradient
+rule is the gradient of the global batch's loss, the clip included.
+Rank 0 owns the logger, the CSV, ``--profile``, the checkpoints (the
+unwrapped module, as at dp 1) and the evals (JAX's eval is not sharded),
+and broadcasts the eval's metrics; the others write nothing and wait.
+The logged loss and PSNR are means over the ranks.  The fps clock times
+the eager decode at dp > 1, as JAX leaves its serving decode when
+sharded, and at sp > 1 the split eager decode on every rank of a spatial
+group (``fps_decode_path`` "sharded"), as JAX times its spatially
+sharded flax decode.
 """
 
 from __future__ import annotations
@@ -92,20 +98,7 @@ METRIC_NAMES = [
     "quant_seen_psnr", "quant_seen_ssim", "quant_unseen_psnr", "quant_unseen_ssim",
 ]
 
-# config fields of later slices -> the ROADMAP item that ports them
-_LATER = {"sp": "spatial"}
 PROFILE_STEPS = (2, 7)  # profile: trace steps [2, 7) of the first epoch
-
-
-def check_ported(cfg: BoostConfig) -> None:
-    """Raise NotImplementedError for a config field this trainer does not
-    port, naming its ROADMAP item."""
-    default = BoostConfig()
-    for name, item in _LATER.items():
-        if getattr(cfg, name) != getattr(default, name):
-            raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r} is not ported yet (ROADMAP "
-                f"queue 1: {item})")
 
 
 def set_train_precision(precision: str) -> None:
@@ -215,17 +208,20 @@ class _TrainForward(torch.nn.Module):
     ``torch.utils.checkpoint`` with ``remat``: the module DDP wraps, so
     that its reducer sees the forward and the recomputation alike."""
 
-    def __init__(self, model: torch.nn.Module, forward_of, remat: bool):
+    def __init__(self, model: torch.nn.Module, forward_of, remat: bool,
+                 rows=None):
         super().__init__()
         self.model = model
         self.forward_of = forward_of
         self.remat = remat
+        self.rows = rows
 
     def forward(self, img: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         if self.remat:
             return torch.utils.checkpoint.checkpoint(
-                self.forward_of, self.model, img, t, use_reentrant=False)
-        return self.forward_of(self.model, img, t)
+                self.forward_of, self.model, img, t, self.rows,
+                use_reentrant=False)
+        return self.forward_of(self.model, img, t, self.rows)
 
 
 class RegressionTrainer:
@@ -233,20 +229,23 @@ class RegressionTrainer:
                  logger: Optional[RunLogger] = None,
                  device: Union[str, torch.device] = "cuda",
                  plan: Optional[MeshPlan] = None):
-        """``plan``: this rank's plan of the 'data' axis; by default
-        ``make_mesh_plan(cfg.dp, cfg.sp)`` on ``device`` (at dp > 1 this
+        """``plan``: this rank's plan of the mesh; by default
+        ``make_mesh_plan(cfg.dp, cfg.sp)`` on ``device`` (at dp sp > 1 this
         process must be a rank of a group already)."""
-        check_ported(cfg)
         cfg = enerv_defaults(cfg)
         if cfg.clip_max_norm is None:
             cfg = cfg.replace(clip_max_norm=0.0)
         self.cfg0 = cfg
         self.plan = plan if plan is not None else make_mesh_plan(
-            cfg.dp, cfg.sp, rank_devices(device, cfg.dp))
-        if self.plan.dp != cfg.dp:
-            raise ValueError(f"the plan has dp {self.plan.dp}, the config "
-                             f"{cfg.dp}")
+            cfg.dp, cfg.sp, rank_devices(device, cfg.dp * cfg.sp))
+        if (self.plan.dp, self.plan.sp) != (cfg.dp, cfg.sp):
+            raise ValueError(f"the plan's mesh is {self.plan.dp}x"
+                             f"{self.plan.sp}, the config's {cfg.dp}x"
+                             f"{cfg.sp}")
         self.device = self.plan.device
+        # the split forward's view of the mesh (None: the unsplit one)
+        self.rows = self.plan.rows()
+        self.split_plan: Optional[List[str]] = None  # its first forward's
         set_train_precision(cfg.train_precision)
         if cfg.planar_train:
             print(f"planar_train={cfg.planar_train}: the standard forward "
@@ -262,13 +261,14 @@ class RegressionTrainer:
         # others and of an index-only config with no planar tail, which
         # the serving decode refuses (the JAX trainer times its flax
         # decode where its serving decode fails, trainer.py:545-590, and
-        # when sharded, :550)
-        self.fps_decode_path = "eager"
+        # when sharded, :550), the split eager decode at sp > 1 (:518-522)
+        self.fps_decode_path = "sharded" if self.plan.sp > 1 else "eager"
         if cfg.model in fast_decode.V5_MODELS:
             fast_decode.check_config(cfg)
-            if self.plan.dp == 1 and (cfg.model == "HNeRV_Boost"
-                                      or fast_decode.has_planar_tail(cfg)):
+            if self.plan.world == 1 and (cfg.model == "HNeRV_Boost"
+                                         or fast_decode.has_planar_tail(cfg)):
                 self.fps_decode_path = "serving"
+        self._sharded_fps: Optional[float] = None  # on_main's clock
         # the HNeRV families with an encoder: embeddings to quantise
         self.has_embed = cfg.is_hnerv_family and bool(cfg.enc_strds)
         # interpolation: validation frames decode from their neighbours'
@@ -330,30 +330,45 @@ class RegressionTrainer:
         family (JAX's ``_forward``): HNeRV-Boost (img, t), HNeRV img (t
         without an encoder), the index-only families t; through DDP when
         the plan has a process group (built at the first call, which
-        broadcasts rank 0's parameters)."""
+        broadcasts rank 0's parameters), split by rows at sp > 1 (the
+        output whole on every rank)."""
         return self._forward_module()(img, t)
 
     def _forward_module(self) -> torch.nn.Module:
         if self._train_forward is None:
             self._train_forward = self.plan.ddp(_TrainForward(
-                self.model, self._forward_of, self.cfg.remat))
+                self.model, self._forward_of, self.cfg.remat, self.rows))
         return self._train_forward
 
-    def _forward_of(self, model, img: torch.Tensor, t: torch.Tensor
-                    ) -> torch.Tensor:
+    def _forward_of(self, model, img: torch.Tensor, t: torch.Tensor,
+                    rows=None) -> torch.Tensor:
         cfg = self.cfg
         if cfg.model == "HNeRV_Boost":
-            return model(img, t)
+            return model(img, t, rows)
         if cfg.model == "HNeRV" and cfg.enc_strds:
-            return model(img)
-        return model(t)
+            return model(img, rows)
+        return model(t, rows)
+
+    def _traced(self, forward):
+        """``forward()``; the first split forward's plan is kept in
+        ``split_plan`` and printed by rank 0."""
+        rows = self.rows
+        if rows is None or rows.sp == 1 or self.split_plan is not None:
+            return forward()
+        rows.start_trace()
+        out = forward()
+        self.split_plan = rows.stop_trace()
+        self.logger.print(f"split plan (rank {self.plan.rank}, mesh "
+                          f"{self.plan.dp}x{self.plan.sp}): "
+                          + "; ".join(self.split_plan))
+        return out
 
     def _loss_backward(self, img: torch.Tensor, t: torch.Tensor):
         """Loss of one chunk, its gradients added to the parameters';
         (loss, output), both detached."""
         mask = self.inpaint_mask
         img_in = torch.clamp(img * mask, 0, 1) if mask is not None else img
-        out = self.forward(img_in, t)
+        out = self._traced(lambda: self.forward(img_in, t))
         if mask is not None:
             loss = loss_fn(out * mask, img * mask, self.cfg.loss)
         else:
@@ -505,10 +520,16 @@ class RegressionTrainer:
         self.logger.print(f"Training complete in: {self.train_time:.1f}s")
         return self.best_metrics
 
-    def on_main(self, evaluate) -> Dict[str, float]:
+    def on_main(self, evaluate, fps_model=None) -> Dict[str, float]:
         """``evaluate()`` (the eight metrics) on rank 0 alone, JAX's eval
         being unsharded; its metrics broadcast, so that every rank's
-        ``best_metrics`` agree."""
+        ``best_metrics`` agree.  At sp > 1 the fps clock of the split
+        decode runs first on every rank (of ``fps_model()``, by default
+        the model), and ``evaluate`` reports it."""
+        if self.fps_decode_path == "sharded":
+            self._sharded_fps = self.measure_fps(
+                reps=self._fps_reps(),
+                model=None if fps_model is None else fps_model())
         results = (evaluate() if self.plan.is_main
                    else dict.fromkeys(METRIC_NAMES, 0.0))
         return dict(zip(METRIC_NAMES, self.plan.broadcast(
@@ -577,8 +598,9 @@ class RegressionTrainer:
         E-NeRV, an index-only config with no planar tail and any family at
         dp > 1, the eager model's decode of batchSize frames, as JAX times
         its flax decode (trainer.py:495-541): the HNeRV families'
-        ``decode`` of the encoder's embedding, the index-only forward.  The encoder is excluded; embed
-        is None for the index-only families."""
+        ``decode`` of the encoder's embedding, the index-only forward;
+        split by rows at sp > 1 (the embedding whole).  The encoder is
+        excluded; embed is None for the index-only families."""
         cfg = self.cfg
         model = self.model if model is None else model
         if self.fps_decode_path == "serving":
@@ -587,11 +609,13 @@ class RegressionTrainer:
                      if cfg.model == "HNeRV_Boost" else None)
             return decode, embed, 1
         b = min(cfg.batchSize, self.video.n)
+        rows = self.rows if self.fps_decode_path == "sharded" else None
         if self.has_embed:
             embed = model.encode(self.gather(list(range(b))))
-            return (lambda e, t: self._decode(model, e, t.expand(b))), \
-                embed, b
-        return (lambda e, t: model(t.expand(b))), None, b
+            return (lambda e, t: self._decode(model, e, t.expand(b),
+                                              rows)), embed, b
+        return (lambda e, t: self._forward_of(model, None, t.expand(b),
+                                              rows)), None, b
 
     @torch.no_grad()
     def measure_fps(self, reps: int = 20,
@@ -622,11 +646,24 @@ class RegressionTrainer:
         return reps * b / dt
 
     def _decode(self, model: torch.nn.Module, embed: torch.Tensor,
-                t: torch.Tensor) -> torch.Tensor:
+                t: torch.Tensor, rows=None) -> torch.Tensor:
         """``model``'s frames from embeddings (HNeRV ignores ``t``)."""
         if self.cfg.model == "HNeRV_Boost":
-            return model.decode(embed, t)
-        return model.decode(embed)
+            return model.decode(embed, t, rows)
+        return model.decode(embed, rows)
+
+    def _fps_reps(self) -> int:
+        return 100 if self.cfg.eval_fps else 20
+
+    def eval_fps(self, model: Optional[torch.nn.Module] = None) -> float:
+        """An eval's fps: ``measure_fps`` of ``model``, or at sp > 1 the
+        split decode's, which ``on_main`` clocked on every rank."""
+        if self.fps_decode_path != "sharded":
+            return self.measure_fps(reps=self._fps_reps(), model=model)
+        if self._sharded_fps is None:
+            raise RuntimeError("at sp > 1 the fps clock runs on every rank: "
+                               "evaluate through on_main")
+        return self._sharded_fps
 
     def _neighbour_embeds(self, idx, embed: torch.Tensor) -> torch.Tensor:
         """``embed`` of the frames ``idx`` with each validation frame's
@@ -707,7 +744,7 @@ class RegressionTrainer:
                       (read_png(os.path.join(vis_dir, f))
                        for f in sorted(os.listdir(vis_dir))))
 
-        self.fps = self.measure_fps(reps=100 if cfg.eval_fps else 20)
+        self.fps = self.eval_fps()
         if huffman_coding and quant_ckt is not None:
             self._huffman_accounting(quant_ckt, quant_embed)
 

@@ -240,6 +240,25 @@ Phases, one line of output each (or one line per shape):
    (1e-5 relative), then its median step ms beside the plain step's, in
    turns plain, DDP, DDP, plain (3 steps a turn, CUDA events); each
    rank's device and peak allocation, no kernel launched, and the
+   phase's seconds;
+16. the 'spatial' axis (``parallel/spatial.py``), run just after phase 15
+   (its CEM step starts from phase 11's checkpoint): phase 11's model at
+   full width (fc_dim 127, TF32 off) on four synthetic 1080x1920 frames,
+   batch 1 (frame 0), Fusion10_freq, Adan, lr 0.003.  sp=1 runs in this
+   process; sp=2 as two ranks on cuda:0 over gloo (one launch, its
+   workers ``parallel.steps``' ``train_steps``, ``cem_steps`` and
+   ``split_decode``): 2 regression steps and 1 CEM step (hnerv_boost.sh's
+   quantisers, ``embed_entropy``, each side drawing its noise from the
+   trainer's seeded generator), held to sp=1 with phase 15's gates (the
+   losses and the CEM step's bpp within 1e-4 relative, the first step's
+   gradients and the parameters after it within 1e-3 of each leaf's
+   largest where no Adan step flips, the two ranks' parameters
+   identical); one split decode of the seeded weights at t = 0.37 from
+   frame 0's embedding, held to the whole decode in this process within
+   1e-4 abs (fp32, TF32 off); printed: the split plan, each rank's peak
+   allocation beside sp=1's, the step ms (host clock to the loss read
+   back) beside sp=1's, the split decode's ms a frame beside the whole
+   decode's (CUDA events, median of 5), no kernel launched, and the
    phase's seconds.
 
 The launch counts are set to 0 just before each slice's frames (the
@@ -357,6 +376,12 @@ DP_TIMEOUT = 600.0   # seconds a rank waits in a collective
 # (the JAX package compares raw gradients for that reason,
 # __graft_entry__.py:186-189)
 DP_FLIP_G = 1e-6
+# phase 16, the 'spatial' axis on the one card
+SP_IDX = [0]         # batch 1: frame 0
+SP_STEPS = 4         # regression steps a side: DP_STEPS gated, and the
+                     # median of all but the first (cuDNN's warm-up) timed
+SP_DECODE_TOL = 1e-4  # max abs, split decode vs whole, fp32
+SP_DECODE_REPS = 5   # timed decodes a side
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and
 # tensor-core operations/s of the kernels' operand types
 HBM_BYTES_S = 3.35e12
@@ -2000,6 +2025,168 @@ def run_dp_phase(device_line):
     return launches
 
 
+def _cem_tree(r):
+    """(parameters and quantiser parameters, their first step's gradients)
+    of a ``cem_steps`` result, keyed flat."""
+    params = {**r["states"][0]}
+    grads = {**r["grads"][0]}
+    for k, d in r["qp"].items():
+        params.update({f"{k}/{n}": v for n, v in d.items()})
+        grads.update({f"{k}/{n}": v for n, v in r["qp_grads"][k].items()})
+    params.update({f"embed/{n}": v for n, v in r["embed_qp"].items()})
+    grads.update({f"embed/{n}": v for n, v in r["embed_qp_grads"].items()})
+    return params, grads
+
+
+def run_sp_phase(device_line):
+    """Phase 16: the 'spatial' axis on the one card, sp=1 and sp=2 each in
+    fresh ranks (a world-1 gloo group, and two gloo ranks); returns the
+    launch counts of this process's runs and the ranks' (none: the split
+    path is plain torch)."""
+    from boosting_nerv_torch.models import build_model
+    from boosting_nerv_torch.ops import kernels
+    from boosting_nerv_torch.parallel import launch
+    from boosting_nerv_torch.parallel.steps import (cem_steps, run_jobs,
+                                                    split_decode,
+                                                    train_steps)
+    from boosting_nerv_torch.data import synthetic_video
+
+    t_phase = time.perf_counter()
+    root = os.path.join(REPO, "output", "chip_smoke_sp")  # gitignored
+    shutil.rmtree(root, ignore_errors=True)
+    frames = synthetic_video(DP_FRAMES, 1080, 1920, seed=0)
+    gib = 2 ** 30
+    kernels.reset_launch_counts()
+    try:
+        cfg = train_config(os.path.join(root, "train"))
+        ccfg = cem_config("HNeRV_Boost", os.path.join(root, "cem"))
+        # the whole decode and frame 0's embedding, seeded weights
+        model = build_model(cfg, seed=cfg.manualSeed).eval()
+        t = [T_HOLD]
+        with torch.no_grad():
+            embed = model.encode(torch.from_numpy(
+                frames[:1].astype(np.float32) / 255.0).cuda())
+        state = {k: v.cpu().numpy() for k, v in model.state_dict().items()}
+        del model
+        torch.cuda.empty_cache()
+        jobs = [(train_steps, (cfg, frames, None, SP_IDX, TRAIN_LR,
+                               SP_STEPS)),
+                (cem_steps, (ccfg, frames, None, SP_IDX, CEM_LR)),
+                (split_decode, (cfg, state, t, embed.cpu().numpy(),
+                                SP_DECODE_REPS))]
+        t0 = time.perf_counter()
+        one = launch(run_jobs, dict(dp=1, devices=["cuda:0"],
+                                    backend="gloo"),
+                     args=(jobs,), timeout=DP_TIMEOUT)[0]
+        one_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        two = launch(run_jobs, dict(dp=1, sp=2, devices=["cuda:0"] * 2),
+                     args=([(w, (a[0].replace(sp=2), *a[1:]))
+                            if w is not split_decode else (w, a)
+                            for w, a in jobs],), timeout=DP_TIMEOUT)
+        two_s = time.perf_counter() - t0
+        (tr1, cem1, dec1), (tr2, cem2, dec2) = one, two[0]
+
+        # (a) the regression steps, phase 15's gates on the first DP_STEPS
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(tr2["losses"][:DP_STEPS], tr1["losses"][:DP_STEPS]))
+        ms1, ms2 = (float(np.median(tr["ms"][1:])) for tr in (tr1, tr2))
+        grad, grad_at = _worst_grad(tr2["grads"][0], tr1["grads"][0])
+        param, param_at, flipped, flips_ok = _beyond_flips(
+            tr2["states"][0], tr1["states"][0], tr2["grads"][:1],
+            tr1["grads"][:1], TRAIN_LR)
+        same = all(np.array_equal(two[1][0]["states"][-1][k], v)
+                   for k, v in tr2["states"][-1].items())
+        print(f"sp split plan (UVG-1080p HNeRV-Boost, sp=2): "
+              f"{'; '.join(tr2['split_plan'])} [{device_line}]", flush=True)
+        print(f"sp (a) {SP_STEPS} regression steps at UVG-1080p (bench "
+              f"widths, batch 1, Fusion10_freq, Adan, TF32 off): sp=2 (2 "
+              f"ranks on cuda:0, gloo) losses "
+              f"{[round(v, 7) for v in tr2['losses']]} vs sp=1 (1 fresh "
+              f"rank, gloo) {[round(v, 7) for v in tr1['losses']]}: rel "
+              f"err of the first {DP_STEPS} {rel:.3g} "
+              f"(tol {STEP_LOSS_RTOL}); first step's gradients {grad:.3g} "
+              f"of the leaf's max ({grad_at}; tol {STEP_GRAD_TOL}); "
+              f"parameters after it {param:.3g} ({param_at}; tol "
+              f"{STEP_GRAD_TOL}) where the step could not flip, {flipped} "
+              f"elements beyond it within a flipped step each: {flips_ok}; "
+              f"ranks' parameters identical: {same}; step ms (host clock to "
+              f"the loss read back) sp=2 {[round(v, 2) for v in tr2['ms']]}"
+              f", sp=1 {[round(v, 2) for v in tr1['ms']]}; median of steps "
+              f"2-{SP_STEPS} sp=2 {ms2:.2f}, sp=1 {ms1:.2f}; {two_s:.1f} s "
+              f"with the ranks' start against {one_s:.1f} s "
+              f"[{device_line}]", flush=True)
+        ok = (rel <= STEP_LOSS_RTOL and grad <= STEP_GRAD_TOL
+              and param <= STEP_GRAD_TOL and flips_ok and same)
+
+        # (b) the CEM step
+        p1, g1 = _cem_tree(cem1)
+        p2, g2 = _cem_tree(cem2)
+        rel_l = abs(cem2["losses"][0] - cem1["losses"][0]) / abs(
+            cem1["losses"][0])
+        rel_b = abs(cem2["bpps"][0] - cem1["bpps"][0]) / abs(cem1["bpps"][0])
+        cgrad, cgrad_at = _worst_grad(cem2["grads"][0], cem1["grads"][0])
+        cparam, cparam_at, cflipped, cflips_ok = _beyond_flips(
+            p2, p1, [g2], [g1], CEM_LR)
+        csame = all(np.array_equal(two[1][1]["states"][0][k], v)
+                    for k, v in cem2["states"][0].items())
+        print(f"sp (b) CEM step (hnerv_boost.sh, embed_entropy, phase 11's "
+              f"weights): sp=2 loss {cem2['losses'][0]:.7g} bpp "
+              f"{cem2['bpps'][0]:.7g} vs sp=1 {cem1['losses'][0]:.7g} / "
+              f"{cem1['bpps'][0]:.7g}: rel err {rel_l:.3g} / {rel_b:.3g} "
+              f"(tol {CEM_STEP_RTOL}); weights' gradients {cgrad:.3g} of the "
+              f"leaf's max ({cgrad_at}; tol {STEP_GRAD_TOL}); parameters "
+              f"and quantiser parameters {cparam:.3g} ({cparam_at}; tol "
+              f"{STEP_GRAD_TOL}) where the step could not flip, {cflipped} "
+              f"elements beyond it within a flipped step each: {cflips_ok}; "
+              f"ranks' parameters identical: {csame}; step ms sp=2 "
+              f"{round(cem2['ms'][0], 2)}, sp=1 {round(cem1['ms'][0], 2)} "
+              f"[{device_line}]", flush=True)
+        ok = ok and (rel_l <= CEM_STEP_RTOL and rel_b <= CEM_STEP_RTOL
+                     and cgrad <= STEP_GRAD_TOL and cparam <= STEP_GRAD_TOL
+                     and cflips_ok and csame)
+
+        # (c) the split decode against the whole one
+        err = max(float(np.abs(r[2]["frame"] - dec1["frame"]).max())
+                  for r in two)
+        finite = all(np.isfinite(r[2]["frame"]).all() for r in two)
+        print(f"sp (c) split decode at t = {T_HOLD} (seeded weights, fp32, "
+              f"TF32 off): max abs vs the whole decode {err:.3g} (tol "
+              f"{SP_DECODE_TOL}), finite {finite}; ms a frame sp=2 "
+              f"{dec2['ms']:.3f} vs whole {dec1['ms']:.3f} (median of "
+              f"{SP_DECODE_REPS}, CUDA events) [{device_line}]", flush=True)
+        ok = ok and err <= SP_DECODE_TOL and finite
+        for (tr, _, dec), n in [(one, 1)] + [(rr, 2) for rr in two]:
+            print(f"sp rank {tr['rank']} of {n}: {tr['device']}, peak "
+                  f"allocation of the {SP_STEPS} regression steps "
+                  f"{(tr['peak_bytes'] or 0) / gib:.3f} GiB, of the run "
+                  f"(the CEM step and the decode after them) "
+                  f"{(dec['peak_bytes'] or 0) / gib:.3f} GiB "
+                  f"[{device_line}]", flush=True)
+        if not ok:
+            raise SmokeFailure(
+                f"sp=2 vs sp=1: loss rel {rel}, gradient {grad} at "
+                f"{grad_at}, parameter {param} at {param_at}, flips "
+                f"{flips_ok}, ranks equal {same}; CEM loss rel {rel_l}, bpp "
+                f"rel {rel_b}, gradient {cgrad} at {cgrad_at}, parameter "
+                f"{cparam} at {cparam_at}, flips {cflips_ok}, ranks equal "
+                f"{csame}; decode {err}, finite {finite}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(kernels.LAUNCHES)
+    for res in [one] + two:
+        for r in res:
+            for k, v in r["launches"].items():
+                launches[k] += v
+    if any(launches.values()):
+        raise SmokeFailure(f"sp phase launched kernels {launches}")
+    print(f"sp phase: {time.perf_counter() - t_phase:.1f} s, no kernel "
+          f"launched in this process or in any of the 3 ranks "
+          f"[{device_line}]", flush=True)
+    return launches
+
+
 def family_config(model, size=None):
     """scripts/regression/UVG/{nerv_boost,enerv_boost}.sh at ``size``, by
     default the paper's 10M (modelsize 5.2 / 4.3), sized for a 120-frame
@@ -2980,6 +3167,7 @@ def main() -> int:
     runs.append(probe_launches)
     runs.append(run_train_phase(device_line))
     runs.append(run_dp_phase(device_line))  # needs phase 11's checkpoint
+    runs.append(run_sp_phase(device_line))  # and so does this one
     runs.append(run_families_phase(summary, device_line))
     runs.append(run_cem_phase(device_line))
     runs.append(run_tasks_phase(device_line))

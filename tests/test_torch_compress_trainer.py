@@ -109,7 +109,8 @@ def build_ref(tmp_path_factory, model, **kw):
 def jax_noise(ref, key, embed_shape=None):
     """JAX's training noise of a step with ``key``, keyed as the port's
     ``cem_step`` takes it (drawn in one compiled function: the same bits
-    as the step's draws, one compile instead of one a shape)."""
+    as the step's draws, one compile instead of one a shape, with LLVM's
+    optimisation off as the step's)."""
     flat = flatten_dict(jax.device_get(ref.state["model"]))
     shapes = {}
     for i, (k, v) in enumerate(sorted(flat.items(),
@@ -119,14 +120,14 @@ def jax_noise(ref, key, embed_shape=None):
     if embed_shape is not None:
         shapes[port_ct.EMBED] = (10_000, embed_shape)
 
-    @jax.jit
     def draw(key):
         return {ks: jax.random.uniform(jax.random.fold_in(key, i), shape,
                                        jnp.float32, -0.5, 0.5)
                 for ks, (i, shape) in shapes.items()}
 
+    drawn = jax.jit(draw).lower(key).compile(FAST_COMPILE)(key)
     return {ks: torch.from_numpy(np.array(v))
-            for ks, v in jax.device_get(draw(key)).items()}
+            for ks, v in jax.device_get(drawn).items()}
 
 
 def bucketed_gaussian_bits(x, mean, std, distribution="gaussian"):

@@ -5,8 +5,9 @@ set of outputs (rank 0's log, CSV and checkpoint) whose parameters equal
 the ``--dp 1`` run's within rtol 1e-4 and atol 1e-6; the compression CLI
 hands the same launch its rank function and plan (the CEM step at dp > 1
 is held to dp=1 by tests/test_torch_parallel_cem.py); ``-d`` on the CPU
-is one rank, as JAX's ``-d`` on one CPU device; ``--sp`` above 1 still
-raises."""
+is one rank, as JAX's ``-d`` on one CPU device; ``--sp`` above 1 launches
+dp x sp ranks (tests/test_torch_spatial_cem.py runs them), and a mesh
+with more ranks than devices still raises."""
 
 import os
 
@@ -18,6 +19,7 @@ from flax.traverse_util import flatten_dict
 from boosting_nerv_torch import train_nerv_all as port_cli
 from boosting_nerv_torch import train_nerv_compression as comp_cli
 from boosting_nerv_torch.data import png, synthetic_video
+from boosting_nerv_torch.parallel.mesh import resolve
 from boosting_nerv_torch.training.checkpoint import load_checkpoint
 from test_torch_compress_cli import TINY_FLAGS as COMP_FLAGS
 from test_torch_train_cli import TINY_FLAGS
@@ -104,8 +106,17 @@ def test_d_on_the_cpu_is_one_rank(tmp_path, monkeypatch):
 
 
 def test_sp_above_one_still_raises(tmp_path, monkeypatch):
+    # the 'spatial' axis is ported: --sp launches dp x sp ranks; what still
+    # raises is a mesh with more ranks than devices
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1: spatial"):
-        port_cli.main(TINY_FLAGS + ["--data_path", "x", "--dp", "2",
-                                    "--sp", "2"])
+    calls = []
+    monkeypatch.setattr(port_cli, "launch", lambda fn, plan_args, args:
+                        calls.append((fn, plan_args, args)) or [{"ok": 1}])
+    got = port_cli.main(TINY_FLAGS + ["--data_path", "x", "--dp", "2",
+                                      "--sp", "2"])
+    (fn, plan_args, (cfg, device)), = calls
+    assert got == {"ok": 1} and fn is port_cli._rank_run
+    assert plan_args == dict(dp=2, sp=2, devices=[torch.device("cpu")] * 4)
+    assert (cfg.dp, cfg.sp, device) == (2, 2, "cpu")
+    with pytest.raises(ValueError, match="mesh 2x2 needs 4 devices, have 2"):
+        resolve(**dict(plan_args, devices=[torch.device("cpu")] * 2))

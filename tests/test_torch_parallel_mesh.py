@@ -44,8 +44,11 @@ def test_plan_errors():
         make_mesh_plan(2)
     with pytest.raises(ValueError, match="mesh 8x1 needs 8 devices, have 4"):
         make_mesh_plan(8, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: spatial"):
-        make_mesh_plan(2, 2, devices=["cpu"] * 4)
+    # the 'spatial' axis takes dp x sp ranks
+    with pytest.raises(ValueError, match="mesh 2x2 needs 4 devices, have 3"):
+        make_mesh_plan(2, 2, devices=["cpu"] * 3)
+    with pytest.raises(ValueError, match="each axis needs at least one"):
+        make_mesh_plan(1, 0, devices=["cpu"])
     with pytest.raises(RuntimeError, match="parallel.launch or torchrun"):
         make_mesh_plan(2, devices=["cpu"] * 2)  # no group in this process
     plan = MeshPlan(dp=4, sp=1, rank=1, world=4, device=torch.device("cpu"))

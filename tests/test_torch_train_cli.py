@@ -1,17 +1,17 @@
 """The port's CLI, ``python -m boosting_nerv_torch.train_nerv_all``: the
 JAX CLI's flags with the same defaults, plus ``--device``; ``--sp``
-above 1 raises naming its ROADMAP item, the task flags are accepted; a
+above 1 (the last flag that raised) and the task flags are accepted; a
 tiny run on a directory of PNG frames on the CPU."""
 
 import os
 
 import pytest
+import torch
 from PIL import Image
 
 import train_nerv_all as ref_cli
 from boosting_nerv_torch import train_nerv_all as port_cli
 from boosting_nerv_torch.data import synthetic_video
-from boosting_nerv_torch.training.trainer import check_ported
 
 TINY_FLAGS = [
     "--model", "HNeRV_Boost", "--embed", "pe_1.25_20", "--fc_hw", "2_4",
@@ -39,14 +39,20 @@ def test_every_jax_flag_exists_with_its_default():
 
 
 @pytest.mark.parametrize("flags,item", [
-    # -d and --dp are ported (tests/test_torch_parallel_cli.py)
+    # -d, --dp and --sp are ported (tests/test_torch_parallel_cli.py,
+    # tests/test_torch_spatial_cem.py): the flags that raised until then
+    # now parse into the mesh they ask for
     (["-d", "--sp", "2"], "spatial"),
     (["--sp", "2"], "spatial"),
 ])
 def test_not_ported_flags_raise(tmp_path, monkeypatch, flags, item):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1: {item}"):
-        port_cli.main(TINY_FLAGS + ["--data_path", "x"] + flags)
+    args = port_cli.build_parser().parse_args(
+        TINY_FLAGS + ["--data_path", "x"] + flags)
+    cfg = port_cli.args_to_config(args)
+    assert (cfg.dp, cfg.sp) == (1, 2)  # -d on the CPU is one data rank
+    assert port_cli.mesh_args(cfg, "cpu") == dict(
+        dp=1, sp=2, devices=[torch.device("cpu")] * 2)
 
 
 @pytest.mark.parametrize("flags,field,value", [
@@ -62,7 +68,6 @@ def test_task_flags_are_accepted(tmp_path, monkeypatch, flags, field, value):
         TINY_FLAGS + ["--data_path", "x"] + flags)
     cfg = port_cli.args_to_config(args)
     assert getattr(cfg, field) == value
-    check_ported(cfg)
 
 
 def test_tiny_run_on_png_frames(tmp_path, monkeypatch):

@@ -166,14 +166,17 @@ def test_evaluate_matches_jax(ref, tmp_path):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    # dp is ported (tests/test_torch_parallel_*.py); sp raises at any size
+    # dp and sp are ported (tests/test_torch_parallel_*.py,
+    # tests/test_torch_spatial_*.py): what a later slice's field raised
+    # until then is now a mesh's need of that many ranks' process group
     ("sp", 2, "spatial"),
     ("sp", 4, "spatial"),
 ])
 def test_later_slices_raise_naming_their_roadmap_item(field, value, item):
     cfg = port_config.BoostConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1: {item}"):
-        port_trainer.check_ported(cfg)
+    with pytest.raises(RuntimeError, match="parallel.launch or torchrun"):
+        port_trainer.RegressionTrainer(
+            cfg.replace(data_path="x"), device="cpu")
 
 
 @pytest.mark.parametrize("field,value", [
@@ -183,9 +186,10 @@ def test_later_slices_raise_naming_their_roadmap_item(field, value, item):
     ("profile", True),
     ("planar_train", 180),
 ])
-def test_task_fields_are_accepted(field, value):
-    # refused until the tasks slice ported them
-    port_trainer.check_ported(port_config.BoostConfig(**{field: value}))
+def test_task_fields_are_accepted(ref, tmp_path, field, value):
+    # refused until the tasks slice ported them: a trainer takes them
+    assert getattr(_port(ref, tmp_path, **{field: value}).cfg,
+                   field) == value
 
 
 def test_train_precision_sets_tf32():
