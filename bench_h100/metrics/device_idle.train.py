@@ -1,0 +1,2 @@
+"""device_idle.train: share of the traced window with no device op (%)."""
+from bench_h100.readers import device_idle as read  # noqa: F401
