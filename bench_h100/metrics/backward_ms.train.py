@@ -1,0 +1,7 @@
+"""backward_ms.train: stream ms an optimizer step of the span
+train.backward."""
+from bench_h100.spans import stream_ms
+
+
+def read(ctx):
+    return stream_ms(ctx, "train.backward")

@@ -1,0 +1,7 @@
+"""optim_ms.train: stream ms an optimizer step of the span
+train.optim."""
+from bench_h100.spans import stream_ms
+
+
+def read(ctx):
+    return stream_ms(ctx, "train.optim")

@@ -62,6 +62,15 @@ stem in the decode, as in JAX.
   there is no fallback, and a calibration that fails raises.
   ``ops.kernels.LAUNCHES`` counts their launches and
   ``decode.launches_per_frame`` says how many one frame makes.
+- While a torch profiler records, the v5 decode records spans
+  (``utils/tracing.py``): ``decode`` (a unit: one frame) holds
+  ``decode.prefix`` (``decode.pe``, ``decode.time_mlp``, ``decode.stem``,
+  ``decode.block<i>``; the prefix's NHWC copy in the last of them),
+  ``decode.tail`` (``decode.stage<i>``, each a ``decode.sft`` and a
+  ``decode.kernel`` leaf; the hybrid's fine-grid tail one more
+  ``decode.kernel``) and, where the head runs in plain torch,
+  ``decode.head``.  The other decodes share the prefix and record its
+  spans outside any unit.
 
 The TPU-only machinery of the JAX decode (tile policies, chunking, the
 deviceless AOT gate, the kernel modes, the BNT_DECODE_W8A8 and BNT_I8_CP32
@@ -87,6 +96,7 @@ from ..models.nerv import NeRVBoost, grid_nchw
 from ..ops.kernels import conv_chw, fused_sft, planar, quant, tile_conv
 from ..ops.kernels.planar import nchw, nhwc
 from ..ops.pe import position_encoding
+from ..utils.tracing import span
 
 DT = torch.bfloat16
 NO_FINE = 10 ** 9   # fine_from_h that no stage reaches: no hybrid tail
@@ -344,13 +354,17 @@ def _bf16(m: nn.Module) -> nn.Module:
 
 
 def _prefix(model: Model, switch_at: int):
-    """(time_embed(t), prefix(embed, t_embed, t) -> NCHW bf16 output of
-    stage ``switch_at - 1`` (the stem for 0)), both in bf16 on the model's
-    device.  t_embed is the SFT condition: stem_t(PE(t)), or E-NeRV-Boost's
+    """(time_embed(t), prefix(embed, t_embed, t, out) -> NCHW bf16 output
+    of stage ``switch_at - 1`` (the stem for 0), passed through ``out``
+    inside its last span), both in bf16 on the model's device.
+    t_embed is the SFT condition: stem_t(PE(t)), or E-NeRV-Boost's
     t_branch(PE(t)); the index-only families ignore ``embed`` and take
-    their stem from t."""
+    their stem from t.  Spans: ``decode.pe`` (each positional encoding:
+    NeRV-Boost's stem makes a second), ``decode.time_mlp``,
+    ``decode.stem``, ``decode.block<i>``."""
     cfg = model.cfg
-    blocks = [_bf16(model.blocks[bi]) for bi in range(switch_at)]
+    blocks = [(f"decode.block{bi}", _bf16(model.blocks[bi]))
+              for bi in range(switch_at)]
     device = model.head.weight.device
     if cfg.model == "ENeRV_Boost":
         trunk, t_mlp = _bf16(model.trunk), _bf16(model.t_branch)
@@ -358,24 +372,38 @@ def _prefix(model: Model, switch_at: int):
     else:
         stem, t_mlp, pe = _bf16(model.stem), _bf16(model.stem_t), model.pe
 
+    def encode_t(t: torch.Tensor) -> torch.Tensor:
+        with span("decode.pe"):
+            return position_encoding(t.to(device), pe).to(DT)
+
     def time_embed(t: torch.Tensor) -> torch.Tensor:
-        return t_mlp(position_encoding(t.to(device), pe).to(DT))
+        p = encode_t(t)
+        with span("decode.time_mlp"):
+            return t_mlp(p)
 
     def prefix(embed: Optional[torch.Tensor], t_embed: torch.Tensor,
-               t: Optional[torch.Tensor] = None) -> torch.Tensor:
+               t: Optional[torch.Tensor] = None,
+               out: Callable = lambda x: x) -> torch.Tensor:
         if t_embed.shape[0] != 1 or (cfg.model == "HNeRV_Boost"
                                      and embed.shape[0] != 1):
             raise ValueError("the serving decode runs batch 1: embed "
                              "[1, h, w, C] and t [1]")
-        if cfg.model == "HNeRV_Boost":
-            x = stem(embed.to(device, DT).permute(0, 3, 1, 2), t_embed)
-        elif cfg.model == "NeRV_Boost":
-            x = grid_nchw(stem(position_encoding(t.to(device), pe).to(DT)),
-                          cfg.fc_h, cfg.fc_w)
-        else:
-            x = trunk(t.to(device))[0]
-        for blk in blocks:
-            x = blk(x, t_embed)
+        if cfg.model == "NeRV_Boost":
+            p = encode_t(t)
+        with span("decode.stem"):
+            if cfg.model == "HNeRV_Boost":
+                x = stem(embed.to(device, DT).permute(0, 3, 1, 2), t_embed)
+            elif cfg.model == "NeRV_Boost":
+                x = grid_nchw(stem(p), cfg.fc_h, cfg.fc_w)
+            else:
+                x = trunk(t.to(device))[0]
+            if not blocks:
+                x = out(x)
+        for k, (name, blk) in enumerate(blocks, 1):
+            with span(name):
+                x = blk(x, t_embed)
+                if k == len(blocks):
+                    x = out(x)
         return x
 
     return time_embed, prefix
@@ -614,23 +642,33 @@ def build_fast_decode_v5(cfg: BoostConfig,
             weights, _bf16(blk.rsft.sft0), _bf16(blk.rsft.sft1), out_inv))
     fns = {name: getattr(planar, name + ("_plain" if plain else ""))
            for name in planar.WRAPPERS}
+    stage_spans = [f"decode.stage{st.index}" for st in tail]
 
     @torch.no_grad()
     def decode(embed: Optional[torch.Tensor], t: torch.Tensor
                ) -> torch.Tensor:
         _check_batch(t)
-        t_embed = time_embed(t)
-        x = nhwc(prefix(embed, t_embed, t))
-        for st in tail:
-            kw = {"head": True} if st.head else {}
-            if st.out_inv is not None:
-                kw["out_inv"] = st.out_inv
-            x = fns[st.kernel](x, st.weights, st.sft(t_embed), **kw)
-        if fine is not None:
-            return fine(x, t_embed)
-        if head is not None:  # stride-2 final stage: head in plain torch
-            x = nhwc(torch.tanh(head(nchw(x))) * 0.5 + 0.5)
-        return x
+        with span("decode", unit=True):
+            with span("decode.prefix"):
+                t_embed = time_embed(t)
+                x = prefix(embed, t_embed, t, out=nhwc)
+            with span("decode.tail"):
+                for st, name in zip(tail, stage_spans):
+                    kw = {"head": True} if st.head else {}
+                    if st.out_inv is not None:
+                        kw["out_inv"] = st.out_inv
+                    with span(name):
+                        with span("decode.sft"):
+                            sft = st.sft(t_embed)
+                        with span("decode.kernel"):
+                            x = fns[st.kernel](x, st.weights, sft, **kw)
+                if fine is not None:
+                    with span("decode.kernel"):
+                        return fine(x, t_embed)
+            if head is not None:  # stride-2 final stage: head in plain torch
+                with span("decode.head"):
+                    x = nhwc(torch.tanh(head(nchw(x))) * 0.5 + 0.5)
+            return x
 
     decode.time_embed = time_embed
     decode.tail = tail

@@ -36,7 +36,8 @@ embeddings (``VideoData.neighbours``, gathered from the resident frames).
 as PNGs (``data/png.py``) and ``gt_pred.gif`` (``data/gif.py``), with no
 Pillow; ``profile`` traces steps 2-6 of the first epoch with
 ``torch.profiler`` (CUDA activity on the card) into a Chrome trace under
-``outf/profile/``; ``planar_train`` is accepted and trains on the
+``outf/profile/``, the step's spans (``train.step``) among its ranges,
+and logs their table; ``planar_train`` is accepted and trains on the
 standard forward, with a note: JAX's planar forward is a TPU layout of the
 same function.
 
@@ -88,7 +89,9 @@ from ..ops.msssim import ssim
 from ..ops.ptq import dequant_tensor, quant_tensor
 from ..parallel.mesh import MeshPlan, make_mesh_plan, rank_devices
 from ..runtime import fast_decode
+from ..utils import tracing
 from ..utils.logger import NullLogger, RunLogger
+from ..utils.tracing import span
 from .adan import Adan
 from .checkpoint import load_checkpoint, restore, save_checkpoint
 from .schedules import lr_multiplier
@@ -367,13 +370,17 @@ class RegressionTrainer:
         """Loss of one chunk, its gradients added to the parameters';
         (loss, output), both detached."""
         mask = self.inpaint_mask
-        img_in = torch.clamp(img * mask, 0, 1) if mask is not None else img
-        out = self._traced(lambda: self.forward(img_in, t))
-        if mask is not None:
-            loss = loss_fn(out * mask, img * mask, self.cfg.loss)
-        else:
-            loss = loss_fn(out, img, self.cfg.loss)
-        loss.backward()
+        with span("train.forward"):
+            img_in = (torch.clamp(img * mask, 0, 1) if mask is not None
+                      else img)
+            out = self._traced(lambda: self.forward(img_in, t))
+        with span("train.loss"):
+            if mask is not None:
+                loss = loss_fn(out * mask, img * mask, self.cfg.loss)
+            else:
+                loss = loss_fn(out, img, self.cfg.loss)
+        with span("train.backward"):
+            loss.backward()
         return loss.detach(), out.detach()
 
     def train_step(self, img: torch.Tensor, t: torch.Tensor, lr: float):
@@ -384,7 +391,18 @@ class RegressionTrainer:
         ``.grad`` until the next step (clipped when the optimizer clips).
         ``micro_batch`` chunks a rank's frames; the gradients of all
         chunks but the last accumulate unsynchronised (DDP's
-        ``no_sync``), so the ranks all-reduce once a step."""
+        ``no_sync``), so the ranks all-reduce once a step.
+
+        While a torch profiler records, the step records spans
+        (``utils/tracing.py``): ``train.step`` (a unit) holds
+        ``train.forward``, ``train.loss`` and ``train.backward`` (once a
+        chunk), ``train.psnr`` (the PSNR, and the reductions over chunks)
+        and ``train.optim`` (the chunks' gradient average, the lr and the
+        optimizer's step); ``train_step_idx`` adds ``train.gather``."""
+        with span("train.step", unit=True):
+            return self._step(img, t, lr)
+
+    def _step(self, img: torch.Tensor, t: torch.Tensor, lr: float):
         self.opt.zero_grad(set_to_none=True)
         mb = self.cfg.micro_batch
         if mb and img.shape[0] > mb and img.shape[0] % mb == 0:
@@ -397,24 +415,33 @@ class RegressionTrainer:
                       else contextlib.nullcontext()):
                     loss, out = self._loss_backward(ci, ct)
                 losses.append(loss)
-                psnrs.append(psnr_per_frame(out, ci))
-            for p in self.model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(n_chunks)
-            loss = torch.stack(losses).sum() / n_chunks
-            psnr = torch.cat(psnrs)
+                with span("train.psnr"):
+                    psnrs.append(psnr_per_frame(out, ci))
+            with span("train.psnr"):
+                loss = torch.stack(losses).sum() / n_chunks
+                psnr = torch.cat(psnrs)
         else:
+            n_chunks = 1
             loss, out = self._loss_backward(img, t)
-            psnr = psnr_per_frame(out, img)
-        for group in self.opt.param_groups:
-            group["lr"] = lr
-        self.opt.step()
+            with span("train.psnr"):
+                psnr = psnr_per_frame(out, img)
+        with span("train.optim"):
+            if n_chunks > 1:
+                for p in self.model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(n_chunks)
+            for group in self.opt.param_groups:
+                group["lr"] = lr
+            self.opt.step()
         return loss, psnr
 
     def train_step_idx(self, idx, t, lr: float):
         """``train_step`` on frames ``idx`` of the resident clip."""
-        return self.train_step(self.gather(idx),
-                               torch.as_tensor(t, device=self.device), lr)
+        with span("train.step", unit=True):
+            with span("train.gather"):
+                img = self.gather(idx)
+                t = torch.as_tensor(t, device=self.device)
+            return self._step(img, t, lr)
 
     # ------------------------------------------------------------------ #
     def maybe_resume(self):
@@ -462,11 +489,9 @@ class RegressionTrainer:
                 lr = cfg.lr * lr_multiplier(
                     cfg.lr_type, progress, cur_iter=i, epochs=cfg.epochs,
                     full_data_length=self.video.n, cur_epoch=epoch)
-                with (torch.profiler.record_function(f"train_step {i}")
-                      if prof is not None else contextlib.nullcontext()):
-                    loss, psnr = self.train_step_idx(
-                        self.plan.shard_batch(batch["idx"]),
-                        self.plan.shard_batch(batch["norm_idx"]), lr)
+                loss, psnr = self.train_step_idx(
+                    self.plan.shard_batch(batch["idx"]),
+                    self.plan.shard_batch(batch["norm_idx"]), lr)
                 # kept on the device: no host sync between steps
                 losses.append(loss)
                 psnrs.append(psnr)
@@ -540,12 +565,14 @@ class RegressionTrainer:
         if self.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=activities)
+        tracing.reset()
         prof.start()
         return prof
 
     def _stop_profile(self, prof: torch.profiler.profile) -> None:
-        """Stop ``prof`` and export its Chrome trace to
-        ``outf/profile/trace.json``."""
+        """Stop ``prof``, export its Chrome trace to
+        ``outf/profile/trace.json`` and log the profiled steps' spans
+        (``tracing.table``)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.stop()
@@ -553,6 +580,8 @@ class RegressionTrainer:
         os.makedirs(os.path.dirname(path), exist_ok=True)
         prof.export_chrome_trace(path)
         self.logger.print(f"profiler trace captured: {path}")
+        self.logger.print(tracing.table(tracing.summary()))
+        tracing.reset()
 
     # ------------------------------------------------------------------ #
     def quantize_model_params(self):

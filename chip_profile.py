@@ -9,8 +9,9 @@ weights (as chip_smoke.py does), the bf16 serving decode and the W8A8 one,
 warms both up, and traces ``--frames`` frames of each with torch.profiler.
 For each decode it prints the wall time per frame, the device's busy time
 per frame (the union of its kernels' intervals), idle share and kernel
-launches per frame, and the device time per frame and launches per frame
-of its largest kernels.  The
+launches per frame, the device time per frame of its largest kernels and
+its longest idle gaps (``bench_h100/trace.py``'s reader of the trace), and
+the program's span table (``boosting_nerv_torch/utils/tracing.py``).  The
 template arguments in a kernel's name say which launch it is:
 ``conv_sm90_kernel<NS, P, F, R>`` (the Hopper kernel at N slice NS; F: 0
 bf16, 1 int8 codes in, 2 bf16 in quantised to int8; R rows a
@@ -41,17 +42,19 @@ import torch
 from chip_smoke import CALIB_TS, CEM_LR, REPO, TRAIN_LR, bench_config, \
     card, cem_config, train_config
 
-TOP = 12  # kernels listed per decode, by device time
-
-
 def profile(call, n):
-    """(wall ms, busy ms, [(kernel, ms, launches)]) per call of one traced
-    run of ``call(i)`` for i < n, after one untraced run."""
+    """(wall ms per call, the trace's summary (``bench_h100.trace.read``),
+    the program's spans (``tracing.summary()``), {event name: count}) of
+    one traced run of ``call(i)`` for i < n, after one untraced run."""
     from torch.profiler import ProfilerActivity, profile as trace
+
+    from bench_h100.trace import read
+    from boosting_nerv_torch.utils import tracing
 
     for i in range(n):  # warm-up
         call(i)
     torch.cuda.synchronize()
+    tracing.reset()
     with trace(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -59,23 +62,9 @@ def profile(call, n):
             call(i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    # kernels only: a record_function range (Optimizer.step#Adan.step)
-    # also shows on the device as an annotation spanning its launches' gaps
-    def kernel(e):
-        return e.device_type.name == "CUDA" and not getattr(
-            e, "is_user_annotation", False)
-
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if kernel(e))
-    busy, end = 0.0, -1.0
-    for a, b in spans:  # union of the kernels' intervals, in us
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    rows = sorted(((k.key, k.device_time_total / 1e3 / n, k.count / n)
-                   for k in prof.key_averages() if kernel(k)),
-                  key=lambda r: -r[1])
-    return wall / n, busy / 1e3 / n, rows
+    counts = {k.key[:200]: k.count for k in prof.key_averages()
+              if k.device_type.name == "CUDA"}
+    return wall / n, read(prof), tracing.summary(), counts
 
 
 def main() -> int:
@@ -110,23 +99,31 @@ def main() -> int:
     for name, decode in (
             ("bf16", build_serving_decode(cfg, model)),
             ("w8a8", build_serving_decode(cfg, model, w8a8_calib=calib))):
-        report(name, "frame", profile(lambda i: decode(embed, ts[i]),
-                                      args.frames),
-               f"{args.frames} frames", device_line)
+        report(name, "frame", args.frames,
+               profile(lambda i: decode(embed, ts[i]), args.frames),
+               device_line)
     return 0
 
 
-def report(name, per, result, traced, device_line):
-    wall, busy, rows = result
+def report(name, per, n, result, device_line):
+    from bench_h100.trace import _is_kernel
+    from boosting_nerv_torch.utils import tracing
+
+    wall, tr, spans, counts = result
+    busy = tr.busy_s * 1e3 / n
     print(f"{name}: wall {wall:.3f} ms/{per}, device busy {busy:.3f} "
-          f"ms/{per}, idle {1 - busy / wall:.1%}, "
-          f"{sum(c for _, _, c in rows):.1f} kernel launches/{per} "
-          f"(traced, {traced}) [{device_line}]")
-    for key, ms, count in rows[:TOP]:
-        print(f"  {ms:9.4f} ms/{per} {count:6.1f} launches/{per}  "
-              f"{key[:120]}")
-    rest = sum(ms for _, ms, _ in rows[TOP:])
-    print(f"  {rest:9.4f} ms/{per} in {len(rows[TOP:])} other kernels")
+          f"ms/{per}, idle {1 - busy / wall:.1%}, {tr.launches / n:.1f} "
+          f"kernel launches/{per} (traced, {n} {per}s) [{device_line}]")
+    listed = 0
+    for key, sec in tr.device_ops:
+        listed += counts.get(key, 0) if _is_kernel(key) else 0
+        print(f"  {sec * 1e3 / n:9.4f} ms/{per} {counts.get(key, 0) / n:6.1f} "
+              f"launches/{per}  {key[:120]}")
+    print(f"  {(tr.launches - listed) / n:.1f} launches/{per} of other "
+          f"kernels")
+    for key, sec in tr.idle_gaps:
+        print(f"  {sec * 1e3 / n:9.4f} ms/{per} idle {key}")
+    print(tracing.table(spans))
 
 
 def profile_train(steps, device_line) -> int:
@@ -141,10 +138,9 @@ def profile_train(steps, device_line) -> int:
             cfg, video=VideoData(synthetic_video(4, 1080, 1920, seed=0)),
             logger=RunLogger(outf, enable_tb=False))
         n = tr.video.n
-        report("train step", "step", profile(
+        report("train step", "step", steps, profile(
             lambda i: tr.train_step_idx([i % n], tr.video.norm_idx([i % n]),
-                                        TRAIN_LR), steps),
-            f"{steps} steps", device_line)
+                                        TRAIN_LR), steps), device_line)
     finally:
         shutil.rmtree(outf, ignore_errors=True)
     return 0
@@ -166,9 +162,9 @@ def profile_cem(steps, device_line) -> int:
         n = tr.video.n
         for name, step in (("cem step", tr.cem_step_idx),
                            ("regression step", tr.train_step_idx)):
-            report(name, "step", profile(
+            report(name, "step", steps, profile(
                 lambda i: step([i % n], tr.video.norm_idx([i % n]), CEM_LR),
-                steps), f"{steps} steps", device_line)
+                steps), device_line)
     finally:
         shutil.rmtree(outf, ignore_errors=True)
     return 0

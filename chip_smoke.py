@@ -2728,26 +2728,26 @@ def task_argv(script, clip_dir, outf, epochs):
 
 
 def trace_step_kernels(path):
-    """{traced step: CUDA kernels launched in it} of a torch.profiler
-    Chrome trace: a kernel belongs to the ``train_step <i>`` range that
-    holds the CUDA API call that launched it (matched by correlation
-    id)."""
+    """[CUDA kernels launched in each traced step] of a torch.profiler
+    Chrome trace: a kernel belongs to the host-side ``train.step`` range
+    (``utils/tracing.py``'s span) that holds the CUDA API call that
+    launched it (matched by correlation id), on any thread."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    steps = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
-             if e.get("cat") == "user_annotation"
-             and e.get("name", "").startswith("train_step ")]
+    steps = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("name") == "train.step" and e.get("ph") == "X"
+                   and e.get("cat") in ("cpu_op", "user_annotation"))
     launched = {e["args"]["correlation"]: e["ts"] for e in events
                 if e.get("cat", "").startswith("cuda_")
                 and "correlation" in e.get("args", {})}
-    counts = {name: 0 for name, _, _ in steps}
+    counts = [0] * len(steps)
     for e in events:
         if e.get("cat") != "kernel":
             continue
         ts = launched.get(e.get("args", {}).get("correlation"))
-        for name, a, b in steps:
+        for i, (a, b) in enumerate(steps):
             if ts is not None and a <= ts <= b:
-                counts[name] += 1
+                counts[i] += 1
     return counts
 
 
@@ -2886,8 +2886,7 @@ def run_tasks_phase(device_line):
         print(f"tasks (e) --profile trace {trace} ({os.path.getsize(trace)} "
               f"bytes): CUDA kernels a traced step {per_step} "
               f"[{device_line}]", flush=True)
-        if (len(per_step) != TRACED_STEPS
-                or not all(v > 0 for v in per_step.values())):
+        if len(per_step) != TRACED_STEPS or not all(per_step):
             raise SmokeFailure(f"(e) kernels a traced step {per_step}")
 
         # (f) the dumps

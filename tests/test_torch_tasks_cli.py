@@ -106,12 +106,17 @@ def test_last_eval_dumps_every_frame_and_the_gif(run):
 
 
 def test_profile_traces_steps_2_to_6(run):
-    _, _, outf = run
+    _, tr, outf = run
     with open(os.path.join(outf, "profile", "trace.json")) as f:
         events = json.load(f)["traceEvents"]
-    steps = sorted({e["name"] for e in events
-                    if e.get("name", "").startswith("train_step ")})
-    assert steps == [f"train_step {i}" for i in range(2, 7)]
+    names = [e["name"] for e in events
+             if e.get("ph") == "X" and e.get("name", "").startswith("train.")]
+    assert names.count("train.step") == 5  # steps 2-6
+    assert {"train.gather", "train.forward", "train.loss", "train.backward",
+            "train.psnr", "train.optim"} <= set(names)
+    with open(tr.logger.log_path) as f:
+        log = f.read()
+    assert "spans over 5 unit(s)" in log and "train.backward" in log
 
 
 _BLOCKED = """
