@@ -47,7 +47,7 @@ def decode_controls(cell):
     int8 and in fp8 and the program's own W8A8 path."""
     want = cell.reference_frames()
     m = cell.cfg["model"]
-    plan = ref.stage_plan(m)
+    plan = cell.fam.stage_plan(m)
     out = {}
     if cell.mix["precision"] == "w8a8":
         ctl = cell.reference_frames(bits=4, stages=ref.w8a8_stages(m, plan))

@@ -19,8 +19,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional
 
-from .reference.models import (planar_tail, stage_heights, stage_plan,
-                               w8a8_stages)
+from . import harness
+from .reference.models import (conv_macs, grid_hw, planar_tail,
+                               rsft_layers, stage_heights, w8a8_stages)
 
 PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12}
 HBM_BYTES_S = 3.35e12
@@ -33,68 +34,41 @@ class Layer:
     stage: Optional[int]  # decoder stage, None outside the stages
 
 
-def _conv(name, h, w, cin, cout, k, stage=None, groups=1):
-    return Layer(name, h * w * cout * k * k * (cin // groups), stage)
-
-
 def decoder_layers(cfg: dict) -> List[Layer]:
-    """The decoder's convs and linears for one frame, from the time MLP
-    and the stem to the head."""
+    """The decoder's convs and linears for one frame, from the family's
+    front (its ``front_layers``: the time MLP, the stem) through each
+    stage's own layers and ResBlockSFT to the head."""
     m = cfg["model"]
-    plan = stage_plan(m)
+    fam = harness.family(m["model"])
+    plan = fam.stage_plan(m)
     hw = stage_heights(m, plan)
-    fh, fw = (int(v) for v in m["fc_hw"].split("_"))
-    levels, ch_t = int(m["embed"].split("_")[-1]), m["ch_t"]
-    out = [Layer("stem_t", 2 * levels * 2 * ch_t + 2 * ch_t * ch_t, None)]
-    sft = 2 * ch_t * ch_t  # scale_in + shift_in of one SFT
-
-    def rsft(prefix, h, w, c, stage):
-        return [Layer(prefix + ".sft", 2 * (sft + 2 * ch_t * c), stage),
-                _conv(prefix + ".conv0", h, w, c, c, 3, stage),
-                _conv(prefix + ".conv1", h, w, c, c, 3, stage)]
-
-    if m["model"] == "HNeRV_Boost":
-        emb = int(m["enc_dim"].split("_")[1])
-        out.append(_conv("stem.conv", fh, fw, emb, m["fc_dim"], 1))
-        out += rsft("stem.rsft", fh, fw, m["fc_dim"], None)
-        head_k = 3
-    else:
-        out.append(Layer("stem", 2 * levels * 256
-                         + 256 * fh * fw * m["fc_dim"], None))
-        head_k = 1
-    h, w = fh, fw
+    out = [Layer(name, macs, None) for name, macs in fam.front_layers(m)]
+    h, w = grid_hw(m)
     for i, s in enumerate(plan):
-        k = min(s.ks, 3)
-        out.append(_conv(f"blocks.{i}.conv", h, w, s.ngf,
-                         s.new_ngf * s.strd ** 2, k, i))
+        out += [Layer(name, macs, i)
+                for name, macs in fam.stage_layers(m, i, s, h, w)]
         h, w = hw[i]
-        out += rsft(f"blocks.{i}.rsft", h, w, s.new_ngf, i)
-    out.append(_conv("head", h, w, plan[-1].new_ngf, 3, head_k,
+        out += [Layer(name, macs, i) for name, macs in
+                rsft_layers(f"blocks.{i}.rsft", h, w, s.new_ngf, m["ch_t"])]
+    out.append(Layer("head", conv_macs(h, w, plan[-1].new_ngf, 3, fam.HEAD_K),
                      len(plan) - 1))
     return out
 
 
 def encoder_layers(cfg: dict) -> List[Layer]:
-    """HNeRV-Boost's ConvNeXt encoder on one frame."""
-    m, clip = cfg["model"], cfg["clip"]
-    dims = [int(m["enc_dim"].split("_")[0])] * len(m["enc_strds"])
-    dims[-1] = int(m["enc_dim"].split("_")[1])
-    h, w, cin, out = clip["height"], clip["width"], 3, []
-    for i, (d, s) in enumerate(zip(dims, m["enc_strds"])):
-        h, w = h // s, w // s
-        out.append(_conv(f"encoder.convs.{i}", h, w, cin, d, s))
-        for _ in range(m["enc_blks"]):
-            out.append(_conv(f"encoder.dwconv.{i}", h, w, d, d, 7, groups=d))
-            out.append(Layer(f"encoder.mlp.{i}", h * w * d * 4 * d * 2, None))
-        cin = d
-    return out
+    """The family's encoder on one frame of the clip (its
+    ``encoder_layers``)."""
+    m = cfg["model"]
+    return [Layer(name, macs, None) for name, macs in
+            harness.family(m["model"]).encoder_layers(m, cfg["clip"])]
 
 
 def decode_precisions(cfg: dict, precision: str) -> List[str]:
     """The precision each of ``decoder_layers`` is served in: int8 in the
     W8A8 stages (their convs and the head of an int8 last stage), bf16
     everywhere else."""
-    int8 = (set(w8a8_stages(cfg["model"], stage_plan(cfg["model"])))
+    m = cfg["model"]
+    int8 = (set(w8a8_stages(m, harness.family(m["model"]).stage_plan(m)))
             if precision == "w8a8" else set())
     return ["int8" if (layer.stage in int8 and not layer.name.endswith(".sft"))
             else "bf16" for layer in decoder_layers(cfg)]
@@ -131,14 +105,15 @@ def tail_bounds(cfg: dict, precision: str) -> List[tuple]:
     first) stores int8 codes; every stage reads its [4, C] float32 SFT
     vectors."""
     m = cfg["model"]
-    plan = stage_plan(m)
+    fam = harness.family(m["model"])
+    plan = fam.stage_plan(m)
     hw = stage_heights(m, plan)
     first = planar_tail(m, plan)
     i8 = set(w8a8_stages(m, plan)) if precision == "w8a8" else set()
     codes_in = i8 - {first}
     last = len(plan) - 1
     head = plan[-1].strd == 1   # the head is fused into the last stage
-    head_k = 3 if m["model"] == "HNeRV_Boost" else 1
+    head_k = fam.HEAD_K
     out = []
     for i in range(first, len(plan)):
         s = plan[i]

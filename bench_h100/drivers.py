@@ -13,7 +13,9 @@ one each epoch), the learning rate on the recipe's schedule.
 
 Each cell object builds its program state from the seed (``setup``),
 runs the window (``window``), frees the program's state (``free``) and
-compares what the window produced with the plain reference (``check``).
+compares what the window produced with the plain reference (``check``):
+the family file that ``harness.family`` finds by the configuration's
+``model``.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from . import inputs
+from . import harness, inputs
 from .reference import models as ref
 from .reference import train as ref_train
 from .trace import SPAN
@@ -113,10 +115,7 @@ class DecodeCell:
         self.cfg, self.mix, self.seed = cfg, mix, seed
         self.device, self.trace = device, trace
         self.n = cfg["clip"]["frames"]
-        self.hnerv = cfg["model"]["model"] == "HNeRV_Boost"
-        if cfg["model"]["model"] not in ("HNeRV_Boost", "NeRV_Boost"):
-            raise ValueError("the reference decodes HNeRV-Boost and "
-                             "NeRV-Boost only")
+        self.fam = harness.family(cfg["model"]["model"])
         rng = np.random.default_rng([seed, 1])
         self.sample = set(rng.choice(self.n, mix["check_frames"],
                                      replace=False).tolist())
@@ -136,12 +135,9 @@ class DecodeCell:
             build_serving_decode
 
         dev = self.device
-        self.params = inputs.make_weights(self.cfg["model"], self.seed, dev)
         m = self.cfg["model"]
-        fh, fw = (int(v) for v in m["fc_hw"].split("_"))
-        emb = int(m["enc_dim"].split("_")[1]) if self.hnerv else 0
-        self.embeds = (inputs.make_embeds(self.n, (fh, fw, emb), self.seed,
-                                          dev) if self.hnerv else None)
+        self.params = inputs.make_weights(m, self.seed, dev)
+        self.frame_in = self.fam.frame_inputs(m, self.n, self.seed, dev)
         self.ts = torch.from_numpy(frame_times(np.arange(self.n), self.n)
                                    ).to(dev)[:, None]
         mark(self, "inputs")
@@ -163,8 +159,10 @@ class DecodeCell:
         mark(self, "warm frames")
 
     def args(self, i):
-        return ((self.embeds[i:i + 1] if self.hnerv else None),
-                self.ts[i])
+        """Frame i's arguments of the decode: its row of the family's frame
+        inputs (None without them) and its index."""
+        x = self.frame_in
+        return (None if x is None else x[i:i + 1]), self.ts[i]
 
     def next_index(self) -> int:
         if self.mix["order"] == "sequential":
@@ -208,17 +206,15 @@ class DecodeCell:
         again, on bounds calibrated again from the same frames), or the
         given ``stages`` at ``bits`` (or in fp8), for a control."""
         m = self.cfg["model"]
-        plan = ref.stage_plan(m)
+        plan = self.fam.stage_plan(m)
         if stages is None:
             stages = (ref.w8a8_stages(m, plan)
                       if self.mix["precision"] == "w8a8" else [])
             bits = 8
         p = self.params
 
-        def dec(embed, t, quant=None, calib=None):
-            if self.hnerv:
-                return ref.hnerv_decode(embed, t, p, m, quant, calib)
-            return ref.nerv_decode(t, p, m, quant, calib)
+        def dec(x, t, quant=None, calib=None):
+            return self.fam.decode(x, t, p, m, quant, calib)
 
         quant = None
         with torch.no_grad(), fp32_exact():
@@ -258,7 +254,7 @@ class DecodeCell:
         """The program serves int8 exactly where the reference's rule
         says."""
         m = self.cfg["model"]
-        want = (ref.w8a8_stages(m, ref.stage_plan(m))
+        want = (ref.w8a8_stages(m, self.fam.stage_plan(m))
                 if self.mix["precision"] == "w8a8" else [])
         return self.w8a8_stages == want
 
@@ -273,11 +269,18 @@ class TrainCell:
         self.n = cfg["clip"]["frames"]
         self.batch = cfg["train"]["batch"]
         t = cfg["train"]
-        if (cfg["model"]["model"], t["loss"], t["optim_type"],
-                t["lr_type"].split("_")[0]) != ("HNeRV_Boost", "Fusion10_freq",
-                                                "Adan", "cosine"):
-            raise ValueError("the reference trains HNeRV-Boost with "
-                             "Fusion10_freq, Adan and a cosine schedule only")
+        lacks = [f"{key} {got!r}" for key, got, want in (
+            ("loss", t["loss"], "Fusion10_freq"),
+            ("optim_type", t["optim_type"], "Adan"),
+            ("lr_type", t["lr_type"].split("_")[0], "cosine")) if got != want]
+        if lacks:
+            raise ValueError("the reference trainer lacks " + ", ".join(lacks)
+                             + ": it trains with Fusion10_freq, Adan and a "
+                             "cosine schedule only")
+        self.fam = harness.family(cfg["model"]["model"])
+        if not hasattr(self.fam, "forward"):
+            raise ValueError(f"the reference family {self.fam.__name__} has "
+                             "no training forward")
         self.step_no = 0
         self.units = 0
         self.marks: List[tuple] = []
@@ -399,7 +402,7 @@ class TrainCell:
                 t = torch.from_numpy(frame_times(idx, self.n)).to(
                     self.device)
                 with cast:
-                    out = ref.hnerv_forward(img, t, p, m)
+                    out = self.fam.forward(img, t, p, m)
                 loss = ref_train.fusion10_freq(out.float(), img)
                 g = torch.autograd.grad(loss, list(p.values()))
                 g = dict(zip(p.keys(), g))

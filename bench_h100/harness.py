@@ -11,7 +11,10 @@ Files, by name:
 - ``bench_h100/limits/<config>.<mix>.json``: the limit of each number the
   cell's check compares;
 - ``bench_h100/metrics/<metric>.py``: a metric's reader, ``read(ctx)``,
-  returning a number, or None when it finds nothing to read.
+  returning a number, or None when it finds nothing to read;
+- ``bench_h100/reference/<model>.py``, the configuration's ``model`` in
+  lower case: the family's plain reference, its parameters, frame inputs
+  and counts (the interface is in ``reference/models.py``).
 """
 
 from __future__ import annotations
@@ -93,6 +96,18 @@ def reader(metric: str):
     mod = importlib.util.module_from_spec(spec_)
     spec_.loader.exec_module(mod)
     return mod.read
+
+
+def family(model: str):
+    """The reference family file of a configuration's ``model``
+    (``reference/<model in lower case>.py``); stops the run, naming the
+    path it looked for, where there is none."""
+    name = model.lower()
+    path = os.path.join(HERE, "reference", name + ".py")
+    if not (name.isidentifier() and os.path.isfile(path)):
+        raise SystemExit(f"no reference family for model {model!r}: "
+                         f"{path} is missing")
+    return importlib.import_module("bench_h100.reference." + name)
 
 
 def read_metrics(metrics: List[dict], ctx: Ctx) -> Dict[str, dict]:

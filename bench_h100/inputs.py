@@ -1,6 +1,7 @@
 """What a run feeds the program and the reference, made from ``--seed``
-on the device: the weights, the decode cells' embeddings and the training
-cells' clip.  The same seed gives the same tensors."""
+on the device: the weights, the per-frame embeddings of a family that
+takes them (its ``frame_inputs``) and the training cells' clip.  The same
+seed gives the same tensors."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from .reference.models import param_shapes
+from . import harness
 
 # a distinct stream of the seed for each input
 WEIGHTS, EMBEDS, CLIP = 0, 1, 2
@@ -31,9 +32,10 @@ def make_weights(model: dict, seed: int, device) -> Dict[str, torch.Tensor]:
     """Every parameter of the configuration's model, float32: one uniform
     draw in [-1, 1) for all of them, each parameter's slice scaled by its
     bound (1 / sqrt(fan_in) of its layer for a conv's or a linear's weight
-    and bias, 0.02 sqrt(3) for the ConvNeXt encoder's weights, whose
-    std is then 0.02); LayerNorm 1 and 0, layer scale 1e-6."""
-    shapes = param_shapes(model)
+    and bias, 0.02 sqrt(3) for "trunc02" weights, whose std is then 0.02),
+    in the order of the family's ``param_shapes``; LayerNorm 1 and 0,
+    layer scale 1e-6."""
+    shapes = harness.family(model["model"]).param_shapes(model)
     total = sum(math.prod(s) for s, _ in shapes.values())
     flat = torch.empty(total, device=device).uniform_(
         -1.0, 1.0, generator=generator(seed, WEIGHTS, device))

@@ -1,6 +1,33 @@
-"""Plain PyTorch forward passes of HNeRV-Boost and NeRV-Boost, written as
-functions of a parameter dict (name -> tensor, the names of the models'
-``state_dict``), so that they share no code with the program they judge.
+"""What the model families of the plain reference share: the positional
+encoding, MLPs, SFT and ResBlockSFT, the decoder stages and head, the
+integer stages, and the arithmetic of parameter shapes and multiply-adds.
+Everything is a function of a parameter dict (name -> tensor, the names of
+the models' ``state_dict``), so that it shares no code with the program it
+judges.
+
+A family lives in a file of its own, ``reference/<model>.py`` with the
+configuration's ``model`` in lower case, which ``harness.family`` finds
+by that name.  A family file defines:
+
+- ``stage_plan(model)``: the decoder's stages (``Stage``), from the shared
+  ``stage_plan`` below fed by the family's width rule;
+- ``param_shapes(model)``: every parameter, name -> (shape, init), in the
+  order ``inputs.make_weights`` draws them (the order is part of the
+  weights);
+- ``frame_inputs(model, n, seed, device)``: the per-frame inputs besides
+  the index t, [n, ...], made from the seed, or None;
+- ``decode(x, t, p, model, quant=None, calib=None)``: the serving
+  reference, frame input (a row of ``frame_inputs``, or None) and index
+  [B] -> frame [B, H, W, 3];
+- ``forward(img, t, p, model)`` and ``encoder_layers(model, clip)``: the
+  training reference and its encoder's multiply-adds, in the families the
+  reference trains only;
+- ``front_layers(model)``: one frame's multiply-adds ahead of stage 0,
+  [(name, macs)];
+- ``stage_layers(model, i, stage, h, w)``: stage i's multiply-adds ahead of
+  its activation, on an h x w input (the shared ``stage_layers`` below
+  for a conv and PixelShuffle);
+- ``HEAD_K``: the head conv's kernel size.
 
 The equations are the Boosting-NeRV paper's (arXiv:2404.06707) as the
 reference repository implements them:
@@ -12,14 +39,8 @@ reference repository implements them:
 - SFT(x | c) = x (scale(c) + 1) + shift(c), scale = W2 relu(W1 c) + b;
 - ResBlockSFT(x | c) = x + conv1(SFT1(gelu(conv0(SFT0(x | c))) | c));
 - a decoder stage: conv (k x k, k = min(ks, 3)), PixelShuffle(stride), sin,
-  ResBlockSFT conditioned on stem_t(PE(t));
-- the head: conv, then tanh(x) / 2 + 1/2;
-- HNeRV-Boost's ConvNeXt encoder: per stage a stride x stride patchify
-  conv (stage 0: conv then LayerNorm; later stages: LayerNorm then conv)
-  and ConvNeXt blocks (7x7 depthwise conv, LayerNorm, 4x MLP with exact
-  GELU, layer scale, residual); its decoder stem is a 1x1 conv, sin and a
-  ResBlockSFT; NeRV-Boost's stem is an MLP on PE(t) reshaped to the
-  fc_h x fc_w grid (channels last).
+  ResBlockSFT conditioned on the family's time embedding;
+- the head: conv, then tanh(x) / 2 + 1/2.
 
 ``quant`` runs chosen stages with symmetric per-channel integer weights
 and activations (``Quant``): the W8A8 serving rule, worked out here again
@@ -37,6 +58,8 @@ import torch
 import torch.nn.functional as F
 
 Params = Dict[str, torch.Tensor]
+Shapes = Dict[str, Tuple[Tuple[int, ...], str]]
+Macs = List[Tuple[str, int]]
 
 
 @dataclass(frozen=True)
@@ -47,20 +70,19 @@ class Stage:
     strd: int
 
 
-def stage_plan(model: dict) -> List[Stage]:
-    """The decoder's stages from the configuration's ``model`` section:
-    HNeRV-Boost divides the width by ``reduce`` (rounded) at every stage,
-    NeRV-Boost keeps stage 0's width and floor-divides at every stride-2
-    stage; a stage of n blocks upsamples in its first; the kernel of
-    stage i is min(ks1 + 2 i, ks2)."""
+def stage_plan(model: dict, expansion: Optional[int] = None) -> List[Stage]:
+    """The decoder's stages from the configuration's ``model`` section.
+    With ``expansion`` None every stage divides the width by ``reduce``
+    (rounded); else stage 0 multiplies it by ``expansion`` and every
+    stride-2 stage floor-divides it.  A stage of n blocks upsamples in its
+    first; the kernel of stage i is min(ks1 + 2 i, ks2)."""
     _, ks1, ks2 = (int(v) for v in model["ks"].split("_"))
-    hnerv = model["model"] == "HNeRV_Boost"
     plan, ngf = [], model["fc_dim"]
     for i, strd in enumerate(model["dec_strds"]):
-        if hnerv:
+        if expansion is None:
             new = int(max(round(ngf / model["reduce"]), model["lower_width"]))
         elif i == 0:
-            new = ngf
+            new = int(ngf * expansion)
         else:
             new = int(max(ngf // (1 if strd == 1 else model["reduce"]),
                           model["lower_width"]))
@@ -71,8 +93,14 @@ def stage_plan(model: dict) -> List[Stage]:
     return plan
 
 
+def grid_hw(model: dict) -> Tuple[int, int]:
+    """The fc_h x fc_w grid that stage 0 upsamples."""
+    fh, fw = (int(v) for v in model["fc_hw"].split("_"))
+    return fh, fw
+
+
 def stage_heights(model: dict, plan: List[Stage]) -> List[Tuple[int, int]]:
-    h, w = (int(v) for v in model["fc_hw"].split("_"))
+    h, w = grid_hw(model)
     out = []
     for s in plan:
         h, w = h * s.strd, w * s.strd
@@ -112,21 +140,21 @@ def position_encoding(t: torch.Tensor, embed: str,
     return torch.cat([torch.sin(vals), torch.cos(vals)], dim=-1)
 
 
-def _lin(x, p: Params, name: str):
+def lin(x, p: Params, name: str):
     return F.linear(x, p[name + ".weight"], p[name + ".bias"])
 
 
 def mlp(x, p: Params, name: str, layers: int):
     for i in range(layers):
-        x = torch.sin(_lin(x, p, f"{name}.layers.{i}"))
+        x = torch.sin(lin(x, p, f"{name}.layers.{i}"))
     return x
 
 
 def _sft(x, p: Params, name: str, cond):
-    scale = _lin(F.relu(_lin(cond, p, name + ".scale_in")), p,
-                 name + ".scale_out")
-    shift = _lin(F.relu(_lin(cond, p, name + ".shift_in")), p,
-                 name + ".shift_out")
+    scale = lin(F.relu(lin(cond, p, name + ".scale_in")), p,
+                name + ".scale_out")
+    shift = lin(F.relu(lin(cond, p, name + ".shift_in")), p,
+                name + ".shift_out")
     return x * (scale[:, :, None, None] + 1.0) + shift[:, :, None, None]
 
 
@@ -190,7 +218,9 @@ class _Calib:
         self.bounds[key] = m if old is None else torch.maximum(old, m)
 
 
-def _conv(x, p, name, pad, stage=None, key=None, quant=None, calib=None):
+def conv(x, p, name, pad, stage=None, key=None, quant=None, calib=None):
+    """The conv ``name`` of NCHW ``x``, in ``quant``'s precision where its
+    stage is one of ``quant``'s, its input's bounds seen by ``calib``."""
     w, b = p[name + ".weight"], p[name + ".bias"]
     if calib is not None and stage in calib.stages:
         calib.see(f"{stage}.{key}", x)
@@ -199,82 +229,32 @@ def _conv(x, p, name, pad, stage=None, key=None, quant=None, calib=None):
     return F.conv2d(x, w, b, padding=pad)
 
 
-def _rsft(x, p, name, cond, **q):
+def rsft(x, p, name, cond, **q):
     t0 = _sft(x, p, name + ".sft0", cond)
-    a = F.gelu(_conv(t0, p, name + ".conv0", 1, key="t0", **q))
+    a = F.gelu(conv(t0, p, name + ".conv0", 1, key="t0", **q))
     t1 = _sft(a, p, name + ".sft1", cond)
-    return x + _conv(t1, p, name + ".conv1", 1, key="t1", **q)
+    return x + conv(t1, p, name + ".conv1", 1, key="t1", **q)
 
 
-def decode_stages(x, t_embed, p: Params, model: dict, quant=None,
-                  calib=None):
-    """The decoder stages and head of NCHW ``x`` -> NHWC frame."""
-    plan = stage_plan(model)
+def upsample(x, p: Params, i: int, s: Stage, q: dict):
+    """Stage i's conv and PixelShuffle: its map before the activation."""
+    k = min(s.ks, 3)
+    y = conv(x, p, f"blocks.{i}.conv.conv", (k - 1) // 2, key="x", **q)
+    return F.pixel_shuffle(y, s.strd) if s.strd > 1 else y
+
+
+def decode_stages(x, t_embed, p: Params, plan: List[Stage], quant=None,
+                  calib=None, up=upsample):
+    """The decoder stages and head of NCHW ``x`` -> NHWC frame; ``up`` is
+    a stage's map before its activation (``upsample``'s signature)."""
     for i, s in enumerate(plan):
         q = {"stage": i, "quant": quant, "calib": calib}
-        k = min(s.ks, 3)
-        y = _conv(x, p, f"blocks.{i}.conv.conv", (k - 1) // 2, key="x", **q)
-        if s.strd > 1:
-            y = F.pixel_shuffle(y, s.strd)
-        x = _rsft(torch.sin(y), p, f"blocks.{i}.rsft", t_embed, **q)
+        x = rsft(torch.sin(up(x, p, i, s, q)), p, f"blocks.{i}.rsft",
+                 t_embed, **q)
     head = p["head.weight"]
-    y = _conv(x, p, "head", head.shape[-1] // 2, stage=len(plan) - 1,
-              key="h", quant=quant, calib=calib)
+    y = conv(x, p, "head", head.shape[-1] // 2, stage=len(plan) - 1,
+             key="h", quant=quant, calib=calib)
     return (torch.tanh(y) * 0.5 + 0.5).permute(0, 2, 3, 1)
-
-
-def hnerv_decode(embed, t, p: Params, model: dict, quant=None, calib=None):
-    """HNeRV-Boost: embedding [B, h, w, C] + index [B] -> [B, H, W, 3]."""
-    dtype = p["head.weight"].dtype
-    t_embed = mlp(position_encoding(t, model["embed"], dtype), p, "stem_t", 2)
-    x = torch.sin(_conv(embed.permute(0, 3, 1, 2).to(dtype), p,
-                        "stem.conv.conv", 0))
-    x = _rsft(x, p, "stem.rsft", t_embed)
-    return decode_stages(x, t_embed, p, model, quant, calib)
-
-
-def nerv_decode(t, p: Params, model: dict, quant=None, calib=None):
-    """NeRV-Boost: index [B] -> [B, H, W, 3]."""
-    dtype = p["head.weight"].dtype
-    pe = position_encoding(t, model["embed"], dtype)
-    fh, fw = (int(v) for v in model["fc_hw"].split("_"))
-    x = mlp(pe, p, "stem", 2).reshape(t.shape[0], fh, fw, -1)
-    x = x.permute(0, 3, 1, 2)
-    return decode_stages(x, mlp(pe, p, "stem_t", 2), p, model, quant, calib)
-
-
-def _ln_channels(x, p, name):
-    y = F.layer_norm(x.permute(0, 2, 3, 1), (x.shape[1],),
-                     p[name + ".weight"], p[name + ".bias"], eps=1e-6)
-    return y.permute(0, 3, 1, 2)
-
-
-def encode(img, p: Params, model: dict):
-    """ConvNeXt encoder: frame [B, H, W, 3] -> embedding [B, h, w, C]."""
-    x = img.permute(0, 3, 1, 2)
-    for i, s in enumerate(model["enc_strds"]):
-        conv = lambda v: F.conv2d(v, p[f"encoder.convs.{i}.weight"],  # noqa
-                                  p[f"encoder.convs.{i}.bias"], stride=s)
-        if i == 0:
-            x = _ln_channels(conv(x), p, "encoder.norms.0")
-        else:
-            x = conv(_ln_channels(x, p, f"encoder.norms.{i}"))
-        for j in range(i * model["enc_blks"], (i + 1) * model["enc_blks"]):
-            n = f"encoder.blocks.{j}"
-            c = x.shape[1]
-            y = F.conv2d(x, p[n + ".dwconv.weight"], p[n + ".dwconv.bias"],
-                         padding=3, groups=c)
-            y = F.layer_norm(y.permute(0, 2, 3, 1), (c,), p[n + ".norm.weight"],
-                             p[n + ".norm.bias"], eps=1e-6)
-            y = _lin(F.gelu(_lin(y, p, n + ".fc1")), p, n + ".fc2")
-            x = x + (p[n + ".gamma"] * y).permute(0, 3, 1, 2)
-    return x.permute(0, 2, 3, 1)
-
-
-def hnerv_forward(img, t, p: Params, model: dict):
-    """HNeRV-Boost's training forward: frame [B, H, W, 3] + index [B] ->
-    reconstructed frame [B, H, W, 3]."""
-    return hnerv_decode(encode(img, p, model), t, p, model)
 
 
 def calibrate(decode, frames, stages, margin=1.05) -> Dict[str, torch.Tensor]:
@@ -287,71 +267,60 @@ def calibrate(decode, frames, stages, margin=1.05) -> Dict[str, torch.Tensor]:
     return {k: v * margin for k, v in calib.bounds.items()}
 
 
-def param_shapes(model: dict, embed_ch: Optional[int] = None
-                 ) -> Dict[str, Tuple[Tuple[int, ...], str]]:
-    """Every parameter of the model: name -> (shape, init), init one of
-    "fan_in" (U(+-1/sqrt(fan_in)) for a conv's or linear's weight and
-    bias), "trunc02" (std 0.02, the ConvNeXt encoder's weights), "zero",
-    "one" or "gamma" (layer scale 1e-6)."""
-    out: Dict[str, Tuple[Tuple[int, ...], str]] = {}
-
-    def lin(name, i, o):
-        out[name + ".weight"] = ((o, i), "fan_in")
+# -- parameter shapes: name -> (shape, init), init one of "fan_in"
+# (U(+-1/sqrt(fan_in)) for a conv's or linear's weight and bias, each bias
+# after its weight), "trunc02" (std 0.02), "zero", "one" or "gamma" (layer
+# scale 1e-6) ------------------------------------------------------------ #
+def add_linear(out: Shapes, name: str, i: int, o: int, bias: bool = True):
+    out[name + ".weight"] = ((o, i), "fan_in")
+    if bias:
         out[name + ".bias"] = ((o,), "fan_in")
 
-    def conv(name, i, o, k):
-        out[name + ".weight"] = ((o, i, k, k), "fan_in")
-        out[name + ".bias"] = ((o,), "fan_in")
 
-    def rsft(name, c, ch_t):
-        for s in ("sft0", "sft1"):
-            for part in ("scale", "shift"):
-                lin(f"{name}.{s}.{part}_in", ch_t, ch_t)
-                lin(f"{name}.{s}.{part}_out", ch_t, c)
-        conv(name + ".conv0", c, c, 3)
-        conv(name + ".conv1", c, c, 3)
+def add_conv(out: Shapes, name: str, i: int, o: int, k: int):
+    out[name + ".weight"] = ((o, i, k, k), "fan_in")
+    out[name + ".bias"] = ((o,), "fan_in")
 
-    ch_t = model["ch_t"]
-    levels = int(model["embed"].split("_")[-1])
-    plan = stage_plan(model)
-    if model["model"] == "HNeRV_Boost":
-        dims = [int(model["enc_dim"].split("_")[0])] * len(model["enc_strds"])
-        dims[-1] = int(model["enc_dim"].split("_")[1])
-        ins = [3, *dims[:-1]]
-        for i, (ci, d, s) in enumerate(zip(ins, dims, model["enc_strds"])):
-            out[f"encoder.convs.{i}.weight"] = ((d, ci, s, s), "trunc02")
-            out[f"encoder.convs.{i}.bias"] = ((d,), "zero")
-        for i, (ci, d) in enumerate(zip(ins, dims)):
-            c = d if i == 0 else ci
-            out[f"encoder.norms.{i}.weight"] = ((c,), "one")
-            out[f"encoder.norms.{i}.bias"] = ((c,), "zero")
-        for j, d in enumerate(d for d in dims
-                              for _ in range(model["enc_blks"])):
-            n = f"encoder.blocks.{j}"
-            out[n + ".gamma"] = ((d,), "gamma")
-            out[n + ".dwconv.weight"] = ((d, 1, 7, 7), "trunc02")
-            out[n + ".dwconv.bias"] = ((d,), "zero")
-            out[n + ".norm.weight"] = ((d,), "one")
-            out[n + ".norm.bias"] = ((d,), "zero")
-            out[n + ".fc1.weight"] = ((4 * d, d), "trunc02")
-            out[n + ".fc1.bias"] = ((4 * d,), "zero")
-            out[n + ".fc2.weight"] = ((d, 4 * d), "trunc02")
-            out[n + ".fc2.bias"] = ((d,), "zero")
-        lin("stem_t.layers.0", 2 * levels, 2 * ch_t)
-        lin("stem_t.layers.1", 2 * ch_t, ch_t)
-        conv("stem.conv.conv", embed_ch or dims[-1], model["fc_dim"], 1)
-        rsft("stem.rsft", model["fc_dim"], ch_t)
-        head_k = 3
-    else:
-        fh, fw = (int(v) for v in model["fc_hw"].split("_"))
-        lin("stem.layers.0", 2 * levels, 256)
-        lin("stem.layers.1", 256, fh * fw * model["fc_dim"])
-        lin("stem_t.layers.0", 2 * levels, 2 * ch_t)
-        lin("stem_t.layers.1", 2 * ch_t, ch_t)
-        head_k = 1
-    for i, s in enumerate(plan):
-        k = min(s.ks, 3)
-        conv(f"blocks.{i}.conv.conv", s.ngf, s.new_ngf * s.strd ** 2, k)
-        rsft(f"blocks.{i}.rsft", s.new_ngf, ch_t)
-    conv("head", plan[-1].new_ngf, 3, head_k)
-    return out
+
+def add_rsft(out: Shapes, name: str, c: int, ch_t: int):
+    for s in ("sft0", "sft1"):
+        for part in ("scale", "shift"):
+            add_linear(out, f"{name}.{s}.{part}_in", ch_t, ch_t)
+            add_linear(out, f"{name}.{s}.{part}_out", ch_t, c)
+    add_conv(out, name + ".conv0", c, c, 3)
+    add_conv(out, name + ".conv1", c, c, 3)
+
+
+def add_stage(out: Shapes, i: int, s: Stage, ch_t: int):
+    """A stage of ``upsample``: its conv, then its ResBlockSFT."""
+    add_conv(out, f"blocks.{i}.conv.conv", s.ngf, s.new_ngf * s.strd ** 2,
+             min(s.ks, 3))
+    add_rsft(out, f"blocks.{i}.rsft", s.new_ngf, ch_t)
+
+
+# -- multiply-adds of one frame ----------------------------------------- #
+def conv_macs(h: int, w: int, cin: int, cout: int, k: int,
+              groups: int = 1) -> int:
+    """A k x k conv's multiply-adds producing an h x w map."""
+    return h * w * cout * k * k * (cin // groups)
+
+
+def mlp_macs(dims: List[int]) -> int:
+    """An MLP's multiply-adds on one vector through widths ``dims``."""
+    return sum(a * b for a, b in zip(dims, dims[1:]))
+
+
+def rsft_layers(prefix: str, h: int, w: int, c: int, ch_t: int) -> Macs:
+    """A ResBlockSFT's work: its two SFTs' linears (the in-layers
+    ch_t x ch_t, the out-layers ch_t x c, for scale and shift), then its
+    two 3x3 convs."""
+    sft = 2 * ch_t * ch_t  # scale_in + shift_in of one SFT
+    return [(prefix + ".sft", 2 * (sft + 2 * ch_t * c)),
+            (prefix + ".conv0", conv_macs(h, w, c, c, 3)),
+            (prefix + ".conv1", conv_macs(h, w, c, c, 3))]
+
+
+def stage_layers(model: dict, i: int, s: Stage, h: int, w: int) -> Macs:
+    """``upsample``'s conv of stage i on an h x w input."""
+    return [(f"blocks.{i}.conv",
+             conv_macs(h, w, s.ngf, s.new_ngf * s.strd ** 2, min(s.ks, 3)))]

@@ -22,12 +22,24 @@ def bench():
 
 def config(name, frames=4):
     """The configuration ``name`` cut to a 2x2 grid (240x240 frames),
-    fc_dim 64, ``frames`` frames."""
+    fc_dim 64, an encoder's embedding of 8 channels, ``frames`` frames."""
     cfg = copy.deepcopy(_load("configs", name + ".json"))
     cfg["model"].update(fc_hw="2_2", fc_dim=64, lower_width=32)
-    if cfg["model"]["model"] == "HNeRV_Boost":
+    if "enc_dim" in cfg["model"]:
         cfg["model"]["enc_dim"] = "16_8"
     cfg["clip"] = {"frames": frames, "height": 240, "width": 240}
+    return cfg
+
+
+def enerv_boost(block_dim=128, frames=4):
+    """An E-NeRV-Boost configuration at ``config``'s small size, built here
+    and not read from a file: the 10M NeRV-Boost configuration with the
+    E-NeRV-Boost recipe's model (scripts/regression/UVG/enerv_boost.sh,
+    modelsize 4.3, block_dim 128)."""
+    cfg = config("nerv_boost_10m_uvg1080p", frames)
+    cfg["name"] = "enerv_boost_small"
+    cfg["model"].update(model="ENeRV_Boost", modelsize=4.3,
+                        block_dim=block_dim)
     return cfg
 
 

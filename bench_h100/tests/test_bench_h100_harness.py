@@ -8,6 +8,8 @@ import json
 import math
 import os
 import re
+import subprocess
+import sys
 from types import SimpleNamespace
 
 import numpy as np
@@ -21,6 +23,16 @@ from bench_h100.trace import Trace
 
 BENCH = os.path.join(small.ROOT, "bench_h100")
 SEED = 2 ** 31 + 77   # seeds past 32 signed bits are taken whole
+# the small configurations of every family: the cells' two, and
+# E-NeRV-Boost's, built in the tests (with heads of 64 both wider than the
+# trunk's blocks and as wide, where its 1-head attention has no output
+# linear)
+FAMILIES = {
+    "hnerv_boost_3m_uvg1080p": lambda: small.config("hnerv_boost_3m_uvg1080p"),
+    "nerv_boost_10m_uvg1080p": lambda: small.config("nerv_boost_10m_uvg1080p"),
+    "enerv_boost": small.enerv_boost,
+    "enerv_boost_d64": lambda: small.enerv_boost(block_dim=64),
+}
 
 
 def test_inputs_follow_the_seed():
@@ -28,7 +40,8 @@ def test_inputs_follow_the_seed():
     a = inputs.make_weights(m, SEED, "cpu")
     b = inputs.make_weights(m, SEED, "cpu")
     c = inputs.make_weights(m, SEED + 1, "cpu")
-    assert a.keys() == b.keys() == set(ref.param_shapes(m))
+    assert a.keys() == b.keys() == set(
+        harness.family(m["model"]).param_shapes(m))
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["head.weight"], c["head.weight"])
     assert torch.equal(inputs.make_embeds(3, (2, 2, 8), SEED, "cpu"),
@@ -104,65 +117,87 @@ def _tiny_pe(cfg):
     return cfg
 
 
-@pytest.mark.parametrize("name", ["hnerv_boost_3m_uvg1080p",
-                                  "nerv_boost_10m_uvg1080p"])
+@pytest.mark.parametrize("name", sorted(FAMILIES))
 def test_reference_agrees_with_itself_in_float64(name):
-    cfg = _tiny_pe(small.config(name))
+    cfg = _tiny_pe(FAMILIES[name]())
     m = cfg["model"]
+    fam = harness.family(m["model"])
     p32 = inputs.make_weights(m, SEED, "cpu")
     p64 = {k: v.double() for k, v in p32.items()}
-    embed = inputs.make_embeds(1, (2, 2, 8), SEED, "cpu")
+    x = fam.frame_inputs(m, 1, SEED, "cpu")
     t = torch.tensor([0.25])
 
-    def dec(p, dtype):
-        if m["model"] == "HNeRV_Boost":
-            return ref.hnerv_decode(embed.to(dtype), t.to(dtype), p, m)
-        return ref.nerv_decode(t.to(dtype), p, m)
+    def dec(p, dtype, quant=None, calib=None):
+        return fam.decode(None if x is None else x.to(dtype), t.to(dtype),
+                          p, m, quant, calib)
 
     a, b = dec(p64, torch.float64), dec(p64, torch.float64)
     assert torch.equal(a, b)
     assert (dec(p32, torch.float32).double() - a).abs().max() < 1e-4
     # the 8-bit stages sit between float32 and a 4-bit copy
-    stages = ref.w8a8_stages(m, ref.stage_plan(m))
+    stages = ref.w8a8_stages(m, fam.stage_plan(m))
     assert stages
     got = {}
     for bits in (8, 4):
         q = ref.Quant(tuple(stages), bits)
         q.bounds = ref.calibrate(
-            lambda *a_, quant=None, calib=None: (
-                ref.hnerv_decode(embed, t, p32, m, quant, calib)
-                if m["model"] == "HNeRV_Boost" else
-                ref.nerv_decode(t, p32, m, quant, calib)),
-            [(embed, t)], stages)
-        out = (ref.hnerv_decode(embed, t, p32, m, q)
-               if m["model"] == "HNeRV_Boost" else ref.nerv_decode(t, p32, m, q))
-        got[bits] = float((out.double() - a).abs().mean())
+            lambda _x, _t, quant=None, calib=None: dec(
+                p32, torch.float32, quant, calib), [(x, t)], stages)
+        got[bits] = float((dec(p32, torch.float32, q).double() - a)
+                          .abs().mean())
     assert 0 < got[8] < got[4]
 
 
-@pytest.mark.parametrize("name", ["hnerv_boost_3m_uvg1080p",
-                                  "nerv_boost_10m_uvg1080p"])
+@pytest.mark.parametrize("name", sorted(FAMILIES))
 def test_reference_matches_the_program_in_float64(name):
     """The reference's equations are the program's: its model in float64
-    on the same weights (the positional encoding is float32 in both)."""
+    on the same weights, strictly loaded (the positional encoding is
+    float32 in both); the training forward where the family has one, else
+    the decode."""
     from boosting_nerv_torch.models import build_model
 
-    cfg = _tiny_pe(small.config(name))
+    cfg = _tiny_pe(FAMILIES[name]())
     m = cfg["model"]
+    fam = harness.family(m["model"])
     p = {k: v.double() for k, v in inputs.make_weights(m, SEED, "cpu").items()}
     model = build_model(drivers.port_config(cfg), seed=None, device="cpu")
-    model.load_state_dict(p)
+    model.load_state_dict(p, strict=True)
     model.double()
     t = torch.tensor([0.25, 0.75])
     with torch.no_grad():
-        if m["model"] == "HNeRV_Boost":
+        if hasattr(fam, "forward"):
             img = inputs.make_clip(2, 240, 240, SEED, "cpu").double() / 255
             want = model(img, t)
-            got = ref.hnerv_forward(img, t, p, m)
+            got = fam.forward(img, t, p, m)
         else:
             want = model(t)
-            got = ref.nerv_decode(t, p, m)
+            got = fam.decode(None, t, p, m)
     assert (got - want).abs().max() < 1e-5
+
+
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_counts_match_the_flop_counter(name):
+    """``counts.decoder_layers`` (and, where the family trains, the
+    encoder's) hold every multiply-add that torch's FLOP counter finds in
+    the reference's decode (forward) of one frame: the convs, the linears
+    and the attention's two products."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    cfg = FAMILIES[name]()
+    m = cfg["model"]
+    fam = harness.family(m["model"])
+    p = inputs.make_weights(m, SEED, "cpu")
+    x = fam.frame_inputs(m, 1, SEED, "cpu")
+    t = torch.tensor([0.25])
+    with torch.no_grad(), FlopCounterMode(display=False) as flops:
+        fam.decode(x, t, p, m)
+    assert flops.get_total_flops() == 2 * sum(
+        layer.macs for layer in counts.decoder_layers(cfg))
+    if hasattr(fam, "forward"):
+        img = inputs.make_clip(1, 240, 240, SEED, "cpu").float() / 255
+        with torch.no_grad(), FlopCounterMode(display=False) as flops:
+            fam.forward(img, t, p, m)
+        assert 3 * flops.get_total_flops() == counts.train_flops(cfg, 1)
 
 
 def _imports(path):
@@ -183,11 +218,76 @@ def test_nothing_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
+    """No reference file, each family's included, imports the program,
+    JAX or the JAX package: by its own imports, and by what loading every
+    family leaves loaded in a fresh process."""
     files = glob.glob(os.path.join(BENCH, "reference", "*.py"))
-    assert files
+    families = {os.path.basename(f)[:-3] for f in files} - {
+        "__init__", "models", "train"}
+    assert families == {"hnerv_boost", "nerv_boost", "enerv_boost"}
     bad = [(f, n) for f in files for n in _imports(f)
            if n.split(".")[0] == "boosting_nerv_torch"]
     assert bad == []
+    probe = ("import sys\n"
+             "from bench_h100 import harness\n"
+             f"for name in {sorted(families)!r}:\n"
+             "    harness.family(name)\n"
+             "print(sorted({k.split('.')[0] for k in sys.modules}))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=small.ROOT,
+                         capture_output=True, text=True, timeout=120)
+    loaded = set(ast.literal_eval(out.stdout.strip().splitlines()[-1]))
+    assert "bench_h100" in loaded
+    assert loaded.isdisjoint({"boosting_nerv_torch", *harness.FORBIDDEN})
+
+
+NAMELESS = ("drivers.py", "counts.py", "inputs.py", "harness.py",
+            "control.py")
+
+
+@pytest.mark.parametrize("name", NAMELESS)
+def test_the_harness_names_no_family(name):
+    """The family is found by the configuration's ``model``, through its
+    file: the generator, the counts, the inputs, the lookup and the
+    controls name no family and compare nothing with ``["model"]``."""
+    src = open(os.path.join(BENCH, name)).read()
+    assert re.findall(r"\w*NeRV\w*", src) == []
+    branches = [node.lineno for node in ast.walk(ast.parse(src))
+                if isinstance(node, ast.Compare) and any(
+                    isinstance(sub, ast.Subscript)
+                    and isinstance(sub.slice, ast.Constant)
+                    and sub.slice.value == "model"
+                    for side in (node.left, *node.comparators)
+                    for sub in ast.walk(side))]
+    assert branches == []
+
+
+def test_an_unknown_family_stops_with_its_path():
+    cfg = small.config("nerv_boost_10m_uvg1080p")
+    cfg["model"]["model"] = "Tiny_Family"
+    want = os.path.join(BENCH, "reference", "tiny_family.py")
+    with pytest.raises(SystemExit, match=re.escape(want)):
+        harness.family("Tiny_Family")
+    with pytest.raises(SystemExit, match=re.escape(want)):
+        drivers.DecodeCell(cfg, small.mix("seek_bf16"), SEED, "cpu")
+    with pytest.raises(SystemExit, match=re.escape(want)):
+        inputs.make_weights(cfg["model"], SEED, "cpu")
+    assert harness.family("NeRV_Boost").HEAD_K == 1
+
+
+@pytest.mark.parametrize("change,missing", [
+    ({"loss": "L2"}, "loss 'L2'"),
+    ({"optim_type": "Adam"}, "optim_type 'Adam'"),
+    ({"lr_type": "hybrid_0.1_1_0.1"}, "lr_type 'hybrid'"),
+    ({"model": "NeRV_Boost"}, "no training forward"),
+])
+def test_the_trainer_refuses_what_the_reference_lacks(change, missing):
+    cfg = small.config("hnerv_boost_3m_uvg1080p")
+    model = change.pop("model", None)
+    if model:
+        cfg = small.config("nerv_boost_10m_uvg1080p")
+    cfg["train"].update(change)
+    with pytest.raises(ValueError, match=re.escape(missing)):
+        drivers.TrainCell(cfg, small.mix("train"), SEED, "cpu")
 
 
 def test_spec_names_its_files():

@@ -40,6 +40,18 @@ def test_sound_run_is_correct(workload, trace):
         assert "setup_s" in res["metrics"]
 
 
+@pytest.mark.parametrize("trace", [0, 1])
+def test_a_third_family_enters_by_its_file(trace):
+    """E-NeRV-Boost, which no cell serves, through the seek cell's mix and
+    limits: its configuration built here, its reference found by the
+    model's name (``reference/enerv_boost.py``), and nothing else added."""
+    res = run_cell(small.bench(), "nerv_boost_10m_uvg1080p.seek_bf16", SEED,
+                   0.5, trace, device="cpu", config=small.enerv_boost(),
+                   mix=small.mix("seek_bf16"))[0]
+    assert res["correct"] and res["failed"] == 0 and res["attempted"] > 0
+    assert set(res["checks"]) == {"frame_mae", "frames_missing"}
+
+
 def _cell(workload):
     cfg, mix = CELLS[workload]
     kind = drivers.KINDS[small.mix(mix)["kind"]]
