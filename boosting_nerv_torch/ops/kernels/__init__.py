@@ -15,7 +15,9 @@ and binds it.
 every wrapper of these modules adds to it where it launches and nowhere
 else.  ``serving_prefix_graph`` counts the replays of the v5 serving
 decode's prefix graph (``runtime/fast_decode.py``'s ``PrefixGraph``), one
-a frame on a CUDA device."""
+a frame on a CUDA device; ``conv_sm90_kloop`` the launches of the bf16
+conv that took its K loop (``conv_sm90.launch`` of more than 128 input
+channels: E-NeRV-Boost's stage 2), whichever wrapper made them."""
 
 LAUNCHES = dict.fromkeys(
     ("fused_upconv_rsft", "fused_conv_rsft", "fused_upconv_rsft_i8",
@@ -23,7 +25,7 @@ LAUNCHES = dict.fromkeys(
      "resblock_sft_tile_v3", "conv3x3_act_chw", "head_conv_chw",
      "resblock_sft_chw", "conv_planar", "rsft_planar", "stage_conv_probe",
      "stage_conv_i8_probe", "gemm_probe", "stage_build_probe",
-     "conv_sm90_probe", "serving_prefix_graph"), 0)
+     "conv_sm90_probe", "serving_prefix_graph", "conv_sm90_kloop"), 0)
 
 
 def reset_launch_counts() -> None:

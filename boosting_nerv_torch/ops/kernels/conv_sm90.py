@@ -66,8 +66,9 @@ here:
   repacked into the operand tile from the raw rows of all Cin channels;
   ``pack_weight`` packs its weight [slice][chunk][tap][K step of the
   chunk]...; ``fit`` mirrors its plan (the operand tile and a ring slot
-  of one chunk) and ``emulate`` its chunks.  The int8 form and the other
-  modes keep 128.
+  of one chunk) and ``emulate`` its chunks; ``launch`` counts each
+  K-loop launch in ``LAUNCHES["conv_sm90_kloop"]``.  The int8 form and
+  the other modes keep 128.
 
 ``launch`` is one kernel launch; ``rsft`` the two launches of a
 ResBlockSFT (of sin(y) with ``input_sin``), ``rsft_planar`` those of the
@@ -88,7 +89,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build, quant
+from . import LAUNCHES, _build, quant
 
 BF16, S8, S8Q = 0, 1, 2            # operand forms (conv_sm90.cuh::Form)
 NS_CHOICES = (8, 56, 64, 80)       # the bf16 form's instances (N slices)
@@ -104,6 +105,7 @@ REPACK_COST, SLICE_COST = 1, 4
 # the modes of a bf16 launch (conv_sm90.cuh::Mode)
 NONE, SIN_INPUT, SIN_RESIDUAL, PLANAR_IN, PLANAR_OUT, PLANAR_IO = range(6)
 KLOOP = 6                          # Cin beyond MAX_CIN_PAD: mode_of gives it
+KLOOP_LAUNCHES = "conv_sm90_kloop"  # the LAUNCHES key of K-loop launches
 PLANAR_MODES = (PLANAR_IN, PLANAR_OUT, PLANAR_IO)
 PBX, PBX_LEAD = 48, 8              # a planar input's box: columns, lead
 
@@ -475,6 +477,7 @@ def launch(lib, x, w, b, out, *, act="none", shuffle=False, in_affine=None,
             *ptrs, _ptr(out_inv), _ptr(out), n, h, wd, cin, cout,
             ACT_CODES[act], int(shuffle), k, ns, None, stream)
         _build.check(err, "conv_sm90 K-loop launch")
+        LAUNCHES[KLOOP_LAUNCHES] += 1
         return
     if mode != NONE:
         err = lib.bnt_conv_sm90_sin(*ptrs, _ptr(out), n, h, wd, cin, cout,

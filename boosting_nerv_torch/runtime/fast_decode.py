@@ -61,7 +61,9 @@ stem in the decode, as in JAX.
 - On a CUDA tensor the wrappers launch the hand-written kernels or raise;
   there is no fallback, and a calibration that fails raises.
   ``ops.kernels.LAUNCHES`` counts their launches and
-  ``decode.launches_per_frame`` says how many one frame makes.
+  ``decode.launches_per_frame`` says how many one frame makes
+  (``conv_sm90_kloop``: the stage convs of more than 128 input channels,
+  which take the K loop of the bf16 form, E-NeRV-Boost's stage 2).
 - Where the parameters are on a CUDA device, the v5 decode runs its front
   (the PE and time MLP, the prefix with its NHWC copy, and the SFT vectors
   of every planar tail stage, which depend on t_embed alone) as one CUDA
@@ -79,9 +81,10 @@ stem in the decode, as in JAX.
   ``decode.kernel``) and, where the head runs in plain torch,
   ``decode.head``.  On the graph path ``decode.prefix`` is a leaf (the
   input copies and the replay); eagerly it holds ``decode.pe``,
-  ``decode.time_mlp``, ``decode.stem`` and ``decode.block<i>`` (the NHWC
-  copy in the last of them), and each ``decode.stage<i>`` opens with a
-  ``decode.sft`` leaf.  The other decodes share the eager prefix and
+  ``decode.time_mlp``, ``decode.stem`` (E-NeRV-Boost's around a
+  ``decode.trunk`` leaf, its transformer trunk) and ``decode.block<i>``
+  (the NHWC copy in the last of them), and each ``decode.stage<i>`` opens
+  with a ``decode.sft`` leaf.  The other decodes share the eager prefix and
   record its spans outside any unit.
 
 The TPU-only machinery of the JAX decode (tile policies, chunking, the
@@ -105,8 +108,8 @@ from ..config import BoostConfig, model_stage_plan
 from ..models.enerv import ENeRVBoost
 from ..models.hnerv import HNeRVBoost
 from ..models.nerv import NeRVBoost, grid_nchw
-from ..ops.kernels import (LAUNCHES, conv_chw, fused_sft, planar, quant,
-                           tile_conv)
+from ..ops.kernels import (LAUNCHES, conv_chw, conv_sm90, fused_sft, planar,
+                           quant, tile_conv)
 from ..ops.kernels.planar import nchw, nhwc
 from ..ops.pe import position_encoding
 from ..utils import tracing
@@ -232,6 +235,16 @@ class TailStage:
 
     def sft(self, t_embed: torch.Tensor) -> torch.Tensor:
         return _sft_vectors(self.sft0, self.sft1, t_embed)
+
+    @property
+    def kloop_launches(self) -> int:
+        """The stage's launches that take the bf16 form's K loop: its bf16
+        convs of more than 128 input channels."""
+        w = self.weights
+        if isinstance(w, planar.StageWeightsI8):
+            return 0
+        return sum(conv_sm90.wide(v.shape[3])
+                   for v in (w.conv_w, w.w0, w.w1, w.head_w) if v is not None)
 
 
 @dataclass(frozen=True)
@@ -375,7 +388,8 @@ def _prefix(model: Model, switch_at: int):
     t_branch(PE(t)); the index-only families ignore ``embed`` and take
     their stem from t.  Spans: ``decode.pe`` (each positional encoding:
     NeRV-Boost's stem makes a second), ``decode.time_mlp``,
-    ``decode.stem``, ``decode.block<i>``."""
+    ``decode.stem`` (E-NeRV-Boost's holds its transformer trunk's leaf,
+    ``decode.trunk``), ``decode.block<i>``."""
     cfg = model.cfg
     blocks = [(f"decode.block{bi}", _bf16(model.blocks[bi]))
               for bi in range(switch_at)]
@@ -410,7 +424,8 @@ def _prefix(model: Model, switch_at: int):
             elif cfg.model == "NeRV_Boost":
                 x = grid_nchw(stem(p), cfg.fc_h, cfg.fc_w)
             else:
-                x = trunk(t.to(device))[0]
+                with span("decode.trunk"):
+                    x = trunk(t.to(device))[0]
             if not blocks:
                 x = out(x)
         for k, (name, blk) in enumerate(blocks, 1):
@@ -701,8 +716,8 @@ def build_fast_decode_v5(cfg: BoostConfig,
     tail (None without one); ``decode.graph`` the front's ``PrefixGraph``
     on a CUDA device (None elsewhere); ``decode.w8a8_stages`` /
     ``decode.w8a8_zc`` list the stages served in W8A8 and those that
-    receive int8 codes; ``decode.launches_per_frame`` the wrapper calls
-    and graph replays one frame makes."""
+    receive int8 codes; ``decode.launches_per_frame`` the wrapper calls,
+    graph replays and K-loop launches one frame makes."""
     check_config(cfg)
     model = _as_model(cfg, params_or_model)
     plan, out_hw, switch_at, fine_at = _tail(cfg, planar_from_h,
@@ -790,10 +805,12 @@ def build_fast_decode_v5(cfg: BoostConfig,
     decode.graph = graph
     decode.w8a8_stages = i8_stages
     decode.w8a8_zc = zc
+    kloop = sum(st.kloop_launches for st in tail)
     decode.launches_per_frame = {
         **Counter(st.kernel for st in tail),
         **(fine.launches_per_frame() if fine else {}),
-        **({GRAPH: 1} if graph else {})}
+        **({GRAPH: 1} if graph else {}),
+        **({conv_sm90.KLOOP_LAUNCHES: kloop} if kloop else {})}
     return decode
 
 

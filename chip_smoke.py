@@ -160,7 +160,12 @@ Phases, one line of output each (or one line per shape):
    lr, Fusion10_freq, Adan, TF32 off, E-NeRV-Boost's clip 1.0): the
    first loss against a forward just before it (1e-5 relative), every
    loss finite, ``measure_fps``'s launches (3 + 3 a decode), the median
-   step ms and the peak allocation; and one step of the HNeRV baseline
+   step ms and the peak allocation; E-NeRV-Boost 15M's serving decode
+   (seeded random weights): one K-loop launch a frame, and its prefix
+   graph's bf16 output (stage 2's NHWC input) within TRUNK_TOL of the
+   float32 model's trunk, t_branch and stages 0-1 at three t, with trans2
+   left out or ReLU for GELU on the float32 side each outside it; and
+   one step of the HNeRV baseline
    (scripts/regression/UVG/hnerv.sh, modelsize 3, fc_dim 83), whose fps
    clock times its eager decode (no kernel launch); then the phase's
    seconds;
@@ -352,15 +357,23 @@ FAMILY_SIZES = {"NeRV_Boost": 5.2, "ENeRV_Boost": 4.3}
 FAMILY_LR = {"NeRV_Boost": 0.003, "ENeRV_Boost": 0.0015}
 FAMILY_W8A8 = {"NeRV_Boost": [3], "ENeRV_Boost": [3, 7]}
 ENERV_15M = 5.8     # enerv_boost.sh's 15M: stage 2 takes Cin 213
+# gap() of E-NeRV-Boost 15M's prefix graph output (bf16, the NHWC input of
+# stage 2) against the float32 model's at the same point: bf16's rounding
+# through the trunk and stages 0-1 reads 0.53-0.55% (CPU, build_model seed
+# 0), the trunk without trans2 9.1-9.5%, ReLU for GELU 2.7-3.2%
+TRUNK_TOL = 0.012
+TRUNK_TS = (0.01, 0.37, 1.0)
 FAMILY_LAUNCHES = {  # a frame's launches, bf16 (False) and W8A8 (True)
     ("NeRV_Boost", False): SERVING_LAUNCHES,
     ("NeRV_Boost", True): {"fused_upconv_rsft": 3, "fused_conv_rsft": 2,
                            "fused_conv_rsft_i8": 1,
                            "serving_prefix_graph": 1},
-    ("ENeRV_Boost", False): SERVING_LAUNCHES,
+    # stage 2 (Cin 172) takes the bf16 form's K loop
+    ("ENeRV_Boost", False): {**SERVING_LAUNCHES, "conv_sm90_kloop": 1},
     ("ENeRV_Boost", True): {"fused_upconv_rsft": 3, "fused_conv_rsft": 1,
                             "fused_conv_rsft_i8": 2,
-                            "serving_prefix_graph": 1}}
+                            "serving_prefix_graph": 1,
+                            "conv_sm90_kloop": 1}}
 # phase 14, the tasks slice: scripts/interpolation/*.sh at full width
 TASK_FRAMES = 17     # 9 even frames train, 8 odd frames test
 TASK_ROOT = os.path.join(REPO, "output", "chip_smoke_tasks")
@@ -2262,8 +2275,8 @@ def run_family_train(model, cfg, video, root, device_line):
     kernels.reset_launch_counts()
     fps = tr.measure_fps(reps=FPS_REPS)
     fps_launches = dict(kernels.LAUNCHES)
-    want_fps = {k: SERVING_LAUNCHES.get(k, 0) * (FPS_REPS + 1)
-                for k in fps_launches}
+    want_fps = {k: FAMILY_LAUNCHES[(model, False)].get(k, 0)
+                * (FPS_REPS + 1) for k in fps_launches}
     step_ms, peak = _step_ms_and_peak(tr, 3)
     print(f"family {model} train: {len(losses)} steps and its eval in "
           f"{train_s:.1f} s (fc_dim {tr.cfg.fc_dim}, "
@@ -2310,12 +2323,89 @@ def widest_k_loop_cases(gen):
              False)]
 
 
+def gap(got, want) -> float:
+    """Mean absolute gap over the float32 side's mean magnitude."""
+    return float((got.float() - want).abs().mean() / want.abs().mean())
+
+
+def check_trunk_15m(device_line):
+    """Phase 12's check of E-NeRV-Boost 15M's front on the serving decode
+    (``enerv_boost.sh`` at modelsize 5.8, seeded random weights): its
+    launches a frame (stage 2's Cin 213 on the K loop), and at each of
+    ``TRUNK_TS`` the prefix graph's output against the float32 model's
+    trunk, t_branch and stages 0-1 within ``TRUNK_TOL``; then the float32
+    side with trans2 left out, and with ReLU for GELU in both feed-forwards,
+    each outside it, so the tolerance sees a broken trunk.  (Eight heads
+    attended as one moves the prefix by less than bf16's rounding at
+    seeded weights, so no bf16 comparison sees that fault.)  Returns the
+    launch counts of its frames."""
+    import torch.nn.functional as F
+
+    from boosting_nerv_torch.models import build_model
+    from boosting_nerv_torch.runtime.fast_decode import build_serving_decode
+
+    cfg = family_config("ENeRV_Boost", ENERV_15M)
+    model = build_model(cfg, seed=0).eval()
+    decode = build_serving_decode(cfg, model)
+    want = {**SERVING_LAUNCHES, "conv_sm90_kloop": 1}
+    if decode.launches_per_frame != want or decode.graph is None:
+        raise SmokeFailure(f"ENeRV_Boost 15M launches per frame "
+                           f"{decode.launches_per_frame}, expected {want}, "
+                           f"graph {decode.graph}")
+    trunk, first = model.trunk, decode.tail[0].index
+    faults = {"no trans2": [(trunk, "trans2", torch.nn.Identity())],
+              "ReLU for GELU": [(b.ff, "act", F.relu)
+                                for b in (trunk.trans1, trunk.trans2)]}
+
+    def prefix(t):
+        x, pe_t = trunk(t)
+        t_embed = model.t_branch(pe_t)
+        for blk in model.blocks[:first]:
+            x = blk(x, t_embed)
+        return x.permute(0, 2, 3, 1)
+
+    runs, gaps = [], {k: [] for k in ("sound", *faults)}
+    for v in TRUNK_TS:
+        t = torch.tensor([v], dtype=torch.float32, device="cuda")
+        _, launches = serve(decode, None, [t])
+        runs.append(launches)
+        got = decode.graph.out[0].clone()
+        with torch.no_grad():
+            gaps["sound"].append(gap(got, prefix(t)))
+            for name, swaps in faults.items():
+                kept = [getattr(o, k) for o, k, _ in swaps]
+                for o, k, fault in swaps:
+                    setattr(o, k, fault)
+                try:
+                    gaps[name].append(gap(got, prefix(t)))
+                finally:
+                    for (o, k, _), old in zip(swaps, kept):
+                        setattr(o, k, old)
+    print(f"family ENeRV_Boost 15M (fc_dim {cfg.fc_dim}, "
+          f"{sum(p.numel() for p in model.parameters())} params) trunk: "
+          f"prefix graph {tuple(got.shape)} {got.dtype} vs the float32 "
+          f"model at t {TRUNK_TS}: gap "
+          + "; ".join(f"{k} {[round(g, 5) for g in v]}"
+                      for k, v in gaps.items())
+          + f" (tol {TRUNK_TOL}); launches a frame "
+          f"{ {k: v for k, v in want.items() if v} } [{device_line}]",
+          flush=True)
+    if not (tuple(got.shape) == (1, 135, 240, 213)
+            and max(gaps["sound"]) <= TRUNK_TOL
+            and all(min(gaps[k]) > TRUNK_TOL for k in faults)):
+        raise SmokeFailure(f"ENeRV_Boost 15M trunk: gaps {gaps}, shape "
+                           f"{tuple(got.shape)}")
+    del decode, model
+    return runs
+
+
 def run_families_phase(summary, device_line):
     """Phase 12: NeRV-Boost and E-NeRV-Boost at UVG-1080p 10M full width
     (seeded random weights) on the serving decode in bf16 and W8A8, each
     wrapper against its plain version at every tail shape (stage 2 of
     E-NeRV-Boost: the K loop's Cin 172), their frames and launches, the
-    timing turns, and their training; then one train step of the HNeRV
+    timing turns, and their training; E-NeRV-Boost 15M's trunk
+    (``check_trunk_15m``); then one train step of the HNeRV
     baseline, whose fps clock times its eager decode.  Adds the wrapper
     checks' errors to ``summary``; returns the launch counts of its
     runs."""
@@ -2411,6 +2501,7 @@ def run_families_phase(summary, device_line):
         summary["fused_upconv_rsft"]["max_abs_err"] = max(
             summary["fused_upconv_rsft"]["max_abs_err"],
             got["fused_upconv_rsft"]["max_abs_err"])
+        runs += check_trunk_15m(device_line)
 
         hcfg = hnerv_config(os.path.join(root, "HNeRV"))
         tr = RegressionTrainer(hcfg, video=video, device="cuda",

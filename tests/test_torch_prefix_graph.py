@@ -12,9 +12,10 @@ the same bits, with ``decode.prefix`` a leaf.
 Marked ``card`` (skipped without a CUDA device): the graph decode against
 the eager decode built through the same code with the graph forced off,
 bitwise, over 16 frames in order and in a random order with no
-synchronise between frames, for the two benchmark configurations
-(HNeRV-Boost W8A8, NeRV-Boost bf16) and a tiny E-NeRV-Boost; and a freed
-graph decode gives its memory back.  Run them on the card (this file
+synchronise between frames, for the three benchmark configurations
+(HNeRV-Boost W8A8, NeRV-Boost bf16, E-NeRV-Boost 15M bf16, whose stage 2
+takes the K loop once a frame) and a tiny E-NeRV-Boost; and a freed graph
+decode gives its memory back.  Run them on the card (this file
 imports no JAX, so without the JAX conftest):
 
     python3 -m pytest --noconftest -p no:cacheprovider \\
@@ -34,6 +35,7 @@ from boosting_nerv_torch.config import BoostConfig
 from boosting_nerv_torch.models import build_model
 from boosting_nerv_torch.ops import pe
 from boosting_nerv_torch.ops.kernels import LAUNCHES
+from boosting_nerv_torch.ops.kernels.conv_sm90 import KLOOP_LAUNCHES
 from boosting_nerv_torch.runtime import fast_decode
 from boosting_nerv_torch.runtime.fast_decode import (GRAPH,
                                                      build_fast_decode_v5)
@@ -183,12 +185,14 @@ def _bench_config(name: str) -> BoostConfig:
 
 @pytest.mark.card
 def test_graph_decode_is_the_eager_decode_on_card(card, monkeypatch):
-    cases = [(_bench_config("hnerv_boost_3m_uvg1080p"), True, {}),
-             (_bench_config("nerv_boost_10m_uvg1080p"), False, {}),
+    # (config, W8A8, build options, K-loop launches a frame)
+    cases = [(_bench_config("hnerv_boost_3m_uvg1080p"), True, {}, 0),
+             (_bench_config("nerv_boost_10m_uvg1080p"), False, {}, 0),
+             (_bench_config("enerv_boost_15m_uvg1080p"), False, {}, 1),
              (BoostConfig(model="ENeRV_Boost", **{**TINY, "fc_dim": 8}),
-              False, {"planar_from_h": 1})]
+              False, {"planar_from_h": 1}, 0)]
     order = np.random.default_rng(5).permutation(16).tolist()
-    for cfg, w8a8, kw in cases:
+    for cfg, w8a8, kw, kloop in cases:
         model = build_model(cfg, seed=0, device=card).eval()
         frames = _frames(cfg, 16, card, seed=1)
         with monkeypatch.context() as m:
@@ -198,13 +202,15 @@ def test_graph_decode_is_the_eager_decode_on_card(card, monkeypatch):
         want = [eager(*f) for f in frames]
         dec = _decode(cfg, model, frames, w8a8, **kw)
         assert dec.launches_per_frame[GRAPH] == 1
-        before = LAUNCHES[GRAPH]
+        assert dec.launches_per_frame.get(KLOOP_LAUNCHES, 0) == kloop
+        before = LAUNCHES[GRAPH], LAUNCHES[KLOOP_LAUNCHES]
         for idx in (list(range(16)), order):
             got = [dec(*frames[i]) for i in idx]   # no synchronise between
             torch.cuda.synchronize()
             for i, out in zip(idx, got):
                 assert torch.equal(out, want[i]), (cfg.model, i)
-        assert LAUNCHES[GRAPH] - before == 32
+        assert (LAUNCHES[GRAPH] - before[0],
+                LAUNCHES[KLOOP_LAUNCHES] - before[1]) == (32, 32 * kloop)
         del model, eager, dec, want, got
 
 

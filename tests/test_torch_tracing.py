@@ -1,7 +1,8 @@
 """The port's span recorder (``boosting_nerv_torch/utils/tracing.py``) on
 the CPU: off without a recording profiler; on under one, the span trees of
-the v5 decode (tiny HNeRV-Boost and NeRV-Boost, plain wrappers) and of the
-trainer's step, with every operation inside a leaf and the host stamps on
+the v5 decode (tiny HNeRV-Boost, NeRV-Boost and E-NeRV-Boost, plain
+wrappers; E-NeRV-Boost's transformer trunk a leaf of its own in the stem)
+and of the trainer's step, with every operation inside a leaf and the host stamps on
 the profiler's clock; and the summary's arithmetic on hand-made records
 with a made-up device clock."""
 
@@ -138,7 +139,8 @@ def _peak_bytes(span):
     return peak - base
 
 
-@pytest.mark.parametrize("model", ["HNeRV_Boost", "NeRV_Boost"])
+@pytest.mark.parametrize("model", ["HNeRV_Boost", "NeRV_Boost",
+                                   "ENeRV_Boost"])
 def test_decode_span_tree(model):
     dec, frames = _decode(model)
     dec(*frames[0])   # warm
@@ -166,10 +168,14 @@ def test_decode_span_tree(model):
     stages = [f"decode.stage{st.index}" for st in dec.tail]
     assert _tree(spans, root) == ["decode.prefix", "decode.tail"]
     prefix, tail = (s for s in spans if s.parent == root.id)
-    pe_stem = (["decode.pe", "decode.time_mlp", "decode.stem"]
-               if model == "HNeRV_Boost" else
-               ["decode.pe", "decode.time_mlp", "decode.pe", "decode.stem"])
+    pe_stem = (["decode.pe", "decode.time_mlp", "decode.pe", "decode.stem"]
+               if model == "NeRV_Boost" else
+               ["decode.pe", "decode.time_mlp", "decode.stem"])
     assert _tree(spans, prefix) == pe_stem + ["decode.block0"]
+    stem = next(s for s in spans
+                if s.parent == prefix.id and s.name == "decode.stem")
+    assert _tree(spans, stem) == (["decode.trunk"]
+                                  if model == "ENeRV_Boost" else [])
     assert _tree(spans, tail) == stages
     for st in (s for s in spans if s.parent == tail.id):
         assert _tree(spans, st) == ["decode.sft", "decode.kernel"]
